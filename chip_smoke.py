@@ -5,22 +5,40 @@
 
 Phases, each fatal on failure (no exception is caught):
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit.
-2. build: compiles csrc/walk.cu with nvcc for sm_90a; prints ptxas' report.
+2. build: compiles csrc/walk.cu and csrc/walk_grad.cu with nvcc for sm_90a
+   (two nvcc processes at once); prints ptxas' report.
 3. kernels: K1 (fitness_tiles) and K2 (render_tiles) against their plain
    PyTorch versions on bit-identical lists, at the GA main path's shapes
    (512x512, N=512, B=32, 64x128 tiles, exact-tight and highest), on an odd
-   canvas, and with bin_capacity truncating the lists; plus the entry points
-   on a small input against the dense oracle on the CPU.
-4. main path: `python -m ggs_tpu_torch.run_ga` at its defaults (synthetic
-   512x512 target, N=512, P=32, exact-tight) for GENERATIONS generations,
-   with every launch count set to 0 before and read after: the best fitness
-   must fall, K1 must launch at least once a generation, K2 for the export.
-5. times: K1 at B=32 and B=512, K2 at B=1 and B=32, with CUDA events over
-   many launches after a warm-up, their plain versions, the port's evaluate
-   in renders/s at B=512 and the GA in generations/s over several blocks;
-   each kernel's bound is computed from this run's lists.
-6. profile: one GA block under torch.profiler, with the device time split
-   between K1, sorting (the dense binning) and the other kernels.
+   canvas, and with bin_capacity truncating the lists; K6 (bwd_tiles) and
+   K7 (lossgrad_tiles) against theirs at run_grad's shape (B=1, N=2000,
+   512x512, 16x128 tiles) and the memetic elite batch (B=8, N=512), with K7's
+   num against K1 on the same lists, K6 against K7 and a second launch of
+   each for the same bits (each of the 9 gradient rows against its own
+   largest value); plus the entry points (fitness, canvas, fused and
+   unfused genome gradients) on a small input against the dense oracle on
+   the CPU.
+4. main paths, each with every launch count set to 0 before and read after:
+   `python -m ggs_tpu_torch.run_ga` at its defaults (synthetic 512x512
+   target, N=512, P=32, exact-tight) for GENERATIONS generations: the best
+   fitness must fall, K1 launch at least once a generation, K2 for the
+   export; `python -m ggs_tpu_torch.run_grad` at its defaults (N=2000,
+   512x512, exact-tight, mask 0.7) for GRAD_STEPS Adam steps: the loss must
+   fall, K7 launch once a step, K2 for the rescore and export; the unfused
+   gradient (autograd through gradient.make_loss_fn: K2 forward, K6
+   backward) for UNFUSED_STEPS Adam steps at the same shape; and run_ga with
+   --memetic-every 10 --memetic-steps 5 for 50 generations: the best must
+   fall and stay monotone, K7 launch 25 times.
+5. times: K1 at B=32 and B=512, K2 at B=1 and B=32 and on run_grad's lists
+   (K2', RenderDiff's forward), K6 and K7 at both gradient shapes, with CUDA events over many launches after a warm-up,
+   their plain versions, the port's evaluate in renders/s at B=512, the GA
+   in generations/s over several blocks, and Adam steps/s at run_grad's
+   defaults and at bench.py's gradient configuration, one Adam block under
+   torch.cuda's sync debug mode (no host sync allowed); each kernel's bound
+   is computed from this run's lists.
+6. profile: one GA block and one Adam block under torch.profiler, with the
+   device time split between the walk kernel, sorting (the dense binning)
+   and the other kernels.
 Prints one `kernels` JSON line, the card line, and last the device line.
 Imports nothing of JAX.
 """
@@ -38,6 +56,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the GA main path's length; the launch check needs at least 100
 GENERATIONS = 200
 GA_BLOCKS, GA_BLOCK_GENS = 5, 100  # generations/s: timed blocks of the GA
+GRAD_STEPS = 200  # run_grad's main path: Adam steps, one K7 launch each
+UNFUSED_STEPS = 10  # the unfused gradient (K2 + K6) at run_grad's shape
+MEMETIC_GENS, MEMETIC_EVERY, MEMETIC_STEPS = 50, 10, 5
+ADAM_BLOCKS, ADAM_BLOCK_STEPS = 5, 20  # Adam steps/s: timed blocks
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). The f32
 # rate counts an FMA as 2 operations; the walk is built with -fmad=false,
@@ -55,9 +77,24 @@ OPS_PER_PAIR_COLUMN = 5
 # per pixel: K1 clamps (6), 3 sub, 3 squares, 2 add, *w, += (16); K2 clamps
 OPS_PER_PIXEL_K1 = 16
 OPS_PER_PIXEL_K2 = 6
+# The gradient walks (K6, K7) count what the function needs, not the
+# replay csrc/walk_grad.cu chose (pass A, then B1 and B2 each recomputing e):
+# per (splat, pixel) pair in the box one forward step, 23 (2 y compares, qy,
+# 2*sxy, qx*qy, *, +, qy*qy, syy*, +, -0.5*, exp, *a, 1-f, 3 x 3 blend), and
+# one backward step given its e and f, 45 (3 gT, 8 dL/df, 2 dL/dq, 6 + 6 + 3
+# + 4 + 3 for the geometry sums, 6 colour, 2 alpha, 2 for T)
+OPS_PER_PAIR_PIXEL_GRAD = 23 + 45
+OPS_PER_PAIR_COLUMN_GRAD = 5  # one walk: 2 x compares, qx, qx*qx, sxx*
+# per pixel, K7's loss head: 6 clamps, 3 sub, 5 for the squared norm, *w, +=,
+# scale*w, 3 cotangent products
+OPS_PER_PIXEL_K7 = 20
 
 CANVAS_ATOL = 2e-6
 FITNESS_RTOL = 5e-5
+# kernel vs plain gradients: each of the 9 rows (a field over every image
+# and splat) within GRAD_ROW_REL of that row's largest plain magnitude
+GRAD_ROW_REL = 1e-5
+GRAD_SCALED_ATOL = 2e-6  # K6 vs K7, each row divided by its largest value
 
 
 def check(ok: bool, what: str) -> None:
@@ -140,7 +177,16 @@ def bound(c, kernel: str):
     pair_px, pair_cols = pair_counts(c)
     walk_ops = pair_px * OPS_PER_PAIR_PIXEL + pair_cols * OPS_PER_PAIR_COLUMN
     in_bytes = 4 * (B * T + n_list + c["feats"].numel())
-    if kernel == "K1":
+    if kernel in ("K6", "K7"):
+        N = c["feats"].shape[2] - 1
+        ops = pair_px * OPS_PER_PAIR_PIXEL_GRAD + pair_cols * OPS_PER_PAIR_COLUMN_GRAD
+        nbytes = in_bytes + 4 * 9 * B * N  # + the gradients
+        if kernel == "K7":
+            ops += pixels * OPS_PER_PIXEL_K7
+            nbytes += 4 * (4 * Hp * Wp) + 4 * B * T  # target, weights; num
+        else:
+            nbytes += 4 * 3 * pixels  # the image cotangent
+    elif kernel == "K1":
         ops = walk_ops + pixels * OPS_PER_PIXEL_K1
         nbytes = in_bytes + 4 * (4 * Hp * Wp) + 4 * B * T
     else:
@@ -200,10 +246,161 @@ def compare(c, label: str) -> dict:
     return {"canvas": canvas_err, "fitness_rel": fit_rel, "partials": part_err}
 
 
-def profile_split(fn, n_gens: int) -> dict:
-    """Device time of one fn() (n_gens GA generations) under torch.profiler,
-    split between K1, sort kernels (the dense binning) and the rest, with
-    the device's busy share of the host-timed window."""
+def make_grad_case(B, N, H, W, seed=0, device="cuda"):
+    """Random genomes (seeded) -> the gradient walks' inputs: exact-tight
+    lists on the kernels' 16x128 tiles, the raw and folded tables, the
+    padded target and mask, and K6's image cotangent (K7's own head)."""
+    import torch
+
+    from ggs_tpu_torch.ops import codec, render_grad as rg
+
+    th, tw = rg.GRAD_TILE_H, rg.GRAD_TILE_W
+    c = make_case(B, N, H, W, "exact-tight", tile_h=th, tile_w=tw, seed=seed, device=device)
+    p = codec.tighten_boxes_exact(codec.preprocess(c["g9"], H, W, 3.0), 3.0)
+    c["feats_fast"], c["feats"] = c["feats"], rg._splat_feats(p)
+    canvas = run_k2(dict(c, feats=c["feats_fast"]))
+    c["g_img"] = (2.0 * c["w_p"] * (torch.clamp(canvas, 0.0, 1.0) - c["tgt_p"][None])).contiguous()
+    return c
+
+
+def run_k6(c, plain=False):
+    from ggs_tpu_torch.ops import render_grad as rg
+
+    fn = rg.bwd_tiles_plain if plain else rg.bwd_tiles
+    return fn(c["cnt"], c["idx"], c["feats"], c["g_img"], c["n_tx"], c["tile_h"], c["tile_w"],
+              (1.0, 1.0, 1.0))
+
+
+def run_k7(c, plain=False):
+    from ggs_tpu_torch.ops import render_grad as rg
+
+    fn = rg.lossgrad_tiles_plain if plain else rg.lossgrad_tiles
+    return fn(c["cnt"], c["idx"], c["feats"], c["tgt_p"], c["w_p"], c["n_tx"], c["tile_h"],
+              c["tile_w"], (1.0, 1.0, 1.0), 2.0)
+
+
+def row_err(got, want):
+    """[9]: max |got - want| of each gradient row (one field over every
+    image and splat of [B, 9, N]) over that row's largest |want|."""
+    scale = want.abs().amax(dim=(0, 2)).clamp_min(1e-30)
+    return (got - want).abs().amax(dim=(0, 2)) / scale
+
+
+def compare_grad(c, label: str) -> dict:
+    """K6 and K7 against their plain versions on the same lists, K7's num
+    against K1, K6 against K7 (fed K7's own cotangent), and the same bits
+    on a second launch."""
+    import torch
+
+    num, g7 = run_k7(c)
+    num_p, g7_p = run_k7(c, plain=True)
+    g6, g6_p = run_k6(c), run_k6(c, plain=True)
+    k1 = run_k1(dict(c, feats=c["feats_fast"]))
+    torch.cuda.synchronize()
+    err7 = float((g7 - g7_p).abs().max())
+    err6 = float((g6 - g6_p).abs().max())
+    rows7, rows6 = row_err(g7, g7_p).tolist(), row_err(g6, g6_p).tolist()
+    n_k, n_1 = num.sum(1).double(), k1.sum(1).double()
+    num_rel = float(((n_k - n_1).abs() / n_1.abs().clamp_min(1e-30)).max())
+    num_plain_rel = float(((n_k - num_p.sum(1).double()).abs() / n_1.abs()).max())
+    k6_k7 = float(row_err(g6, g7).max())
+    num2, g7b = run_k7(c)
+    same7 = torch.equal(num, num2) and torch.equal(g7, g7b)
+    same6 = torch.equal(g6, run_k6(c))
+    row_max = g7_p.abs().amax(dim=(0, 2)).tolist()
+    print(f"CHECK {label}: per gradient row, max|plain| {fmt(row_max)}, K7 err/row max "
+          f"{fmt(rows7)}, K6 {fmt(rows6)} (each <= {GRAD_ROW_REL}); max abs K7 {err7:.3e} K6 "
+          f"{err6:.3e}; K7 num vs K1 max rel {num_rel:.3e} (<= {FITNESS_RTOL}), vs plain "
+          f"{num_plain_rel:.3e}; K6 vs K7 per row {k6_k7:.3e} (<= {GRAD_SCALED_ATOL}); same bits "
+          f"K6 {same6} K7 {same7}; max cnt {int(c['cnt'].max())}", flush=True)
+    check(max(rows7) <= GRAD_ROW_REL, f"{label}: K7 gradients differ from the plain version")
+    check(max(rows6) <= GRAD_ROW_REL, f"{label}: K6 gradients differ from the plain version")
+    check(num_rel <= FITNESS_RTOL, f"{label}: K7 num differs from K1 by {num_rel}")
+    check(num_plain_rel <= FITNESS_RTOL, f"{label}: K7 num differs from its plain version")
+    check(k6_k7 <= GRAD_SCALED_ATOL, f"{label}: K6 and K7 gradients differ by {k6_k7}")
+    check(same6 and same7, f"{label}: K6/K7 are not the same bits on a second launch")
+    return {"K7": err7, "K6": err6, "K7_rows": rows7, "K6_rows": rows6, "num_rel": num_rel,
+            "K6_vs_K7": k6_k7}
+
+
+def fmt(xs) -> str:
+    return "[" + " ".join(f"{x:.2e}" for x in xs) + "]"
+
+
+def check_grad_entry_points() -> None:
+    """fused_value_and_grad (K7) and autograd through render_diff (K2 + K6)
+    on the card against torch autograd through the dense oracle on the CPU."""
+    import torch
+
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec, fitness, mask, oracle, render_grad as rg
+    from ggs_tpu_torch.utils import io
+
+    H, W = 40, 200
+    g = genome.new_population(torch.Generator().manual_seed(8), 2, 24, H, W, 1.0, 0.3, "cpu")
+    tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device="cpu")
+    wm = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
+    gc = g.clone().requires_grad_(True)
+    img = oracle.render_dense(codec.genome_to_renderer(gc), H, W, box="tight")
+    (ref,) = torch.autograd.grad(fitness.fitness_from_images(img, tgt, wm).mean(), gc)
+    _, fused = rg.fused_value_and_grad(g.cuda(), tgt.cuda(), wm.cuda(), H, W, box="tight")
+    gd = g.cuda().requires_grad_(True)
+    img_d = rg.render_diff(codec.genome_to_renderer(gd), H, W, box="tight")
+    (unfused,) = torch.autograd.grad(
+        fitness.fitness_from_images(img_d, tgt.cuda(), wm.cuda()).mean(), gd
+    )
+    worst = 0.0
+    for got in (fused.cpu(), unfused.cpu()):
+        worst = max(worst, float(((got - ref).abs() / (1e-7 + 1e-3 * ref.abs())).max()))
+    print(f"CHECK gradient entry points vs CPU dense-oracle autograd (B=2 N=24 40x200): "
+          f"worst |diff| / (1e-7 + 1e-3 |ref|) = {worst:.3f} (<= 1)", flush=True)
+    check(worst <= 1.0, "gradient entry points disagree with the oracle's autograd")
+
+
+def adam_steps_per_s(obj, tgt, wm, n_splats: int, seed: int) -> tuple:
+    """Host-timed Adam blocks at B=1 (each ending in a synchronize) after a
+    warm-up block -> (median steps/s, per-block rates)."""
+    import torch
+
+    from ggs_tpu_torch.config import GenomeConfig, GradConfig
+    from ggs_tpu_torch.models import genome, gradient
+
+    gnm = GenomeConfig(n_splats=n_splats)
+    make_opt, step = gradient.make_fit_step(obj, gnm, GradConfig(lr=1e-2))
+    g0 = genome.new_population(torch.Generator(device="cuda").manual_seed(seed), 1, n_splats,
+                               obj.H, obj.W, device="cuda")
+    st, _ = gradient.run_block(gradient.init_state(make_opt, g0), step, tgt, wm, ADAM_BLOCK_STEPS)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(ADAM_BLOCKS):
+        t0 = time.perf_counter()
+        st, fits = gradient.run_block(st, step, tgt, wm, ADAM_BLOCK_STEPS)
+        fits.cpu()
+        torch.cuda.synchronize()
+        rates.append(ADAM_BLOCK_STEPS / (time.perf_counter() - t0))
+    return sorted(rates)[ADAM_BLOCKS // 2], rates, st, step
+
+
+def check_no_sync(fn, what: str) -> None:
+    """fn() must issue its work without waiting for the card: under
+    torch.cuda.set_sync_debug_mode("error") any synchronizing call raises."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"CHECK {what}: no host sync", flush=True)
+
+
+def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
+    """Device time of one fn() (n_gens GA generations or Adam steps) under
+    torch.profiler, split between the walk kernel, sort kernels (the dense
+    binning) and the rest, with the device's busy share of the host-timed
+    window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -214,25 +411,28 @@ def profile_split(fn, n_gens: int) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    split = {"K1": 0.0, "sort": 0.0, "other": 0.0}
+    split = {"walk": 0.0, "sort": 0.0, "other": 0.0}
     by_name = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # user annotations (torch.optim's "Optimizer.step#Adam.step") span
+        # kernels counted on their own
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
-        key = ("K1" if "fitness_kernel" in e.key
+        key = ("walk" if walk in e.key
                else "sort" if "sort" in e.key.lower() or "radix" in e.key.lower() else "other")
         split[key] += us / 1e3
         by_name.append((us / 1e3, e.count, e.key[:90]))
     busy = sum(split.values())
     by_name.sort(reverse=True)
     return {
-        "generations": n_gens,
+        "steps": n_gens,
+        "walk_kernel": walk,
         "wall_ms_under_profiler": wall_ms,
         "device_ms": split,
         "device_busy_share": busy / wall_ms,
-        "kernels_per_generation": sum(n for _, n, _ in by_name) / n_gens,
+        "kernels_per_step": sum(n for _, n, _ in by_name) / n_gens,
         "top": [{"ms": ms, "count": n, "name": k} for ms, n, k in by_name[:8]],
     }
 
@@ -247,10 +447,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from ggs_tpu_torch import run_ga
-    from ggs_tpu_torch.config import GAConfig, GenomeConfig, MaskConfig
-    from ggs_tpu_torch.models import ga, genome
+    from ggs_tpu_torch import run_ga, run_grad
+    from ggs_tpu_torch.config import GAConfig, GenomeConfig, GradConfig, MaskConfig
+    from ggs_tpu_torch.models import ga, genome, gradient
     from ggs_tpu_torch.ops import codec, mask, objective, oracle, render_cuda as rc
+    from ggs_tpu_torch.ops import render_grad as rg
     from ggs_tpu_torch.utils import io
 
     card = subprocess.run(
@@ -265,10 +466,13 @@ def main() -> int:
     phase("build")
     t0 = time.perf_counter()
     kern = rc.build()
-    print(f"built {os.path.relpath(kern.path, HERE)} in {time.perf_counter() - t0:.2f} s")
-    for line in kern.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  " + line.strip())
+    built = ", ".join(os.path.relpath(path, HERE) for path in kern.paths.values())
+    print(f"built {built} in {time.perf_counter() - t0:.2f} s")
+    for name, log in kern.logs.items():
+        print(f"  {name}:")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print("    " + line.strip())
 
     # 3. kernels against their plain versions
     phase("kernels vs plain")
@@ -302,11 +506,27 @@ def main() -> int:
           f"{rel:.3e}, canvas max abs {img_err:.3e}")
     check(rel <= FITNESS_RTOL and img_err <= CANVAS_ATOL, "entry points disagree with the oracle")
 
-    # 4. the main path
-    phase("main path")
+    # K6 and K7 at run_grad's shape and at the memetic elite batch
+    grad_cases = {
+        "B1_N2000": make_grad_case(1, 2000, 512, 512, seed=10),
+        "B8_N512": make_grad_case(8, 512, 512, 512, seed=11),
+    }
+    grad_errs = {k: compare_grad(c, f"K6/K7 {k} 512x512 exact-tight 16x128 tiles")
+                 for k, c in grad_cases.items()}
+    check_grad_entry_points()
+
+    def reset_counts():
+        for fn in (rc.fitness_tiles, rc.render_tiles, rg.bwd_tiles, rg.lossgrad_tiles):
+            fn.launches = 0
+
+    def read_counts():
+        return {"K1": rc.fitness_tiles.launches, "K2": rc.render_tiles.launches,
+                "K6": rg.bwd_tiles.launches, "K7": rg.lossgrad_tiles.launches}
+
+    # 4. the main paths
+    phase("main path: run_ga")
     out_dir = os.path.join(HERE, "output", "chip_smoke")
-    rc.fitness_tiles.launches = 0
-    rc.render_tiles.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = run_ga.main([
         "--image", "synthetic", "--generations", str(GENERATIONS), "--log-every", "50",
@@ -314,7 +534,7 @@ def main() -> int:
     ])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": rc.fitness_tiles.launches, "K2": rc.render_tiles.launches}
+    launches = read_counts()
     best = res["curves"]["best"]
     final = res["final"]
     summary = {
@@ -329,6 +549,84 @@ def main() -> int:
           and float(final.min()) >= 0.0 and float(final.max()) <= 1.0, "final render")
     check(launches["K1"] >= GENERATIONS, f"K1 launched {launches['K1']} times")
     check(launches["K2"] >= 1, "K2 was not launched by the export render")
+
+    phase("main path: run_grad")
+    reset_counts()
+    t0 = time.perf_counter()
+    gres = run_grad.main([
+        "--image", "synthetic", "--steps", str(GRAD_STEPS), "--log-every", "50",
+        "--output-dir", os.path.join(HERE, "output", "chip_smoke_grad"), "--device", "cuda",
+    ])
+    torch.cuda.synchronize()
+    grad_wall = time.perf_counter() - t0
+    grad_launches = read_counts()
+    curve = gres["curve"]
+    print("MAIN PATH run_grad " + json.dumps({
+        "steps": GRAD_STEPS, "seconds": grad_wall, "loss_first": curve[0], "loss_last": curve[-1],
+        "highest_rescore": gres["best_loss"], "launches": grad_launches,
+    }), flush=True)
+    check(len(curve) == GRAD_STEPS, "run_grad curve length")
+    check(curve[-1] < curve[0], f"the Adam loss did not fall ({curve[0]} -> {curve[-1]})")
+    check(math.isfinite(gres["best_loss"]) and gres["best_loss"] > 0, "rescored loss")
+    check(tuple(gres["final"].shape) == (512, 512, 3) and bool(torch.isfinite(gres["final"]).all()),
+          "run_grad's export render")
+    check(grad_launches["K7"] >= GRAD_STEPS, f"K7 launched {grad_launches['K7']} times")
+    check(grad_launches["K2"] >= 1, "K2 was not launched by the rescore and export")
+
+    # the unfused gradient at run_grad's shape: autograd through make_loss_fn
+    phase("main path: unfused gradient")
+    H = W = 512
+    tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device="cuda")
+    wm = mask.mask_from_config(tgt, H, W, MaskConfig())
+    obj_grad = objective.Objective(H=H, W=W, precision="exact-tight")
+    gnm_grad = GenomeConfig(n_splats=2000)
+    loss_fn = gradient.make_loss_fn(obj_grad, gnm_grad)
+    g_un = genome.new_population(torch.Generator(device="cuda").manual_seed(12), 1, 2000, H, W,
+                                 device="cuda")
+    opt = gradient.make_adam(g_un, GradConfig())
+    reset_counts()
+    losses = []
+    for _ in range(UNFUSED_STEPS):
+        gq = g_un.detach().requires_grad_(True)
+        loss, _ = loss_fn(gq, tgt, wm)
+        (g_un.grad,) = torch.autograd.grad(loss, gq)
+        opt.step()
+        with torch.no_grad():
+            g_un.copy_(codec.clamp_genome(g_un, H, W, gnm_grad.min_scale, gnm_grad.max_scale))
+        losses.append(loss.item())
+    unfused_launches = read_counts()
+    (fused_loss, _), _ = rg.fused_value_and_grad(g_un, tgt, wm, H, W, box="tight")
+    loss_last, _ = loss_fn(g_un, tgt, wm)
+    fused_rel = abs(float(fused_loss) - float(loss_last)) / float(loss_last)
+    print("MAIN PATH unfused " + json.dumps({
+        "steps": UNFUSED_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
+        "fused_vs_unfused_loss_rel": fused_rel, "launches": unfused_launches,
+    }), flush=True)
+    check(losses[-1] < losses[0], "the unfused Adam loss did not fall")
+    check(fused_rel <= FITNESS_RTOL, f"fused and unfused losses differ by {fused_rel}")
+    check(unfused_launches["K6"] == UNFUSED_STEPS and unfused_launches["K2"] >= UNFUSED_STEPS,
+          f"unfused launches {unfused_launches}")
+
+    phase("main path: memetic run_ga")
+    reset_counts()
+    mres = run_ga.main([
+        "--image", "synthetic", "--generations", str(MEMETIC_GENS), "--log-every", "25",
+        "--memetic-every", str(MEMETIC_EVERY), "--memetic-steps", str(MEMETIC_STEPS),
+        "--no-video", "--output-dir", os.path.join(HERE, "output", "chip_smoke_memetic"),
+        "--device", "cuda",
+    ])
+    memetic_launches = read_counts()
+    mbest = mres["curves"]["best"]
+    print("MAIN PATH memetic " + json.dumps({
+        "generations": MEMETIC_GENS, "best_first": mbest[0], "best_last": mbest[-1],
+        "exact_rescore": mres["best_fit"], "launches": memetic_launches,
+    }), flush=True)
+    check(mbest[-1] < mbest[0], "the memetic best did not fall")
+    check(all(b1 <= b0 + 1e-9 for b0, b1 in zip(mbest, mbest[1:])), "memetic best not monotone")
+    want_k7 = (MEMETIC_GENS // MEMETIC_EVERY) * MEMETIC_STEPS
+    check(memetic_launches["K7"] == want_k7,
+          f"K7 launched {memetic_launches['K7']} times in the memetic run, not {want_k7}")
+    check(memetic_launches["K1"] >= MEMETIC_GENS, "K1 launched less than once a generation")
 
     # 5. times
     phase("times")
@@ -345,16 +643,27 @@ def main() -> int:
         "K2_plain_B1": cuda_ms(lambda: run_k2_plain(c1), 5, warmup=1),
         "K2_plain_B32": cuda_ms(lambda: run_k2_plain(c32), 3, warmup=1),
     }
+    # K2' (RenderDiff's forward) on run_grad's 16x128 lists
+    c2p = dict(grad_cases["B1_N2000"], feats=grad_cases["B1_N2000"]["feats_fast"])
+    t["K2p_B1_N2000"] = cuda_ms(lambda: run_k2(c2p), 100)
+    t["K2p_plain_B1_N2000"] = cuda_ms(lambda: run_k2_plain(c2p), 3, warmup=1)
+    for k, c in grad_cases.items():
+        reps = 20 if k == "B1_N2000" else 10
+        t[f"K7_{k}"] = cuda_ms(lambda: run_k7(c), reps)
+        t[f"K6_{k}"] = cuda_ms(lambda: run_k6(c), reps)
+        t[f"K7_plain_{k}"] = cuda_ms(lambda: run_k7(c, plain=True), 1, warmup=1)
+        t[f"K6_plain_{k}"] = cuda_ms(lambda: run_k6(c, plain=True), 1, warmup=1)
     bounds = {
         "K1_B32": bound(c32, "K1"), "K1_B512": bound(c512, "K1"),
         "K2_B1": bound(c1, "K2"), "K2_B32": bound(c32, "K2"),
     }
+    bounds["K2p_B1_N2000"] = bound(c2p, "K2")
+    for k, c in grad_cases.items():
+        bounds[f"K7_{k}"] = bound(c, "K7")
+        bounds[f"K6_{k}"] = bound(c, "K6")
     del c512
 
     # evaluate() end to end (codec, boxes, binning, K1) at bench.py's batch
-    H = W = 512
-    tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device="cuda")
-    wm = mask.mask_from_config(tgt, H, W, MaskConfig())
     obj = objective.Objective(H=H, W=W, precision="exact-tight")
     gen = torch.Generator(device="cuda").manual_seed(5)
     pop512 = genome.new_population(gen, 512, 512, H, W, device="cuda")
@@ -377,6 +686,15 @@ def main() -> int:
         block_rates.append(GA_BLOCK_GENS / (time.perf_counter() - t0))
     gens_per_s = sorted(block_rates)[GA_BLOCKS // 2]
 
+    # Adam steps/s: run_grad's defaults, and bench.py's gradient configuration
+    # (B=1, N=2000, 512x512, precision "highest", no mask)
+    adam_rate, adam_rates, adam_st, adam_step = adam_steps_per_s(obj_grad, tgt, wm, 2000, 13)
+    bench_rate, bench_rates, _, _ = adam_steps_per_s(
+        objective.Objective(H=H, W=W), tgt, None, 2000, 14
+    )
+    check_no_sync(lambda: gradient.run_block(adam_st, adam_step, tgt, wm, ADAM_BLOCK_STEPS),
+                  f"a {ADAM_BLOCK_STEPS}-step Adam block at run_grad's defaults")
+
     times = {
         "card": card,
         "ms": t,
@@ -386,14 +704,25 @@ def main() -> int:
         "renders_per_s_B512": renders_per_s,
         "ga_generations_per_s_P32_N512_512x512_exact_tight": gens_per_s,
         "ga_generations_per_s_blocks": block_rates,
-        "sum_cnt": {"B32": int(c32["cnt"].sum()), "B1": int(c1["cnt"].sum())},
+        "adam_steps_per_s_run_grad_defaults": adam_rate,
+        "adam_steps_per_s_run_grad_blocks": adam_rates,
+        "adam_steps_per_s_bench_grad_config": bench_rate,
+        "adam_steps_per_s_bench_blocks": bench_rates,
+        "sum_cnt": {"B32": int(c32["cnt"].sum()), "B1": int(c1["cnt"].sum()),
+                    **{f"grad_{k}": int(c["cnt"].sum()) for k, c in grad_cases.items()}},
+        "grad_pairs": {k: pair_counts(c) for k, c in grad_cases.items()},
     }
     print("TIMES " + json.dumps(times), flush=True)
 
     # 6. profile
     phase("profile")
     prof = profile_split(lambda: ga.run_block(st, obj, tgt, wm, cfg, gnm, 20)[1].cpu(), 20)
-    print("PROFILE " + json.dumps(prof), flush=True)
+    print("PROFILE GA " + json.dumps(prof), flush=True)
+    prof_adam = profile_split(
+        lambda: gradient.run_block(adam_st, adam_step, tgt, wm, 20)[1].cpu(), 20,
+        walk="grad_kernel",
+    )
+    print("PROFILE ADAM " + json.dumps(prof_adam), flush=True)
 
     kernels = [
         {
@@ -420,6 +749,34 @@ def main() -> int:
             "plain_ms": t["K2_plain_B1"],
             "bound_ms": bounds["K2_B1"][0],
             "bound_by": bounds["K2_B1"][1],
+            "library_ms": None,
+            "note": "K2' (the custom-VJP forward, render_grad.py:386) is this render_kernel, "
+                    "launched from render_grad.RenderDiff",
+        },
+        {
+            "name": "K6 bwd_tiles (backward walk, 9 gradients per splat)",
+            "route": "cuda",
+            "source": "ggs_tpu_torch/csrc/walk_grad.cu",
+            "replaces": "ggs_tpu/ops/render_grad.py:436",
+            "launches": unfused_launches["K6"],
+            "max_abs_err": grad_errs["B1_N2000"]["K6"],
+            "ms": t["K6_B1_N2000"],
+            "plain_ms": t["K6_plain_B1_N2000"],
+            "bound_ms": bounds["K6_B1_N2000"][0],
+            "bound_by": bounds["K6_B1_N2000"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "K7 lossgrad_tiles (forward walk + loss head + backward walk)",
+            "route": "cuda",
+            "source": "ggs_tpu_torch/csrc/walk_grad.cu",
+            "replaces": "ggs_tpu/ops/render_grad.py:556",
+            "launches": grad_launches["K7"],
+            "max_abs_err": grad_errs["B1_N2000"]["K7"],
+            "ms": t["K7_B1_N2000"],
+            "plain_ms": t["K7_plain_B1_N2000"],
+            "bound_ms": bounds["K7_B1_N2000"][0],
+            "bound_by": bounds["K7_B1_N2000"][1],
             "library_ms": None,
         },
     ]

@@ -68,3 +68,14 @@ class GAConfig:
     # Elite fitness is cached (it is deterministic); True re-renders the
     # elites every generation like the reference (algorithm.py:129-137).
     reeval_elites: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class GradConfig:
+    """Gradient-descent fitting (projected Adam; no reference analogue)."""
+
+    steps: int = 2000
+    lr: float = 1e-2
+    b1: float = 0.9
+    b2: float = 0.999
+    remat_chunk: int = 64  # the JAX package's oracle remat chunk (unused here)

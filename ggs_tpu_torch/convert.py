@@ -1,13 +1,16 @@
-"""Carry GA state across from the JAX package.
+"""Carry GA and Adam state across from the JAX package.
 
 `load_jax_checkpoint` reads a `ga_ckpt.npz` written by the JAX package's
 utils/checkpoint.save_checkpoint with numpy alone; `ga_state_from_jax`
 builds the port's GAState from those leaves. The port's random stream
 cannot continue a jax.random key, so the state gets a torch.Generator
-seeded from the key's words.
+seeded from the key's words. `grad_state_from_jax` builds the port's
+GradState (genomes plus a torch.optim.Adam holding optax's moments) from
+a JAX GradState's arrays.
 """
 from __future__ import annotations
 
+import functools
 import json
 from typing import Any, Dict, List, Sequence, Tuple
 
@@ -15,6 +18,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .config import GradConfig
+from .models import gradient
 from .models.ga import GAState
 
 # GAState leaf order of the JAX package's save_checkpoint
@@ -60,3 +65,26 @@ def ga_state_from_jax(leaves: Sequence[np.ndarray], device="cuda") -> GAState:
         rng=rng,
         gen=int(np.asarray(arrs["gen"])),
     )
+
+
+def grad_state_from_jax(g, mu, nu, count, cfg: GradConfig = GradConfig(), device="cuda"):
+    """A JAX GradState's genomes g [B, N, 9] and optax ScaleByAdamState
+    (mu, nu, count), as numpy arrays -> the port's GradState on `device`,
+    whose Adam (lr, b1, b2 from cfg) holds step = count, exp_avg = mu and
+    exp_avg_sq = nu, so the next step is the one optax would take."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, np.float32), device=dev)
+
+    g_t = f32(g)
+    if g_t.dim() != 3 or g_t.shape[2] != 9:
+        raise ValueError(f"g must be [B, N, 9], got {tuple(g_t.shape)}")
+    state = gradient.init_state(functools.partial(gradient.make_adam, cfg=cfg), g_t)
+    n = int(np.asarray(count))
+    state.opt.state[state.g] = {
+        "step": torch.tensor(float(n), dtype=torch.float32),
+        "exp_avg": f32(mu).reshape(g_t.shape),
+        "exp_avg_sq": f32(nu).reshape(g_t.shape),
+    }
+    return state._replace(step=n)

@@ -9,8 +9,10 @@ sigmas, elite_k best carried over (fitness cached, as in the JAX package),
 value on the device and the caller syncs once per block when it reads the
 metrics. A step takes its random numbers from the state's torch.Generator,
 or from `draws` when given (the tests hand it the JAX package's own draws).
-Not ported yet: islands, meshes, memetic refinement, scale-space annealing,
-recycling, growth, checkpoint writing and video frames.
+With `memetic_every` set, the elites get a few Adam steps through the
+differentiable renderer every that many generations (`run_memetic_block`).
+Not ported yet: islands, meshes, scale-space annealing, recycling, growth,
+checkpoint writing and video frames.
 """
 from __future__ import annotations
 
@@ -21,12 +23,12 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..config import GAConfig, GenomeConfig, MaskConfig, MutSigma
+from ..config import GAConfig, GenomeConfig, GradConfig, MaskConfig, MutSigma
 from ..ops import mask as mask_mod
 from ..ops import objective as objective_mod
 from ..ops.objective import Objective
 from . import genome as genome_mod
-from . import operators
+from . import gradient, operators
 
 
 class GAState(NamedTuple):
@@ -172,6 +174,45 @@ def run_block(
     return state, torch.stack(rows)
 
 
+def _refine(state: GAState, obj, target, weight_mask, gnm, grad_cfg, refine_steps, E) -> GAState:
+    """Adam-refine the E elites (the first E of the population after a
+    step); the best is updated on the same 1e-10 rule as a generation."""
+    el, ef = gradient.refine_elites(
+        state.pop[:E], state.fits[:E], target, weight_mask, obj, gnm, grad_cfg, refine_steps
+    )
+    pop = torch.cat([el, state.pop[E:]], dim=0)
+    fits = torch.cat([ef, state.fits[E:]], dim=0)
+    gb = torch.argmin(fits)
+    improved = fits[gb] + 1e-10 < state.best_fit
+    return GAState(
+        pop, fits,
+        torch.where(improved, pop[gb], state.best),
+        torch.where(improved, fits[gb], state.best_fit),
+        torch.where(improved, torch.zeros_like(state.no_improve), state.no_improve),
+        state.rng, state.gen,
+    )
+
+
+def run_memetic_block(
+    state: GAState, obj: Objective, target, weight_mask, ga: GAConfig, gnm: GenomeConfig,
+    grad_cfg: GradConfig, refine_every: int, refine_steps: int, num_gens: int,
+) -> Tuple[GAState, torch.Tensor]:
+    """The hybrid GA+Adam block (ga.make_memetic_run_block): each generation
+    is a plain step, and every refine_every-th is followed by `refine_steps`
+    Adam steps on the elites, each kept only when it improved, so the best
+    curve stays monotone. -> (state, metrics [num_gens, 4])."""
+    sig_max = MutSigma.max_defaults().__dict__
+    sig_min = MutSigma.min_defaults().__dict__
+    E = max(1, ga.elite_k)
+    rows = []
+    for _ in range(num_gens):
+        state, m = step(state, obj, target, weight_mask, ga, gnm, sig_max, sig_min)
+        if state.gen % refine_every == 0:
+            state = _refine(state, obj, target, weight_mask, gnm, grad_cfg, refine_steps, E)
+        rows.append(torch.stack([state.best_fit, m[1], m[2], state.no_improve.to(m.dtype)]))
+    return state, torch.stack(rows)
+
+
 def genetic_approx(
     target_img,
     H: int,
@@ -186,12 +227,17 @@ def genetic_approx(
     loss_png_path: str = "",
     loss_csv_path: str = "",
     device="cuda",
+    memetic_every: int = 0,
+    memetic_steps: int = 5,
+    memetic_lr: float = 1e-2,
 ):
     """Host loop: a full GA run with loss curves (algorithm.py:17-195).
 
     The importance mask comes from every field of mask_cfg. `log_every`
     generations run per block, with one host sync and one progress line
-    each. Returns (best_genome [N, 9] np, best_fit float, curves dict)."""
+    each. memetic_every > 0 runs the memetic block: every memetic_every
+    generations the elites get memetic_steps Adam steps at memetic_lr.
+    Returns (best_genome [N, 9] np, best_fit float, curves dict)."""
     from ..utils import curves as curves_mod
     from ..utils import io as io_mod
 
@@ -215,7 +261,13 @@ def genetic_approx(
         while gen < ga.generations:
             block = min(block_size, ga.generations - gen)
             t_block = time.perf_counter()
-            state, metrics = run_block(state, obj, target, weight_mask, ga, gnm, block)
+            if memetic_every > 0:
+                state, metrics = run_memetic_block(
+                    state, obj, target, weight_mask, ga, gnm, GradConfig(lr=memetic_lr),
+                    memetic_every, memetic_steps, block,
+                )
+            else:
+                state, metrics = run_block(state, obj, target, weight_mask, ga, gnm, block)
             metrics = metrics.cpu().numpy()  # the block's one host sync
             gens_per_s = block / max(1e-9, time.perf_counter() - t_block)
             curves["best"].extend(metrics[:, 0].tolist())

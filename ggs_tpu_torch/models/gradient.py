@@ -1,0 +1,249 @@
+"""Gradient-descent splat fitting and the memetic refinement of the GA.
+
+PyTorch counterpart of `ggs_tpu/models/gradient.py`. The masked-MSE
+objective is differentiable in the axes-angle genome through the tiled
+renderer's exact backward (ops/render_grad.py), which gives:
+
+* `fit_adam`: projected Adam on a genome batch; the projection is
+  `codec.clamp_genome`, the domain the evolutionary operators keep.
+* `refine_elites`: a few Adam steps on the GA's elites, each kept only when
+  the GA's own evaluator scores it better (Lamarckian refinement; the
+  memetic block of models/ga.py calls it).
+
+`optax.adam` becomes `torch.optim.Adam` with the same lr, betas and eps
+(the same update up to rounding); the optimizer updates the state's genome
+tensor in place and the projection follows under `torch.no_grad()`. Not
+ported yet (each raises NotImplementedError): the tile-sharded loss, the
+blur homotopy (`anneal_sigma0`), metrics "ssim" and "mix", precision "fast".
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from .. import resolve_device
+from ..config import GenomeConfig, GradConfig
+from ..ops import codec, fitness, oracle, render_cuda, render_grad
+from ..ops import objective as objective_mod
+from ..ops.objective import Objective
+from . import genome as genome_mod
+
+
+def _grad_box(obj: Objective) -> str:
+    """"tight" trains on the exact-tight tier's boxes, else the reference's."""
+    return "tight" if obj.precision == "exact-tight" else "reference"
+
+
+def _check_objective(obj: Objective) -> None:
+    if obj.metric != "mse":
+        raise NotImplementedError(f"metric={obj.metric!r} is not ported yet (only 'mse')")
+    render_cuda._check_precision(obj.precision)
+    if obj.impl not in ("cuda", "oracle"):
+        raise ValueError(f"unknown renderer impl: {obj.impl!r}")
+
+
+def make_loss_fn(obj: Objective, gnm: GenomeConfig):
+    """Differentiable loss: axes-angle genomes [B, N, 9] -> (mean fitness,
+    fits [B]). impl "cuda" renders with render_grad.render_diff (forward
+    K2, backward K6); impl "oracle" with the dense renderer and autograd."""
+    _check_objective(obj)
+    bg = tuple(float(c) for c in obj.background)
+
+    def loss_fn(g_axes, target, weight_mask):
+        g9 = codec.genome_to_renderer(g_axes)
+        if obj.impl == "cuda":
+            imgs = render_grad.render_diff(
+                g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=bg,
+                bin_capacity=obj.bin_capacity, box=_grad_box(obj),
+            )
+        else:
+            imgs = oracle.render_dense(
+                g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=bg, box=_grad_box(obj)
+            )
+        fits = fitness.fitness_from_images(
+            imgs, target, weight_mask=weight_mask,
+            boost_only=obj.boost_only, boost_beta=obj.boost_beta,
+        )
+        return torch.mean(fits), fits
+
+    return loss_fn
+
+
+def _make_sharded_loss_fn(obj: Objective):
+    raise NotImplementedError("the tile-sharded loss is not ported yet")
+
+
+def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
+    """(g_axes, target, weight_mask) -> ((loss, fits), grads [B, N, 9]).
+
+    impl "cuda" with metric "mse" takes the fused path, one K7 launch per
+    step (render_grad.fused_value_and_grad); otherwise autograd through
+    make_loss_fn."""
+    loss_fn = make_loss_fn(obj, gnm)
+
+    def autograd_vg(g_axes, target, weight_mask):
+        g = g_axes.detach().to(torch.float32).requires_grad_(True)
+        with torch.enable_grad():
+            loss, fits = loss_fn(g, target, weight_mask)
+            (grads,) = torch.autograd.grad(loss, g)
+        return (loss.detach(), fits.detach()), grads
+
+    if obj.impl != "cuda":
+        return autograd_vg
+
+    def fused_vg(g_axes, target, weight_mask):
+        return render_grad.fused_value_and_grad(
+            g_axes, target, weight_mask, obj.H, obj.W,
+            boost_only=obj.boost_only, boost_beta=obj.boost_beta, k_sigma=obj.k_sigma,
+            background=tuple(obj.background), bin_capacity=obj.bin_capacity,
+            box=_grad_box(obj),
+        )
+
+    return fused_vg
+
+
+class GradState(NamedTuple):
+    g: torch.Tensor  # [B, N, 9] axes-angle genomes; the optimizer's parameter
+    opt: torch.optim.Adam
+    step: int
+
+
+def make_adam(g: torch.Tensor, cfg: GradConfig) -> torch.optim.Adam:
+    """optax.adam(cfg.lr, b1, b2) (eps 1e-8) over the genome tensor g."""
+    return torch.optim.Adam([g], lr=cfg.lr, betas=(cfg.b1, cfg.b2), eps=1e-8)
+
+
+def make_fit_step(obj: Objective, gnm: GenomeConfig, cfg: GradConfig):
+    """-> (make_opt, step): make_opt(g) builds the Adam over g;
+    step(state, target, weight_mask) takes one projected Adam step and
+    returns (state, fits [B]), the fits before the step."""
+    value_and_grad = make_value_and_grad(obj, gnm)
+    make_opt = functools.partial(make_adam, cfg=cfg)
+
+    def step(state: GradState, target, weight_mask, blur_sigma=None) -> Tuple[GradState, torch.Tensor]:
+        if blur_sigma is not None:
+            raise NotImplementedError("the blur homotopy (ops/anneal.py) is not ported yet")
+        (_, fits), grads = value_and_grad(state.g, target, weight_mask)
+        state.g.grad = grads
+        state.opt.step()
+        with torch.no_grad():
+            # projection: the domain the evolutionary operators keep
+            state.g.copy_(codec.clamp_genome(state.g, obj.H, obj.W, gnm.min_scale, gnm.max_scale))
+        return GradState(state.g, state.opt, state.step + 1), fits
+
+    return make_opt, step
+
+
+def init_state(make_opt, g0: torch.Tensor) -> GradState:
+    g = g0.detach().to(torch.float32).clone()
+    return GradState(g, make_opt(g), 0)
+
+
+def run_block(state: GradState, step, target, weight_mask, num_steps: int):
+    """num_steps steps without a host sync -> (state, fits [num_steps, B])."""
+    rows = []
+    for _ in range(num_steps):
+        state, fits = step(state, target, weight_mask)
+        rows.append(fits)
+    return state, torch.stack(rows)
+
+
+def fit_adam(
+    target,
+    H: int,
+    W: int,
+    *,
+    obj: Optional[Objective] = None,
+    gnm: Optional[GenomeConfig] = None,
+    cfg: Optional[GradConfig] = None,
+    init_genomes=None,
+    weight_mask=None,
+    seed: int = 42,
+    log_every: int = 100,
+    progress: bool = True,
+    anneal_sigma0: float = 0.0,
+    anneal_frac: float = 0.6,
+    device="cuda",
+):
+    """Host loop: Adam-fit `init_genomes` (or a fresh random individual)
+    to the target. Returns (best genome [N, 9] np, best loss, loss curve);
+    the curve holds each step's best fitness, the best loss is rescored on
+    the "highest" energy."""
+    if anneal_sigma0 > 0.0:
+        raise NotImplementedError("the scale-space homotopy (ops/anneal.py) is not ported yet")
+    dev = resolve_device(device)
+    obj = obj if obj is not None else Objective(H=H, W=W, impl="oracle")
+    gnm = gnm if gnm is not None else GenomeConfig()
+    cfg = cfg if cfg is not None else GradConfig()
+
+    if init_genomes is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        init_genomes = genome_mod.new_population(
+            gen, 1, gnm.n_splats, H, W, gnm.min_scale, gnm.max_scale, device=dev
+        )
+    init_genomes = torch.as_tensor(init_genomes, dtype=torch.float32, device=dev)
+    if init_genomes.dim() == 2:
+        init_genomes = init_genomes[None]
+    target = torch.as_tensor(target, dtype=torch.float32, device=dev)
+    if weight_mask is not None:
+        weight_mask = torch.as_tensor(weight_mask, dtype=torch.float32, device=dev)
+
+    make_opt, step = make_fit_step(obj, gnm, cfg)
+    state = init_state(make_opt, init_genomes)
+
+    pbar = None
+    if progress:
+        try:
+            from tqdm.auto import tqdm
+
+            pbar = tqdm(total=cfg.steps, desc="Adam steps")
+        except ImportError:
+            pbar = None
+
+    curve = []
+    done = 0
+    try:
+        while done < cfg.steps:
+            block = min(log_every, cfg.steps - done)
+            state, fits = run_block(state, step, target, weight_mask, block)
+            curve.extend(fits.min(dim=1).values.cpu().tolist())  # the block's one host sync
+            done += block
+            if pbar is not None:
+                pbar.update(block)
+                pbar.set_postfix(loss=f"{curve[-1]:.6f}")
+    except KeyboardInterrupt:
+        print("\n[Interrupted] Returning current state…", flush=True)
+    finally:
+        if pbar is not None:
+            pbar.close()
+
+    # final report: the "highest" energy, whatever tier the steps trained on
+    g = state.g.detach()
+    loss_fn = make_loss_fn(obj._replace(precision="highest"), gnm)
+    with torch.no_grad():
+        _, final_fits = loss_fn(g, target, weight_mask)
+    b = int(torch.argmin(final_fits))
+    return g[b].cpu().numpy(), float(final_fits[b]), curve
+
+
+def refine_elites(
+    elites: torch.Tensor,
+    elite_fits: torch.Tensor,
+    target,
+    weight_mask,
+    obj: Objective,
+    gnm: GenomeConfig,
+    cfg: GradConfig,
+    steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lamarckian refinement: `steps` Adam steps on the elite batch; an
+    elite is replaced only if the GA's own evaluator (objective.evaluate)
+    scores the refined genome lower. Returns (elites, fits)."""
+    make_opt, step = make_fit_step(obj, gnm, cfg)
+    state, _ = run_block(init_state(make_opt, elites), step, target, weight_mask, steps)
+    g = state.g.detach()
+    new_fits = objective_mod.evaluate(obj, g, target, weight_mask, device=elites.device)
+    better = new_fits < elite_fits
+    return torch.where(better[:, None, None], g, elites), torch.where(better, new_fits, elite_fits)

@@ -10,7 +10,11 @@ float32 encodings of a splat set:
 Every expression keeps the JAX package's order of operations (`/ 255.0`,
 `inv21 = -l21 * (inv11 * inv22)`, the 1e-6/1e-12 clamps, the conservative
 `hy = k(|l21| + |l22|)`), so the float32 results agree with it to the
-last bit wherever the elementary functions do.
+last bit wherever the elementary functions do. Every clamp on a
+differentiable path is `clip` or `torch.maximum`, which split the gradient
+0.5/0.5 at a tie as `jnp.clip` and `jnp.maximum` do (`torch.clamp` passes
+all of it), so gradients at the bounds, where projected Adam leaves genes,
+agree with the JAX package's too.
 """
 from __future__ import annotations
 
@@ -29,6 +33,33 @@ _EPS_EXP = 1e-6
 # float32 below 2**31); torch's own cast of an out-of-range float is undefined.
 _I32_LO = -2.0**31
 _I32_HI = 2.0**31 - 128.0
+
+
+_CONSTS: dict = {}
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d tensor of value v with like's dtype and device, made once, so
+    the GA's and Adam's loops launch no fill kernel per clip."""
+    key = (v, like.dtype, like.device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.full((), v, dtype=like.dtype, device=like.device)
+    return t
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip: min(max(x, lo), hi), with JAX's gradient at the bounds
+    (half of it at a tie). The values equal torch.clamp's, so where autograd
+    records nothing (the GA's evaluation) the one-kernel clamp computes them."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    return torch.minimum(torch.maximum(x, _const(lo, x)), _const(hi, x))
+
+
+def _maximum(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """jnp.maximum(x, lo), with its gradient split at a tie."""
+    return torch.maximum(x, _const(lo, x))
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -57,9 +88,9 @@ def axes_angle_to_cholesky(a_log, b_log, theta):
     sxy = (sigma_x**2 - sigma_y**2) * s * c
     syy = (sigma_x**2) * (s**2) + (sigma_y**2) * (c**2)
 
-    l11 = torch.sqrt(torch.clamp_min(sxx, _EPS_CHOL))
+    l11 = torch.sqrt(_maximum(sxx, _EPS_CHOL))
     l21 = sxy / l11
-    l22 = torch.sqrt(torch.clamp_min(syy - l21 * l21, _EPS_CHOL))
+    l22 = torch.sqrt(_maximum(syy - l21 * l21, _EPS_CHOL))
     return torch.log(l11), torch.log(l22), l21
 
 
@@ -74,7 +105,7 @@ def genome_to_renderer(genome: torch.Tensor) -> torch.Tensor:
             a_log_eff[..., None],
             b_log_eff[..., None],
             c_raw[..., None],
-            torch.clamp(genome[..., R : ALPHA + 1], 0.0, 255.0),
+            clip(genome[..., R : ALPHA + 1], 0.0, 255.0),
         ],
         dim=-1,
     )
@@ -102,13 +133,15 @@ def preprocess(g9: torch.Tensor, H: int, W: int, k_sigma: float) -> SplatScreen:
     """Renderer genome [..., N, 9] -> screen-space params (render.py:9-47)."""
     maxx = float(W - 1)
     maxy = float(H - 1)
-    cx = torch.clamp(g9[..., X], 0.0, 1.0) * maxx
-    cy = torch.clamp(g9[..., Y], 0.0, 1.0) * maxy
+    cx = clip(g9[..., X], 0.0, 1.0) * maxx
+    cy = clip(g9[..., Y], 0.0, 1.0) * maxy
 
-    l11 = torch.clamp_min(torch.exp(g9[..., ALOG]), _EPS_EXP)
-    l22 = torch.clamp_min(torch.exp(g9[..., BLOG]), _EPS_EXP)
+    l11 = _maximum(torch.exp(g9[..., ALOG]), _EPS_EXP)
+    l22 = _maximum(torch.exp(g9[..., BLOG]), _EPS_EXP)
     l21 = g9[..., THETA]  # c_raw in renderer encoding
 
+    # The half-extents feed only the integer boxes, which carry no gradient,
+    # so torch.abs (gradient 0 at 0, where jnp.abs gives 1) is harmless here.
     hx = torch.clamp_min(k_sigma * torch.abs(l11), 1.0)
     hy = torch.clamp_min(k_sigma * (torch.abs(l21) + torch.abs(l22)), 1.0)
 
@@ -124,10 +157,10 @@ def preprocess(g9: torch.Tensor, H: int, W: int, k_sigma: float) -> SplatScreen:
     sxy = inv21 * inv22
     syy = inv22 * inv22
 
-    rc = torch.clamp(g9[..., R], 0.0, 255.0) / 255.0
-    gc = torch.clamp(g9[..., G], 0.0, 255.0) / 255.0
-    bc = torch.clamp(g9[..., B], 0.0, 255.0) / 255.0
-    a = torch.clamp(g9[..., ALPHA], 0.0, 255.0) / 255.0
+    rc = clip(g9[..., R], 0.0, 255.0) / 255.0
+    gc = clip(g9[..., G], 0.0, 255.0) / 255.0
+    bc = clip(g9[..., B], 0.0, 255.0) / 255.0
+    a = clip(g9[..., ALPHA], 0.0, 255.0) / 255.0
 
     return SplatScreen(cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1)
 

@@ -47,8 +47,9 @@ def weff_denom(weight_mask, boost_only, boost_beta, H, W):
     hw3 = torch.tensor(float(H * W * 3), dtype=torch.float32)
     if weight_mask is None:
         return None, hw3
+    # hw3 stays a 0-d CPU tensor: it enters device arithmetic as a scalar,
+    # where a copy to the card would synchronize the host every call
     w = weight_mask.to(torch.float32)
-    hw3 = hw3.to(w.device)
     if boost_only:
         w_eff = 1.0 + boost_beta * torch.clamp(w, 0.0, 1.0)
         return w_eff, (torch.mean(w_eff) + 1e-12) * hw3

@@ -39,7 +39,12 @@ _NFEAT = 13
 EXACT_PRECISIONS = ("highest", "exact-tight")
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "walk.cu")
+# the kernel sources, each built into its own library (walk_grad.cu holds the
+# backward walks K6/K7 of ops/render_grad.py)
+SOURCES = {
+    "walk": os.path.join(_PKG_DIR, "csrc", "walk.cu"),
+    "walk_grad": os.path.join(_PKG_DIR, "csrc", "walk_grad.cu"),
+}
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "ggs_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
@@ -62,12 +67,13 @@ def _check_precision(precision: str) -> None:
 
 
 class _Kernels:
-    """The loaded kernel library and the compiler's report for it."""
+    """The loaded kernel libraries and the compiler's report for each."""
 
-    def __init__(self, lib: ctypes.CDLL, path: str, log: str):
-        self.lib = lib
-        self.path = path
-        self.log = log
+    def __init__(self, libs: dict, paths: dict, logs: dict):
+        self.lib = lib = libs["walk"]
+        self.grad = grad = libs["walk_grad"]
+        self.paths = paths
+        self.logs = logs
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ggs_walk_render.argtypes = [p, p, p, p] + [i] * 9 + [f, f, f, p]
         lib.ggs_walk_render.restype = i
@@ -77,6 +83,15 @@ class _Kernels:
         lib.ggs_walk_geometry_ok.restype = i
         lib.ggs_error_string.argtypes = [i]
         lib.ggs_error_string.restype = ctypes.c_char_p
+        grad.ggs_grad_walk.argtypes = (
+            [i, p, p, p, p, p, p, f, p, p, p, p] + [i] * 10 + [f, f, f, p]
+        )
+        grad.ggs_grad_walk.restype = i
+        grad.ggs_grad_resident_blocks.argtypes = [i]
+        grad.ggs_grad_resident_blocks.restype = i
+        for fn in ("ggs_grad_tile_h", "ggs_grad_tile_w", "ggs_grad_chunk"):
+            getattr(grad, fn).argtypes = []
+            getattr(grad, fn).restype = i
 
     def check(self, rc: int, what: str) -> None:
         if rc != 0:
@@ -96,41 +111,55 @@ def _nvcc() -> str:
 
 
 def build() -> _Kernels:
-    """Compile csrc/walk.cu with nvcc for sm_90a (once per source hash, into
-    build/ggs_tpu_torch/) and load it. A failed build raises with nvcc's
-    stderr; `.log` holds ptxas' register/shared-memory/spill report."""
+    """Compile every source in SOURCES with nvcc for sm_90a (once per source
+    hash, into build/ggs_tpu_torch/; one nvcc per source, all started
+    together) and load them. A failed build raises with nvcc's stderr;
+    `.logs` holds ptxas' register/shared-memory/spill report per source."""
     global _KERNELS
     if _KERNELS is not None:
         return _KERNELS
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"libwalk-{tag}.so")
-    log_path = so + ".log"
-    if not os.path.exists(so):
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-        os.close(fd)
-        try:
-            res = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                capture_output=True, text=True, check=False,
-            )
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {SOURCE} (exit {res.returncode}):\n{res.stderr}"
+    paths, jobs = {}, []
+    try:
+        for name, src in SOURCES.items():
+            with open(src, "rb") as fh:
+                tag = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            so = paths[name] = os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
+            if not os.path.exists(so):
+                nvcc = _nvcc()
+                fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
+                os.close(fd)
+                proc = subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 )
-            with open(log_path, "w") as fh:
-                fh.write(res.stdout + res.stderr)
+                jobs.append((src, so, tmp, proc))
+        failed = []
+        for src, so, tmp, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {src} (exit {proc.returncode}):\n{err}")
+                continue
+            with open(so + ".log", "w") as fh:
+                fh.write(out + err)
             os.replace(tmp, so)
-        finally:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    log = ""
-    if os.path.exists(log_path):
-        with open(log_path) as fh:
-            log = fh.read()
-    _KERNELS = _Kernels(ctypes.CDLL(so), so, log)
+    logs = {}
+    for name, so in paths.items():
+        logs[name] = ""
+        if os.path.exists(so + ".log"):
+            with open(so + ".log") as fh:
+                logs[name] = fh.read()
+    libs = {name: ctypes.CDLL(so) for name, so in paths.items()}
+    _KERNELS = _Kernels(libs, paths, logs)
     return _KERNELS
 
 
@@ -425,4 +454,4 @@ def fitness(
         cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w,
         tuple(float(c) for c in background),
     )
-    return torch.sum(partials, dim=1) / denom.to(partials.device)
+    return torch.sum(partials, dim=1) / denom  # a 0-d CPU denom is a scalar: no sync

@@ -1,0 +1,413 @@
+"""Differentiable tiled renderer: the exact analytic backward of the walk.
+
+PyTorch/CUDA counterpart of `ggs_tpu/ops/render_grad.py` (exact tiers,
+single pass):
+
+* `_splat_feats` (render_pallas.py:175): the raw table [B, 13, N+1] that the
+  backward differentiates (unscaled sxx, sxy, syy), sentinel column N zero.
+* `bwd_tiles` (K6) and `lossgrad_tiles` (K7): wrappers of the CUDA kernels in
+  `csrc/walk_grad.cu`, each with a launch count and a plain version beside
+  it. A CPU tensor takes the plain version; a CUDA tensor launches the
+  kernel or raises.
+* `RenderDiff`: the autograd Function whose forward is K2 (`render_cuda.
+  render_tiles` on the folded table, as `fwd_only` reuses
+  `_render_tile_kernel`) and whose backward is K6.
+* `render_diff` (`render_pallas_diff`) and `fused_value_and_grad`: the
+  entry points. Gradients chain through `codec.preprocess` and
+  `genome_to_renderer` by ordinary autograd, as `jax.vjp(chain)` does.
+
+Both walks use the two-level replay of `_bwd_tile_kernel` (boundary canvas
+every CHUNK splats, then each chunk replayed and walked backward): there is
+no division by (1 - f), which is 0 for alpha 255 at a splat's centre. The
+kernels and the walks' lists use one tile shape, GRAD_TILE_H x GRAD_TILE_W;
+tiling changes nothing but the order of the sums. Not ported yet: the init
+canvas that chains passes above 8000 splats (`has_init`), row slabs
+(`y_origin`, `out_rows`) and the fast tier's culls (`cull_eps`,
+`corner_cull`); each raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from . import codec, fitness as fitness_mod, render_cuda
+from .render_cuda import _NFEAT, _cdiv, _require, bin_splats_dense, pad_planes
+
+NGRAD = 9  # dcx, dcy, dsxx, dsxy, dsyy, drc, dgc, dbc, da
+CHUNK = 32  # the plain walks' splats per boundary canvas, as walk_grad.cu's kChunk
+GRAD_TILE_H, GRAD_TILE_W = 16, 128  # the kernels' tile (walk_grad.cu kTileH, kTileW)
+MAX_SPLATS = 8000  # one pass; above it the JAX package chains passes (has_init)
+
+
+def _splat_feats(p: codec.SplatScreen) -> torch.Tensor:
+    """SplatScreen [B, N] -> raw table [B, 13, N+1] f32, column N zero."""
+    B, N = p.cx.shape
+    feats = torch.stack(
+        [
+            p.cx, p.cy, p.sxx, p.sxy, p.syy, p.rc, p.gc, p.bc, p.a,
+            p.x0.to(torch.float32), p.x1.to(torch.float32),
+            p.y0.to(torch.float32), p.y1.to(torch.float32),
+        ],
+        dim=1,
+    )
+    return torch.cat([feats, feats.new_zeros((B, _NFEAT, 1))], dim=2).contiguous()
+
+
+# ------------------------------------------------------ plain versions
+
+
+def _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head):
+    """The backward walk in plain PyTorch over the same lists, slot k of
+    every (image, tile) at once, with the kernels' two-level replay.
+
+    head(canvas planes) -> (g0, g1, g2, num) gives the image cotangent
+    planes [B, T, th, tw] and K7's partials (None for K6). Returns
+    (grads [B, 9, N], num)."""
+    B, T, _ = idx.shape
+    N = feats.shape[2] - 1
+    dev = feats.device
+    t = torch.arange(T, device=dev)
+    xf = ((t % n_tx) * tile_w)[:, None, None] + torch.arange(tile_w, device=dev)[None, None, :]
+    yf = ((t // n_tx) * tile_h)[:, None, None] + torch.arange(tile_h, device=dev)[None, :, None]
+    xf = xf.to(torch.float32)[None]  # [1, T, 1, tw]
+    yf = yf.to(torch.float32)[None]  # [1, T, th, 1]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    kmax = int(cnt.max()) if cnt.numel() else 0
+
+    def splat(k):
+        """Slot k: list entry s [B, T], parameters [B, T, 1, 1], qx, qy, e."""
+        s = idx[:, :, k].long()
+        pk = torch.gather(feats, 2, s[:, None, :].expand(B, _NFEAT, T))
+        prm = [pk[:, r, :, None, None] for r in range(_NFEAT)]
+        cx, cy, sxx, sxy, syy, _, _, _, _, x0, x1, y0, y1 = prm
+        qx = xf - cx
+        qy = yf - cy
+        quad = sxx * (qx * qx) + 2.0 * sxy * (qx * qy) + syy * (qy * qy)
+        m = (xf >= x0) & (xf <= x1) & (yf >= y0) & (yf <= y1)
+        m = m & (k < cnt)[:, :, None, None]
+        return s, prm, qx, qy, torch.where(m, torch.exp(-0.5 * quad), zero)
+
+    def blend(canvas, k):
+        _, prm, _, _, e = splat(k)
+        f = prm[8] * e
+        omf = 1.0 - f
+        return [omf * ch + f * col for ch, col in zip(canvas, prm[5:8])]
+
+    # pass A: boundary canvases
+    canvas = [
+        torch.full((B, T, tile_h, tile_w), float(c), dtype=torch.float32, device=dev)
+        for c in background
+    ]
+    chunks = [range(c, min(c + CHUNK, kmax)) for c in range(0, kmax, CHUNK)]
+    bounds = []
+    for ks in chunks:
+        bounds.append(canvas)
+        for k in ks:
+            canvas = blend(canvas, k)
+    g0, g1, g2, num = head(canvas)
+
+    # pass B: each chunk replayed from its boundary, then walked backward
+    part = torch.zeros((B, T, NGRAD, N + 1), dtype=torch.float32, device=dev)
+    Tr = torch.ones((B, T, tile_h, tile_w), dtype=torch.float32, device=dev)
+    for ks, cv in zip(reversed(chunks), reversed(bounds)):
+        prevs = []
+        for k in ks:
+            prevs.append(cv)
+            cv = blend(cv, k)
+        for k, cp in zip(reversed(ks), reversed(prevs)):
+            s, prm, qx, qy, e = splat(k)
+            _, _, sxx, sxy, syy, rc, gc, bc, a = prm[:9]
+            f = a * e
+            gT0 = g0 * Tr
+            gT1 = g1 * Tr
+            gT2 = g2 * Tr
+            dLdf = gT0 * (rc - cp[0]) + gT1 * (gc - cp[1]) + gT2 * (bc - cp[2])
+            dLdq = -0.5 * f * dLdf
+            d = torch.stack(
+                [
+                    dLdq * (-2.0) * (sxx * qx + sxy * qy),
+                    dLdq * (-2.0) * (syy * qy + sxy * qx),
+                    dLdq * qx * qx,
+                    dLdq * 2.0 * qx * qy,
+                    dLdq * qy * qy,
+                    gT0 * f,
+                    gT1 * f,
+                    gT2 * f,
+                    dLdf * e,
+                ],
+                dim=2,
+            ).sum(dim=(-2, -1))  # [B, T, 9]
+            # a tile lists a splat once, so each (image, tile, splat) is set once
+            part.scatter_(3, s[:, :, None, None].expand(B, T, NGRAD, 1), d[..., None])
+            Tr = Tr * (1.0 - f)
+    return part.sum(dim=1)[:, :, :N], num
+
+
+def bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background):
+    """Plain version of K6: image cotangent [B, 3, Hp, Wp] -> grads [B, 9, N]."""
+    gt = render_cuda._tiles_of(g_img, n_tx, tile_h, tile_w)  # [B, 3, T, th, tw]
+    grads, _ = _grad_walk_plain(
+        cnt, idx, feats, n_tx, tile_h, tile_w, background,
+        lambda canvas: (gt[:, 0], gt[:, 1], gt[:, 2], None),
+    )
+    return grads
+
+
+def lossgrad_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background, scale):
+    """Plain version of K7: -> (num partials [B, T] = sum_px w |clip(C) -
+    target|^2, grads [B, 9, N] of scale/2 * sum_t num)."""
+    tt = render_cuda._tiles_of(target_p, n_tx, tile_h, tile_w)  # [3, T, th, tw]
+    wt = render_cuda._tiles_of(w_p, n_tx, tile_h, tile_w)  # [T, th, tw]
+
+    def head(canvas):
+        dr, dg, db = (torch.clamp(ch, 0.0, 1.0) - tt[i] for i, ch in enumerate(canvas))
+        num = torch.sum((dr * dr + dg * dg + db * db) * wt, dim=(-2, -1))
+        sw = scale * wt
+        return sw * dr, sw * dg, sw * db, num
+
+    grads, num = _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head)
+    return num, grads
+
+
+# ------------------------------------------------------------ wrappers
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(fused: bool, device_index: int) -> int:
+    """Blocks of the walk kernel the card holds at once: its scratch slots."""
+    k = render_cuda.build()
+    with torch.cuda.device(device_index):
+        slots = k.grad.ggs_grad_resident_blocks(int(fused))
+    if slots < 0:
+        k.check(-slots, "ggs_grad_resident_blocks")
+    return slots
+
+
+def _launch_grad(fused, cnt, idx, feats, n_tx, tile_h, tile_w, background,
+                 gimg=None, target_p=None, w_p=None, scale=0.0):
+    B, T, L, dev = render_cuda._check_lists(cnt, idx, feats, n_tx, tile_h, tile_w)
+    k = render_cuda.build()
+    if (tile_h, tile_w) != (k.grad.ggs_grad_tile_h(), k.grad.ggs_grad_tile_w()):
+        raise ValueError(
+            f"tile {tile_h}x{tile_w}: the gradient kernels walk "
+            f"{k.grad.ggs_grad_tile_h()}x{k.grad.ggs_grad_tile_w()} tiles"
+        )
+    N1 = feats.shape[2]
+    N = N1 - 1
+    Hp, Wp = (T // n_tx) * tile_h, n_tx * tile_w
+    if fused:
+        _require(target_p, "target_p", torch.float32, (3, Hp, Wp), dev)
+        _require(w_p, "w_p", torch.float32, (Hp, Wp), dev)
+    else:
+        _require(gimg, "g_img", torch.float32, (B, 3, Hp, Wp), dev)
+    with torch.cuda.device(dev):
+        slots = min(_resident_blocks(bool(fused), dev.index), B * T)
+        # scratch per resident block: the boundary canvases of a list as
+        # long as L (>= every cnt; reading cnt.max() would sync the host on
+        # every launch) and one chunk's prefix canvases
+        chunk = k.grad.ggs_grad_chunk()
+        max_chunks = max(1, _cdiv(L, chunk))
+        scratch = torch.empty(
+            (slots, max_chunks + chunk, 3, tile_h * tile_w), dtype=torch.float32, device=dev
+        )
+        gpart = torch.zeros((B, T, NGRAD, N), dtype=torch.float32, device=dev)
+        grads = torch.empty((B, NGRAD, N), dtype=torch.float32, device=dev)
+        num = torch.empty((B, T), dtype=torch.float32, device=dev) if fused else None
+
+        def ptr(x):
+            return None if x is None else x.data_ptr()
+
+        rc = k.grad.ggs_grad_walk(
+            int(fused), cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(), ptr(gimg),
+            ptr(target_p), ptr(w_p), float(scale), ptr(num), gpart.data_ptr(),
+            grads.data_ptr(), scratch.data_ptr(), slots, max_chunks, B, T, L, N1, N, n_tx,
+            Hp, Wp, *(float(c) for c in background),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    k.check(rc, "lossgrad_tiles" if fused else "bwd_tiles")
+    return num, grads
+
+
+def bwd_tiles(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background):
+    """K6: lists + raw table + image cotangent [B, 3, Hp, Wp] -> grads
+    [B, 9, N] of sum_px g . canvas, straight through the final clamp.
+
+    Replaces ggs_tpu/ops/render_grad.py:_bwd_tile_kernel(fused=False)
+    (pallas_call in _make_screen_render.bwd_grads). Bound by the
+    arithmetic of its three walks and the prefix canvases' round trip
+    through device memory (csrc/walk_grad.cu)."""
+    if feats.device.type == "cpu":
+        return bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background)
+    _, grads = _launch_grad(False, cnt, idx, feats, n_tx, tile_h, tile_w, background, gimg=g_img)
+    bwd_tiles.launches += 1
+    return grads
+
+
+bwd_tiles.launches = 0
+
+
+def lossgrad_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background, scale):
+    """K7: lists + raw table + padded target [3, Hp, Wp] and weights
+    [Hp, Wp] (0 on the padding) -> (num partials [B, T] of sum_px w |clip(C)
+    - target|^2, grads [B, 9, N] with the cotangent scale * w * (clip(C) -
+    target)); scale 2 gives d(sum_t num_b)/d(params_b).
+
+    Replaces ggs_tpu/ops/render_grad.py:_bwd_tile_kernel(fused=True)
+    (pallas_call in _make_screen_lossgrad.run): forward walk, on-chip loss
+    head and backward walk in one launch. Bound as K6 (csrc/walk_grad.cu)."""
+    if feats.device.type == "cpu":
+        return lossgrad_tiles_plain(
+            cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background, scale
+        )
+    num, grads = _launch_grad(
+        True, cnt, idx, feats, n_tx, tile_h, tile_w, background,
+        target_p=target_p, w_p=w_p, scale=scale,
+    )
+    lossgrad_tiles.launches += 1
+    return num, grads
+
+
+lossgrad_tiles.launches = 0
+
+
+# -------------------------------------------------------- autograd
+
+
+class RenderDiff(torch.autograd.Function):
+    """SplatScreen fields -> padded canvas [B, 3, Hp, Wp]: forward K2 on the
+    folded table, backward K6 on the raw table and the same lists."""
+
+    @staticmethod
+    def forward(ctx, cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1, geom):
+        n_tx, n_ty, tile_h, tile_w, cap, bg = geom
+        p = codec.SplatScreen(cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1)
+        idx, cnt = bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap)
+        canvas = render_cuda.render_tiles(
+            cnt, idx, render_cuda._splat_feats_fast(p), n_tx, tile_h, tile_w, bg
+        )
+        ctx.save_for_backward(_splat_feats(p), cnt, idx)
+        ctx.geom = geom
+        return canvas
+
+    @staticmethod
+    def backward(ctx, g_img):
+        feats, cnt, idx = ctx.saved_tensors
+        n_tx, _, tile_h, tile_w, _, bg = ctx.geom
+        g = bwd_tiles(cnt, idx, feats, g_img.contiguous(), n_tx, tile_h, tile_w, bg)
+        return tuple(g[:, i] for i in range(NGRAD)) + (None,) * 5
+
+
+class _FusedNum(torch.autograd.Function):
+    """SplatScreen fields -> num [B] (sum_px w |clip(C) - target|^2) by K7,
+    which also gives d(num_b)/d(params_b); the backward scales those by the
+    incoming cotangent of each image."""
+
+    @staticmethod
+    def forward(ctx, cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1, target_p, w_p, geom):
+        n_tx, n_ty, tile_h, tile_w, cap, bg = geom
+        p = codec.SplatScreen(cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1)
+        idx, cnt = bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap)
+        # cotangent scale 2: d(w |C - target|^2)/dC = 2 w (C - target)
+        num, grads = lossgrad_tiles(
+            cnt, idx, _splat_feats(p), target_p, w_p, n_tx, tile_h, tile_w, bg, 2.0
+        )
+        ctx.save_for_backward(grads)
+        return torch.sum(num, dim=1)
+
+    @staticmethod
+    def backward(ctx, g_num):
+        (grads,) = ctx.saved_tensors
+        g = grads * g_num[:, None, None]
+        return tuple(g[:, i] for i in range(NGRAD)) + (None,) * 7
+
+
+def _check_single_pass(N: int, cull_eps, corner_cull) -> None:
+    if cull_eps is not None or corner_cull:
+        raise NotImplementedError("the fast tier's culls (cull_eps, corner_cull) are not ported yet")
+    if N > MAX_SPLATS:
+        raise NotImplementedError(
+            f"N={N} > {MAX_SPLATS}: chaining passes through an init canvas is not ported yet"
+        )
+
+
+def _geometry(H, W, N, bin_capacity, background):
+    """The walks' geometry (n_tx, n_ty, tile_h, tile_w, cap, background)."""
+    cap = N if bin_capacity is None else min(bin_capacity, N)
+    return (_cdiv(W, GRAD_TILE_W), _cdiv(H, GRAD_TILE_H), GRAD_TILE_H, GRAD_TILE_W, cap,
+            tuple(float(c) for c in background))
+
+
+def _screen_params(g9, H, W, k_sigma, box):
+    if box not in ("reference", "tight"):
+        raise ValueError(f"unknown box {box!r}")
+    p = codec.preprocess(g9[..., : codec.GENE_DIM].to(torch.float32), H, W, k_sigma)
+    return codec.tighten_boxes_exact(p, k_sigma) if box == "tight" else p
+
+
+def render_diff(
+    g9: torch.Tensor,
+    H: int,
+    W: int,
+    k_sigma: float = 3.0,
+    background: Sequence[float] = (1.0, 1.0, 1.0),
+    bin_capacity: Optional[int] = None,
+    y_origin=None,
+    out_rows: Optional[int] = None,
+    cull_eps: Optional[float] = None,
+    corner_cull: bool = False,
+    box: str = "reference",  # "reference" | "tight" (exact-tight tier)
+) -> torch.Tensor:
+    """Differentiable render: renderer genomes [B, N, 9] (or [N, 9]) ->
+    [B, H, W, 3] (render_pallas_diff, one pass). Forward K2, backward K6."""
+    if y_origin is not None or out_rows is not None:
+        raise NotImplementedError("row slabs (y_origin, out_rows) are not ported yet")
+    squeeze = g9.dim() == 2
+    if squeeze:
+        g9 = g9[None]
+    B, N, _ = g9.shape
+    _check_single_pass(N, cull_eps, corner_cull)
+    p = _screen_params(g9, H, W, k_sigma, box)
+    geom = _geometry(H, W, N, bin_capacity, background)
+    canvas = RenderDiff.apply(*p, geom)
+    img = canvas[:, :, :H, :W].permute(0, 2, 3, 1)
+    return img[0] if squeeze else img
+
+
+def fused_value_and_grad(
+    g_axes: torch.Tensor,
+    target: torch.Tensor,
+    weight_mask: Optional[torch.Tensor],
+    H: int,
+    W: int,
+    *,
+    boost_only: bool = False,
+    boost_beta: float = 1.0,
+    k_sigma: float = 3.0,
+    background: Sequence[float] = (1.0, 1.0, 1.0),
+    bin_capacity: Optional[int] = None,
+    cull_eps: Optional[float] = None,
+    corner_cull: bool = False,
+    box: str = "reference",  # "reference" | "tight" (exact-tight tier)
+):
+    """((loss, fits), grads) for loss = mean(fitness(render(g), target)),
+    one K7 launch for the whole batch (fused_value_and_grad, :603).
+
+    g_axes [B, N, 9] axes-angle genomes; target [H, W, 3]; weight_mask
+    [H, W] or None (the scoring modes of fitness.weff_denom). The grads
+    [B, N, 9] chain through the codec by autograd."""
+    B, N = int(g_axes.shape[0]), int(g_axes.shape[1])
+    _check_single_pass(N, cull_eps, corner_cull)
+    geom = _geometry(H, W, N, bin_capacity, background)
+    n_tx, n_ty = geom[:2]
+    w_eff, denom = fitness_mod.weff_denom(weight_mask, boost_only, boost_beta, H, W)
+    target_p, w_p = pad_planes(target, w_eff, n_ty * GRAD_TILE_H, n_tx * GRAD_TILE_W)
+    g = g_axes.detach().to(torch.float32).requires_grad_(True)
+    with torch.enable_grad():
+        p = _screen_params(codec.genome_to_renderer(g), H, W, k_sigma, box)
+        num = _FusedNum.apply(*p, target_p, w_p, geom)
+        fits = num / denom  # a 0-d CPU denom is a scalar: no copy, no sync
+        loss = torch.mean(fits)
+        (grads,) = torch.autograd.grad(loss, g)
+    return (loss.detach(), fits.detach()), grads

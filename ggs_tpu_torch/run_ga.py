@@ -7,9 +7,10 @@ full-resolution render and the loss curves.
     python -m ggs_tpu_torch.run_ga --image synthetic --generations 5000 --no-video
 
 Options of runners/run_ga.py that are not ported yet (meshes, islands,
-memetic, annealing, recycling, growth, progressive stages, checkpoints,
-video frames) are not accepted; precision "fast"/"bf16" and the SSIM/mix
-metrics raise NotImplementedError.
+annealing, recycling, growth, progressive stages, checkpoints, video
+frames) are not accepted; precision "fast"/"bf16" and the SSIM/mix metrics
+raise NotImplementedError. `--memetic-every E` gives the elites
+`--memetic-steps` Adam steps every E generations (the K7 kernel).
 """
 from __future__ import annotations
 
@@ -49,6 +50,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-video", action="store_true",
                    help="required: the port writes no video frames yet")
     p.add_argument("--eval-chunk", type=int, default=0, help="0 = whole population at once")
+    p.add_argument(
+        "--memetic-every", type=int, default=0,
+        help="hybrid GA+Adam: every N generations give the elites --memetic-steps "
+        "Adam steps through the differentiable renderer, each kept only when it "
+        "improved on the GA's own energy (0 = off)",
+    )
+    p.add_argument("--memetic-steps", type=int, default=5)
+    p.add_argument("--memetic-lr", type=float, default=1e-2)
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     return p
 
@@ -90,6 +99,8 @@ def main(argv=None) -> dict:
         log_every=args.log_every,
         loss_png_path=os.path.join(args.output_dir, "ga_loss.png"),
         loss_csv_path=os.path.join(args.output_dir, "ga_loss.csv"), device=dev,
+        memetic_every=args.memetic_every, memetic_steps=args.memetic_steps,
+        memetic_lr=args.memetic_lr,
     )
     label = "MSE" if args.metric == "mse" else f"energy ({args.metric})"
     if args.precision != "highest":

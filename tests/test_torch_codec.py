@@ -100,3 +100,51 @@ def test_work_size_and_pixel_rescale_match():
     ref = jcodec.scale_genome_pixels_anisotropic(jnp.asarray(g), sH=1.5, sW=0.75)
     got = tcodec.scale_genome_pixels_anisotropic(torch.from_numpy(g), sH=1.5, sW=0.75)
     np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+
+
+def test_clip_gradients_match_jax():
+    """Gradients at the clip bounds: torch.autograd.grad of a weighted sum of
+    every float field of preprocess(genome_to_renderer(g)) equals jax.grad
+    of the same expression, with genes exactly on 0, 1 and 255 and on the
+    log-scale bounds of clamp_genome (where projected Adam leaves them).
+    jnp.clip and jnp.maximum give half the gradient at a tie, torch.clamp
+    all of it. Tolerance 1e-6 relative to the largest gradient: the
+    Cholesky columns go through exp/cos/sin, 1-2 ulp apart in XLA and
+    PyTorch."""
+    import jax
+
+    H, W, min_scale, max_scale = 40, 200, 3.0, 0.1
+    g = axes_genomes(7, 2, 16, H, W, max_scale=max_scale)
+    lo, hi = np.log(np.float32(min_scale)), np.log(np.float32(max_scale * max(H, W)))
+    g[0, 0, 0:2] = 0.0
+    g[0, 1, 0:2] = 1.0
+    g[0, 2, 5:9] = 0.0
+    g[0, 3, 5:9] = 255.0
+    g[0, 4, 2:4] = lo
+    g[0, 5, 2:4] = hi
+    g[1, 0, [0, 5, 8]] = [1.0, 255.0, 255.0]
+    g[1, 1, [1, 6, 7]] = [0.0, 0.0, 255.0]
+    wts = np.random.default_rng(8).uniform(-1.0, 1.0, (9,) + g.shape[:2]).astype(np.float32)
+    fields = ("cx", "cy", "sxx", "sxy", "syy", "rc", "gc", "bc", "a")
+
+    def jf(gg):
+        p = jcodec.preprocess(jcodec.genome_to_renderer(gg), H, W, 3.0)
+        return sum(jnp.sum(jnp.asarray(w) * getattr(p, f)) for w, f in zip(wts, fields))
+
+    ref = np.asarray(jax.grad(jf)(jnp.asarray(g)))
+    gt = torch.from_numpy(g).requires_grad_(True)
+    p = tcodec.preprocess(tcodec.genome_to_renderer(gt), H, W, 3.0)
+    val = sum(torch.sum(torch.from_numpy(w) * getattr(p, f)) for w, f in zip(wts, fields))
+    (got,) = torch.autograd.grad(val, gt)
+    got = got.numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+    # the ties are taken: a gene on a bound gets half its interior gradient
+    assert got[0, 0, 0] != 0.0 and got[0, 3, 8] != 0.0
+    # forward values are the plain clamps', with and without autograd recording
+    g9 = tcodec.genome_to_renderer(torch.from_numpy(g))
+    np.testing.assert_array_equal(g9[..., 5:9].numpy(), np.clip(g[..., 5:9], 0.0, 255.0))
+    g9_grad = tcodec.genome_to_renderer(torch.from_numpy(g).requires_grad_(True))
+    np.testing.assert_array_equal(g9_grad.detach().numpy(), g9.numpy())
+    p_grad = tcodec.preprocess(g9_grad, H, W, 3.0)
+    for name, a in zip(p_grad._fields, tcodec.preprocess(g9, H, W, 3.0)):
+        np.testing.assert_array_equal(getattr(p_grad, name).detach().numpy(), a.numpy(), err_msg=name)

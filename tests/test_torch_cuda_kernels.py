@@ -1,13 +1,17 @@
-"""The port's CUDA kernels (csrc/walk.cu: K1 fitness_tiles, K2 render_tiles)
-against their plain PyTorch versions on the card, at the GA main path's
-shapes (512x512, N=512, B=32, 64x128 tiles), on an odd canvas, and with
-bin_capacity truncating the lists; plus the wrappers' argument checks.
+"""The port's CUDA kernels (csrc/walk.cu: K1 fitness_tiles, K2 render_tiles;
+csrc/walk_grad.cu: K6 bwd_tiles, K7 lossgrad_tiles) against their plain
+PyTorch versions on the card, at the GA main path's shapes (512x512, N=512,
+B=32, 64x128 tiles), on an odd canvas, with bin_capacity truncating the
+lists, and at the gradient paths' shapes (16x128 tiles); plus the wrappers'
+argument checks.
 
 Needs an NVIDIA card and nvcc: marked `cuda`, skipped elsewhere. Run on
 the card with `python -m pytest tests/ -m cuda -q`. Tolerances: canvas
 atol 2e-6 and fitness rtol 5e-5 (the kernel builds with -fmad=false and
 the accurate expf, so both sides round the same operations; what remains
-is the order of the per-tile sums)."""
+is the order of the per-tile sums); each of the 9 gradient rows (one field
+over every image and splat) within 1e-5 of that row's largest plain
+magnitude (sums over a tile's pixels in another order)."""
 import pytest
 import torch
 
@@ -22,6 +26,11 @@ def dev():
 
     render_cuda.build()
     return torch.device("cuda")
+
+
+def _row_err(got, want):
+    """[9]: max |got - want| of each row of [B, 9, N] over its largest |want|."""
+    return (got - want).abs().amax(dim=(0, 2)) / want.abs().amax(dim=(0, 2)).clamp_min(1e-30)
 
 
 def _case(dev, B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0):
@@ -105,3 +114,83 @@ def test_wrappers_reject_bad_arguments(dev):
         rc.render_tiles(cnt.cpu(), idx, feats, n_tx, 64, 128, bg)
     with pytest.raises(ValueError):  # a tile the block cannot cover
         rc.render_tiles(cnt, idx, feats, n_tx, 64, 96, bg)
+
+
+@pytest.mark.parametrize(
+    "B,N,H,W",
+    [
+        (1, 2000, 512, 512),  # run_grad's default
+        (8, 512, 512, 512),  # the memetic elite batch at run_ga's defaults
+        (2, 70, 40, 200),  # odd canvas, lists across three replay chunks
+    ],
+)
+def test_grad_kernels_match_plain(dev, B, N, H, W):
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec, mask, render_cuda as rc, render_grad as rg
+    from ggs_tpu_torch.utils import io
+
+    th, tw = rg.GRAD_TILE_H, rg.GRAD_TILE_W
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device=dev))
+    cnt, idx, _, n_tx, n_ty = rc._prepare(g9, H, W, 3.0, "exact-tight", None, th, tw)
+    p = codec.tighten_boxes_exact(codec.preprocess(g9, H, W, 3.0), 3.0)
+    feats = rg._splat_feats(p)
+    tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
+    wm = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
+    tgt_p, w_p = rc.pad_planes(tgt, wm, n_ty * th, n_tx * tw)
+    bg = (1.0, 1.0, 1.0)
+    n6, n7 = rg.bwd_tiles.launches, rg.lossgrad_tiles.launches
+    num, g7 = rg.lossgrad_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 2.0)
+    num_p, g7_p = rg.lossgrad_tiles_plain(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 2.0)
+    torch.testing.assert_close(num.sum(1), num_p.sum(1), rtol=5e-5, atol=0)
+    k1 = rc.fitness_tiles(cnt, idx, rc._splat_feats_fast(p), tgt_p, w_p, n_tx, th, tw, bg)
+    torch.testing.assert_close(num.sum(1), k1.sum(1), rtol=5e-5, atol=0)
+    assert float(_row_err(g7, g7_p).max()) <= 1e-5
+
+    canvas = rc.render_tiles(cnt, idx, rc._splat_feats_fast(p), n_tx, th, tw, bg)
+    g_img = (2.0 * w_p * (canvas.clamp(0.0, 1.0) - tgt_p[None])).contiguous()
+    g6 = rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg)
+    g6_p = rg.bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, th, tw, bg)
+    assert float(_row_err(g6, g6_p).max()) <= 1e-5
+    assert float(_row_err(g6, g7).max()) <= 2e-6
+    # no atomics: the same bits on a second launch
+    assert torch.equal(g6, rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg))
+    num2, g7b = rg.lossgrad_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 2.0)
+    assert torch.equal(num, num2) and torch.equal(g7, g7b)
+    assert (rg.bwd_tiles.launches, rg.lossgrad_tiles.launches) == (n6 + 2, n7 + 2)
+
+
+def test_grad_entry_points_match_oracle_autograd(dev):
+    """fused_value_and_grad (K7) and autograd through render_diff (K2 + K6)
+    on the card against torch autograd through the dense oracle on the CPU."""
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec, fitness, oracle, render_grad as rg
+    from ggs_tpu_torch.utils import io
+
+    H, W = 40, 200
+    g = genome.new_population(torch.Generator().manual_seed(7), 2, 24, H, W, 1.0, 0.3, "cpu")
+    tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device="cpu")
+    gc = g.clone().requires_grad_(True)
+    img = oracle.render_dense(codec.genome_to_renderer(gc), H, W, box="tight")
+    (ref,) = torch.autograd.grad(fitness.fitness_from_images(img, tgt).mean(), gc)
+    _, fused = rg.fused_value_and_grad(g.to(dev), tgt.to(dev), None, H, W, box="tight")
+    gd = g.to(dev).requires_grad_(True)
+    img_d = rg.render_diff(codec.genome_to_renderer(gd), H, W, box="tight")
+    (unfused,) = torch.autograd.grad(fitness.fitness_from_images(img_d, tgt.to(dev)).mean(), gd)
+    torch.testing.assert_close(fused.cpu(), ref, rtol=1e-3, atol=1e-7)
+    torch.testing.assert_close(unfused.cpu(), ref, rtol=1e-3, atol=1e-7)
+
+
+def test_grad_wrappers_reject_bad_arguments(dev):
+    from ggs_tpu_torch.ops import render_grad as rg
+
+    cnt, idx, _, tgt_p, w_p, n_tx = _case(dev, 2, 16, 64, 128, "highest", tile_h=16)
+    feats = torch.zeros((2, 13, 17), device=dev)
+    bg = (1.0, 1.0, 1.0)
+    g_img = torch.zeros((2, 3, 64, 128), device=dev)
+    with pytest.raises(ValueError):  # only the kernels' 16x128 tile
+        rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, 64, 128, bg)
+    with pytest.raises(TypeError):
+        rg.bwd_tiles(cnt, idx, feats, g_img.double(), n_tx, 16, 128, bg)
+    with pytest.raises(ValueError):
+        rg.lossgrad_tiles(cnt, idx, feats, tgt_p[:, :-1], w_p, n_tx, 16, 128, bg, 2.0)
