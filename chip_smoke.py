@@ -38,7 +38,21 @@ Phases, each fatal on failure (no exception is caught):
    is computed from this run's lists.
 6. profile: one GA block and one Adam block under torch.profiler, with the
    device time split between the walk kernel, sorting (the dense binning)
-   and the other kernels.
+   and the other kernels; and one fast GA block (walk, K4, sort, other).
+The fast tier adds, in the same phases: K3 (fitness_tiles_fast,
+render_tiles_fast) and K4 (prep_fast) against their plain versions at the
+fast GA's shapes (B=32, N=512, 512x512, eps 2e-3 and 8e-2, corner cull) and
+on the odd canvas, K1-bf16 (fitness_tiles_bf16) at the bf16 GA's, and
+evaluate/render_genomes on the card against the CPU plain route; the main
+paths `run_ga --precision fast` (FAST_GENS generations: K4 and K3 at least
+once a generation, K1 once for the exact rescore), the fast memetic GA
+(--cull-eps 8e-2, K7 25 times over eps-culled lists), `run_grad
+--precision fast` (K7 once a step) and `run_ga --precision bf16` (K1-bf16
+once a generation); the selection fidelity of fast scoring on 20
+populations of 64 (benchmarks/eps_sweep.py: the largest exact-fitness gap
+inverted, under 1.5e-2); K3/K4/K1-bf16 times with their bounds, renders/s
+under fast and bf16, and fast GA generations/s in blocks alternating with
+exact-tight's.
 Prints one `kernels` JSON line, the card line, and last the device line.
 Imports nothing of JAX.
 """
@@ -77,6 +91,22 @@ OPS_PER_PAIR_COLUMN = 5
 # per pixel: K1 clamps (6), 3 sub, 3 squares, 2 add, *w, += (16); K2 clamps
 OPS_PER_PIXEL_K1 = 16
 OPS_PER_PIXEL_K2 = 6
+# the fast walk (K3, walk.cu mode 1) per (splat, pixel) pair inside the box:
+# 2 y compares, qy, qx*qy, nsxy*, qy*qy, nsyy*, +log2a, +, +txx, exp2, and
+# 3 x (c - C, f*, C +) for the blend; per column as the exact walk's 5
+OPS_PER_PAIR_PIXEL_FAST = 20
+# K1-bf16 runs the exact walk with the roundings as conversions, not
+# operations of the function. Per pair-pixel, 17 of the 21 are bf16 (qx*qy,
+# nsxy*, +, qy*qy, nsyy*, +, *a, 1-f and the 9 of the blend) and count at the
+# card's packed bf16x2 rate outside the tensor cores (NVIDIA H100 white
+# paper: 133.8 TFLOP/s, twice f32's); the 2 y compares, qy's subtraction and
+# exp stay f32. Per column, qx*qx and nsxx* are bf16, the 2 x compares and
+# qx f32; the loss epilogue is f32.
+PEAK_BF16_FLOPS = 133.8e12
+BF16_OPS_PER_PAIR_PIXEL, BF16_OPS_PER_PAIR_COLUMN = 17, 2
+# K4 per splat: ~80 operations (clips, exp x2, log, log2, sqrt x2, the
+# precision fold, boxes), against 36 bytes read and 13 x 4 + 16 written
+OPS_PER_SPLAT_K4 = 80
 # The gradient walks (K6, K7) count what the function needs, not the
 # replay csrc/walk_grad.cu chose (pass A, then B1 and B2 each recomputing e):
 # per (splat, pixel) pair in the box one forward step, 23 (2 y compares, qy,
@@ -91,6 +121,14 @@ OPS_PER_PIXEL_K7 = 20
 
 CANVAS_ATOL = 2e-6
 FITNESS_RTOL = 5e-5
+BF16_RTOL = 1e-5  # K1-bf16 vs its plain version: bf16 roundings of equal inputs
+# K1-bf16 vs K1 on the same lists: the bf16 roundings must show, far above
+# BF16_RTOL, so a walk that skipped them cannot pass
+BF16_MIN_GAP = 10 * BF16_RTOL
+K4_ULPS = 2  # K4's table vs its plain version, finite entries
+FIDELITY_MAX_GAP = 1.5e-2  # tests/test_tpu_exactness.py:175-178
+FIDELITY_POPS, FIDELITY_B = 20, 64  # benchmarks/eps_sweep.py's rank rounds
+FAST_GENS, FAST_MEMETIC_GENS, BF16_GENS = 200, 50, 50
 # kernel vs plain gradients: each of the 9 rows (a field over every image
 # and splat) within GRAD_ROW_REL of that row's largest plain magnitude
 GRAD_ROW_REL = 1e-5
@@ -123,8 +161,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def make_case(B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, device="cuda"):
-    """Random population (seeded) -> the walk's inputs at these shapes."""
+def make_case(B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, device="cuda",
+              cull_eps=None):
+    """Random population (seeded) -> the walk's inputs at these shapes. Under
+    "fast": fast fitness's route (K4's table and boxes, corner-culled lists)."""
     import torch
 
     from ggs_tpu_torch.models import genome
@@ -135,18 +175,20 @@ def make_case(B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, de
     gen = torch.Generator(device=dev).manual_seed(seed)
     g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device=dev))
     cnt, idx, feats, n_tx, n_ty = render_cuda._prepare(
-        g9, H, W, 3.0, precision, cap, tile_h, tile_w
+        g9, H, W, 3.0, precision, cap, tile_h, tile_w, cull_eps, True, fitness_route=True
     )
     tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
     w = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
     tgt_p, w_p = render_cuda.pad_planes(tgt, w, n_ty * tile_h, n_tx * tile_w)
     return dict(cnt=cnt, idx=idx, feats=feats, tgt_p=tgt_p, w_p=w_p, n_tx=n_tx,
-                tile_h=tile_h, tile_w=tile_w, g9=g9)
+                tile_h=tile_h, tile_w=tile_w, g9=g9, H=H, W=W, precision=precision,
+                cull_eps=cull_eps)
 
 
 def pair_counts(c):
     """(pixels, columns) of the tile inside a listed splat's box, summed
-    over every (candidate, tile, k < cnt): the walk's data-dependent work."""
+    over every (candidate, tile, k < cnt): the walk's data-dependent work.
+    The fast table holds the open thresholds x0-1, x1+1, y0-1, y1+1."""
     import torch
 
     cnt, idx, feats = c["cnt"], c["idx"], c["feats"]
@@ -155,6 +197,8 @@ def pair_counts(c):
     boxes = torch.gather(
         feats[:, 9:13, :], 2, idx.long().reshape(B, 1, T * L).expand(B, 4, T * L)
     ).reshape(B, 4, T, L)
+    if c.get("precision") == "fast":
+        boxes = boxes + torch.tensor([1.0, -1.0, 1.0, -1.0], device=boxes.device)[None, :, None, None]
     t = torch.arange(T, device=idx.device)
     tx0 = ((t % n_tx) * tw).float()[None, :, None]
     ty0 = ((t // n_tx) * th).float()[None, :, None]
@@ -168,8 +212,9 @@ def pair_counts(c):
 
 def bound(c, kernel: str):
     """(bound_ms, bound_by) for one launch on these inputs: the larger of
-    operations over peak f32 rate and bytes (inputs read once, outputs
-    written once; only the cnt entries of each list) over memory rate."""
+    operations over the peak rate of their type (f32; K1-bf16's bf16 part
+    at the bf16 rate) and bytes (inputs read once, outputs written once;
+    only the cnt entries of each list) over memory rate."""
     B, T, _ = c["idx"].shape
     Hp, Wp = c["w_p"].shape
     n_list = int(c["cnt"].sum().item())
@@ -177,6 +222,7 @@ def bound(c, kernel: str):
     pair_px, pair_cols = pair_counts(c)
     walk_ops = pair_px * OPS_PER_PAIR_PIXEL + pair_cols * OPS_PER_PAIR_COLUMN
     in_bytes = 4 * (B * T + n_list + c["feats"].numel())
+    bf16_ops = 0
     if kernel in ("K6", "K7"):
         N = c["feats"].shape[2] - 1
         ops = pair_px * OPS_PER_PAIR_PIXEL_GRAD + pair_cols * OPS_PER_PAIR_COLUMN_GRAD
@@ -186,13 +232,25 @@ def bound(c, kernel: str):
             nbytes += 4 * (4 * Hp * Wp) + 4 * B * T  # target, weights; num
         else:
             nbytes += 4 * 3 * pixels  # the image cotangent
-    elif kernel == "K1":
+    elif kernel in ("K1", "K1-bf16"):
         ops = walk_ops + pixels * OPS_PER_PIXEL_K1
         nbytes = in_bytes + 4 * (4 * Hp * Wp) + 4 * B * T
+        if kernel == "K1-bf16":
+            bf16_ops = pair_px * BF16_OPS_PER_PAIR_PIXEL + pair_cols * BF16_OPS_PER_PAIR_COLUMN
+            ops -= bf16_ops
+    elif kernel in ("K3", "K3-canvas"):
+        ops = pair_px * OPS_PER_PAIR_PIXEL_FAST + pair_cols * OPS_PER_PAIR_COLUMN
+        if kernel == "K3":
+            ops += pixels * OPS_PER_PIXEL_K1
+            nbytes = in_bytes + 4 * (4 * Hp * Wp) + 4 * B * T
+        else:
+            ops += pixels * OPS_PER_PIXEL_K2
+            nbytes = in_bytes + 4 * 3 * pixels
     else:
         ops = walk_ops + pixels * OPS_PER_PIXEL_K2
         nbytes = in_bytes + 4 * 3 * pixels
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_FP32_FLOPS + bf16_ops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -223,6 +281,168 @@ def run_k2_plain(c):
     Hp, Wp = c["w_p"].shape
     return rc.render_tiles_plain(c["cnt"], c["idx"], c["feats"], c["n_tx"], c["tile_h"],
                                  c["tile_w"], (1.0, 1.0, 1.0), Hp, Wp)
+
+
+def k4_bound(B: int, N: int):
+    """(bound_ms, bound_by) of one K4 launch: the genome read once, the fast
+    table [B, 13, N+1] and boxes [B, 4, N] written once."""
+    nbytes = 4 * (9 * B * N + 13 * B * (N + 1) + 4 * B * N)
+    t_ops, t_bytes = OPS_PER_SPLAT_K4 * B * N / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def run_k3(c, plain=False):
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    args = (c["cnt"], c["idx"], c["feats"], c["tgt_p"], c["w_p"], c["n_tx"], c["tile_h"],
+            c["tile_w"], (1.0, 1.0, 1.0))
+    return rc.fitness_tiles_plain(*args, mode="fast") if plain else rc.fitness_tiles_fast(*args)
+
+
+def run_k3_canvas(c, plain=False):
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    args = (c["cnt"], c["idx"], c["feats"], c["n_tx"], c["tile_h"], c["tile_w"], (1.0, 1.0, 1.0))
+    if plain:
+        return rc.render_tiles_plain(*args, *c["w_p"].shape, mode="fast")
+    return rc.render_tiles_fast(*args)
+
+
+def run_k1_bf16(c, plain=False):
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    args = (c["cnt"], c["idx"], c["feats"], c["tgt_p"], c["w_p"], c["n_tx"], c["tile_h"],
+            c["tile_w"], (1.0, 1.0, 1.0))
+    return rc.fitness_tiles_plain(*args, mode="bf16") if plain else rc.fitness_tiles_bf16(*args)
+
+
+def run_k4(c, plain=False):
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    fn = rc.prep_fast_plain if plain else rc.prep_fast
+    return fn(c["g9"], c["H"], c["W"], 3.0, c["cull_eps"])
+
+
+def rel_err(got, want):
+    """max |got - want| / |want| of two fitness sums [B]."""
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
+
+
+def compare_fast(c, label: str) -> dict:
+    """K3 (both epilogues) and K4 against their plain versions: the walk on
+    bit-identical lists (K4's own table and boxes), K4's table within
+    K4_ULPS ulp with its -inf entries equal and its boxes equal."""
+    import torch
+
+    k3c, p3c = run_k3_canvas(c), run_k3_canvas(c, plain=True)
+    k3, p3 = run_k3(c), run_k3(c, plain=True)
+    (ff, fi), (ff_p, fi_p) = run_k4(c), run_k4(c, plain=True)
+    torch.cuda.synchronize()
+    canvas_err = float((k3c - p3c).abs().max())
+    fit_rel = rel_err(k3.sum(1), p3.sum(1))
+    part_err = float((k3 - p3).abs().max())
+    same = torch.equal(k3, run_k3(c))
+    fin = torch.isfinite(ff_p)
+    ulps = (ff.view(torch.int32).long() - ff_p.view(torch.int32).long()).abs()[fin]
+    k4_ulps = int(ulps.max()) if ulps.numel() else 0
+    inf_same = torch.equal(torch.isneginf(ff), torch.isneginf(ff_p))
+    fi_diff = int((fi != fi_p).sum())
+    k4_err = float((ff - ff_p)[fin].abs().max())
+    print(f"CHECK {label}: K3 canvas max abs {canvas_err:.3e} (<= {CANVAS_ATOL}), K3 fitness "
+          f"max rel {fit_rel:.3e} (<= {FITNESS_RTOL}), same bits twice {same}; K4 table max "
+          f"{k4_ulps} ulp (<= {K4_ULPS}), -inf equal {inf_same}, boxes differing {fi_diff}; "
+          f"max cnt {int(c['cnt'].max())}, pairs {int(c['cnt'].sum())}", flush=True)
+    check(canvas_err <= CANVAS_ATOL, f"{label}: K3 canvas differs by {canvas_err}")
+    check(fit_rel <= FITNESS_RTOL, f"{label}: K3 fitness differs by {fit_rel}")
+    check(same, f"{label}: K3 is not the same bits on a second launch")
+    check(k4_ulps <= K4_ULPS and inf_same, f"{label}: K4's table differs by {k4_ulps} ulp")
+    check(fi_diff == 0, f"{label}: K4's boxes differ in {fi_diff} entries")
+    return {"canvas": canvas_err, "fitness_rel": fit_rel, "partials": part_err, "k4_ulps": k4_ulps,
+            "k4_abs": k4_err}
+
+
+def compare_bf16(c, label: str) -> dict:
+    """K1-bf16 against its plain version (torch bf16 on the card), and
+    against K1 (the f32 walk) on the same lists, from which it must differ."""
+    import torch
+
+    k, p = run_k1_bf16(c), run_k1_bf16(c, plain=True)
+    torch.cuda.synchronize()
+    fit_rel = rel_err(k.sum(1), p.sum(1))
+    f32_gap = rel_err(k.sum(1), run_k1(c).sum(1))
+    same = torch.equal(k, run_k1_bf16(c))
+    print(f"CHECK {label}: K1-bf16 fitness max rel {fit_rel:.3e} (<= {BF16_RTOL}), partials max "
+          f"abs {float((k - p).abs().max()):.3e}, same bits twice {same}; vs K1 (f32) max rel "
+          f"{f32_gap:.3e} (>= {BF16_MIN_GAP})", flush=True)
+    check(fit_rel <= BF16_RTOL, f"{label}: K1-bf16 fitness differs by {fit_rel}")
+    check(same, f"{label}: K1-bf16 is not the same bits on a second launch")
+    check(f32_gap >= BF16_MIN_GAP, f"{label}: K1-bf16 is within {f32_gap} of the f32 walk")
+    return {"fitness_rel": fit_rel, "partials": float((k - p).abs().max()), "vs_f32": f32_gap}
+
+
+def check_fast_entry_points() -> None:
+    """evaluate (fast at both eps, bf16) and render_genomes (fast) on the
+    card against the same calls on the CPU (the plain route)."""
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import mask, objective
+    from ggs_tpu_torch.utils import io
+
+    import torch
+
+    H, W = 40, 200
+    g = genome.new_population(torch.Generator().manual_seed(17), 3, 24, H, W, 1.0, 0.3, "cpu")
+    tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device="cpu")
+    wm = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
+    worst = {}
+    for prec, eps, rtol in (("fast", 2e-3, FITNESS_RTOL), ("fast", 8e-2, FITNESS_RTOL),
+                            ("bf16", None, BF16_RTOL)):
+        obj = objective.Objective(H=H, W=W, precision=prec, cull_eps=eps)
+        got = objective.evaluate(obj, g.cuda(), tgt.cuda(), wm.cuda(), device="cuda").cpu()
+        want = objective.evaluate(obj, g, tgt, wm, device="cpu")
+        worst[f"{prec}_{eps}"] = rel = rel_err(got, want)
+        check(rel <= rtol, f"{prec} eps={eps}: evaluate on the card differs by {rel}")
+    obj = objective.Objective(H=H, W=W, precision="fast", cull_eps=8e-2)
+    img = objective.render_genomes(obj, g.cuda(), device="cuda").cpu()
+    img_err = float((img - objective.render_genomes(obj, g, device="cpu")).abs().max())
+    print(f"CHECK fast/bf16 entry points on the card vs the CPU plain route (B=3 N=24 40x200): "
+          f"fitness max rel {fmt(worst.values())} {list(worst)}, fast canvas max abs "
+          f"{img_err:.3e}", flush=True)
+    check(img_err <= 2 * CANVAS_ATOL, f"fast render on the card differs by {img_err}")
+
+
+def selection_fidelity(tgt, wm) -> dict:
+    """benchmarks/eps_sweep.py on the card: FIDELITY_POPS random populations
+    of FIDELITY_B at N=512 on the 512x512 target with the importance mask;
+    per eps, the largest exact-fitness gap that fast scoring inverts, over
+    the mean exact fitness, and the populations with any rank change."""
+    import torch
+
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import objective
+
+    H, W, dev = tgt.shape[0], tgt.shape[1], tgt.device
+    pops = [genome.new_population(torch.Generator(device=dev).manual_seed(100 + r),
+                                  FIDELITY_B, 512, H, W, device=dev)
+            for r in range(FIDELITY_POPS)]
+    exact = [objective.evaluate(objective.Objective(H=H, W=W), p, tgt, wm, device=dev)
+             for p in pops]
+    out = {}
+    for eps in (2e-3, 8e-2):
+        obj = objective.Objective(H=H, W=W, precision="fast", cull_eps=eps)
+        gap, moved = 0.0, 0
+        for p, fe in zip(pops, exact):
+            ff = objective.evaluate(obj, p, tgt, wm, device=dev)
+            moved += int(not torch.equal(torch.argsort(ff), torch.argsort(fe)))
+            inverted = (ff[:, None] - ff[None, :] > 0) & (fe[:, None] - fe[None, :] < 0)
+            g = torch.where(inverted, fe[None, :] - fe[:, None], 0.0) / fe.mean()
+            gap = max(gap, float(g.max()))
+        out[str(eps)] = {"max_inverted_rel_gap": gap, "rank_changed_pops": moved}
+    print("FIDELITY " + json.dumps({"pops": FIDELITY_POPS, "B": FIDELITY_B, **out}), flush=True)
+    for eps, r in out.items():
+        check(r["max_inverted_rel_gap"] < FIDELITY_MAX_GAP,
+              f"eps={eps}: fast scoring inverts an exact gap of {r['max_inverted_rel_gap']}")
+    return out
 
 
 def compare(c, label: str) -> dict:
@@ -398,9 +618,9 @@ def check_no_sync(fn, what: str) -> None:
 
 def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
     """Device time of one fn() (n_gens GA generations or Adam steps) under
-    torch.profiler, split between the walk kernel, sort kernels (the dense
-    binning) and the rest, with the device's busy share of the host-timed
-    window."""
+    torch.profiler, split between the walk kernel, K4 (prep), sort kernels
+    (the dense binning) and the rest, with the device's busy share of the
+    host-timed window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -411,7 +631,7 @@ def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    split = {"walk": 0.0, "sort": 0.0, "other": 0.0}
+    split = {"walk": 0.0, "prep": 0.0, "sort": 0.0, "other": 0.0}
     by_name = []
     for e in prof.key_averages():
         # user annotations (torch.optim's "Optimizer.step#Adam.step") span
@@ -420,7 +640,7 @@ def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
             continue
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
-        key = ("walk" if walk in e.key
+        key = ("walk" if walk in e.key else "prep" if "prep_fast_kernel" in e.key
                else "sort" if "sort" in e.key.lower() or "radix" in e.key.lower() else "other")
         split[key] += us / 1e3
         by_name.append((us / 1e3, e.count, e.key[:90]))
@@ -515,63 +735,82 @@ def main() -> int:
                  for k, c in grad_cases.items()}
     check_grad_entry_points()
 
+    # K3 (both epilogues) and K4 at the fast GA's shapes, at both eps with the
+    # corner cull, on the odd canvas; K1-bf16 at the bf16 GA's
+    fast_cases, fast_errs = {}, {}
+    for eps in (2e-3, 8e-2):
+        c = fast_cases[eps] = make_case(32, 512, 512, 512, "fast", seed=20, cull_eps=eps)
+        fast_errs[eps] = compare_fast(c, f"B=32 N=512 512x512 fast eps={eps} corner cull")
+    compare_fast(make_case(4, 256, 200, 328, "fast", seed=21, cull_eps=8e-2),
+                 "B=4 N=256 200x328 fast eps=0.08 (odd canvas)")
+    bf16_case = make_case(32, 512, 512, 512, "bf16", seed=22)
+    bf16_err = compare_bf16(bf16_case, "B=32 N=512 512x512 bf16")
+    check_fast_entry_points()
+
+    counted = {"K1": rc.fitness_tiles, "K2": rc.render_tiles, "K3": rc.fitness_tiles_fast,
+               "K3-canvas": rc.render_tiles_fast, "K4": rc.prep_fast,
+               "K1-bf16": rc.fitness_tiles_bf16, "K6": rg.bwd_tiles, "K7": rg.lossgrad_tiles}
+
     def reset_counts():
-        for fn in (rc.fitness_tiles, rc.render_tiles, rg.bwd_tiles, rg.lossgrad_tiles):
+        for fn in counted.values():
             fn.launches = 0
 
     def read_counts():
-        return {"K1": rc.fitness_tiles.launches, "K2": rc.render_tiles.launches,
-                "K6": rg.bwd_tiles.launches, "K7": rg.lossgrad_tiles.launches}
+        return {k: fn.launches for k, fn in counted.items()}
 
-    # 4. the main paths
-    phase("main path: run_ga")
-    out_dir = os.path.join(HERE, "output", "chip_smoke")
-    reset_counts()
-    t0 = time.perf_counter()
-    res = run_ga.main([
-        "--image", "synthetic", "--generations", str(GENERATIONS), "--log-every", "50",
-        "--no-video", "--output-dir", out_dir, "--device", "cuda",
-    ])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    best = res["curves"]["best"]
+    # 4. the main paths, each driven with every launch count set to 0 just
+    # before and read just after
+    def drive(label, runner, out, argv):
+        phase(f"main path: {label}")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = runner.main(["--image", "synthetic", *argv, "--output-dir",
+                           os.path.join(HERE, "output", out), "--device", "cuda"])
+        torch.cuda.synchronize()
+        return res, read_counts(), time.perf_counter() - t0
+
+    def ga_path(label, tag, out, gens, argv, monotone=False):
+        res, counts, wall = drive(label, run_ga, out, [
+            "--generations", str(gens), "--log-every", str(min(50, gens // 2)), "--no-video",
+            *argv])
+        best = res["curves"]["best"]
+        print(f"MAIN PATH {tag}".rstrip() + " " + json.dumps({
+            "generations": gens, "seconds": wall, "best_first": best[0], "best_last": best[-1],
+            "exact_rescore": res["best_fit"], "launches": counts,
+        }), flush=True)
+        check(len(best) == gens + 1, f"{label}: curve length")
+        check(best[-1] < best[0], f"{label}: the best did not fall ({best[0]} -> {best[-1]})")
+        check(math.isfinite(res["best_fit"]) and res["best_fit"] > 0, f"{label}: rescored fitness")
+        if monotone:
+            check(all(b1 <= b0 + 1e-9 for b0, b1 in zip(best, best[1:])),
+                  f"{label}: the best is not monotone")
+        return res, counts
+
+    def grad_path(label, tag, out, argv):
+        res, counts, wall = drive(label, run_grad, out,
+                                  ["--steps", str(GRAD_STEPS), "--log-every", "50", *argv])
+        curve = res["curve"]
+        print(f"MAIN PATH {tag} " + json.dumps({
+            "steps": GRAD_STEPS, "seconds": wall, "loss_first": curve[0], "loss_last": curve[-1],
+            "highest_rescore": res["best_loss"], "launches": counts,
+        }), flush=True)
+        check(len(curve) == GRAD_STEPS, f"{label}: curve length")
+        check(curve[-1] < curve[0], f"{label}: the loss did not fall ({curve[0]} -> {curve[-1]})")
+        check(math.isfinite(res["best_loss"]) and res["best_loss"] > 0, f"{label}: rescored loss")
+        check(tuple(res["final"].shape) == (512, 512, 3) and bool(torch.isfinite(res["final"]).all()),
+              f"{label}: export render")
+        check(counts["K7"] >= GRAD_STEPS, f"{label}: K7 launched {counts['K7']} times")
+        check(counts["K2"] >= 1, f"{label}: K2 was not launched by the rescore and export")
+        return counts
+
+    res, launches = ga_path("run_ga", "", "chip_smoke", GENERATIONS, [])
     final = res["final"]
-    summary = {
-        "generations": GENERATIONS, "seconds": wall, "best_first": best[0],
-        "best_last": best[-1], "exact_rescore": res["best_fit"], "launches": launches,
-    }
-    print("MAIN PATH " + json.dumps(summary), flush=True)
-    check(len(best) == GENERATIONS + 1, "curve length")
-    check(best[-1] < best[0], f"best fitness did not fall ({best[0]} -> {best[-1]})")
-    check(math.isfinite(res["best_fit"]) and res["best_fit"] > 0, "rescored fitness")
     check(tuple(final.shape) == (512, 512, 3) and bool(torch.isfinite(final).all())
           and float(final.min()) >= 0.0 and float(final.max()) <= 1.0, "final render")
     check(launches["K1"] >= GENERATIONS, f"K1 launched {launches['K1']} times")
     check(launches["K2"] >= 1, "K2 was not launched by the export render")
 
-    phase("main path: run_grad")
-    reset_counts()
-    t0 = time.perf_counter()
-    gres = run_grad.main([
-        "--image", "synthetic", "--steps", str(GRAD_STEPS), "--log-every", "50",
-        "--output-dir", os.path.join(HERE, "output", "chip_smoke_grad"), "--device", "cuda",
-    ])
-    torch.cuda.synchronize()
-    grad_wall = time.perf_counter() - t0
-    grad_launches = read_counts()
-    curve = gres["curve"]
-    print("MAIN PATH run_grad " + json.dumps({
-        "steps": GRAD_STEPS, "seconds": grad_wall, "loss_first": curve[0], "loss_last": curve[-1],
-        "highest_rescore": gres["best_loss"], "launches": grad_launches,
-    }), flush=True)
-    check(len(curve) == GRAD_STEPS, "run_grad curve length")
-    check(curve[-1] < curve[0], f"the Adam loss did not fall ({curve[0]} -> {curve[-1]})")
-    check(math.isfinite(gres["best_loss"]) and gres["best_loss"] > 0, "rescored loss")
-    check(tuple(gres["final"].shape) == (512, 512, 3) and bool(torch.isfinite(gres["final"]).all()),
-          "run_grad's export render")
-    check(grad_launches["K7"] >= GRAD_STEPS, f"K7 launched {grad_launches['K7']} times")
-    check(grad_launches["K2"] >= 1, "K2 was not launched by the rescore and export")
+    grad_launches = grad_path("run_grad", "run_grad", "chip_smoke_grad", [])
 
     # the unfused gradient at run_grad's shape: autograd through make_loss_fn
     phase("main path: unfused gradient")
@@ -607,26 +846,47 @@ def main() -> int:
     check(unfused_launches["K6"] == UNFUSED_STEPS and unfused_launches["K2"] >= UNFUSED_STEPS,
           f"unfused launches {unfused_launches}")
 
-    phase("main path: memetic run_ga")
-    reset_counts()
-    mres = run_ga.main([
-        "--image", "synthetic", "--generations", str(MEMETIC_GENS), "--log-every", "25",
-        "--memetic-every", str(MEMETIC_EVERY), "--memetic-steps", str(MEMETIC_STEPS),
-        "--no-video", "--output-dir", os.path.join(HERE, "output", "chip_smoke_memetic"),
-        "--device", "cuda",
-    ])
-    memetic_launches = read_counts()
-    mbest = mres["curves"]["best"]
-    print("MAIN PATH memetic " + json.dumps({
-        "generations": MEMETIC_GENS, "best_first": mbest[0], "best_last": mbest[-1],
-        "exact_rescore": mres["best_fit"], "launches": memetic_launches,
-    }), flush=True)
-    check(mbest[-1] < mbest[0], "the memetic best did not fall")
-    check(all(b1 <= b0 + 1e-9 for b0, b1 in zip(mbest, mbest[1:])), "memetic best not monotone")
+    memetic = ["--memetic-every", str(MEMETIC_EVERY), "--memetic-steps", str(MEMETIC_STEPS)]
+    _, memetic_launches = ga_path("memetic run_ga", "memetic", "chip_smoke_memetic",
+                                  MEMETIC_GENS, memetic, monotone=True)
     want_k7 = (MEMETIC_GENS // MEMETIC_EVERY) * MEMETIC_STEPS
     check(memetic_launches["K7"] == want_k7,
           f"K7 launched {memetic_launches['K7']} times in the memetic run, not {want_k7}")
     check(memetic_launches["K1"] >= MEMETIC_GENS, "K1 launched less than once a generation")
+
+    # the fast tier's main paths: run_ga and run_grad under --precision fast,
+    # the memetic GA over eps-culled lists, and run_ga under bf16
+    _, fast_launches = ga_path("run_ga --precision fast", "fast", "chip_smoke_fast",
+                               FAST_GENS, ["--precision", "fast"])
+    check(fast_launches["K4"] >= FAST_GENS and fast_launches["K3"] >= FAST_GENS,
+          f"fast launches {fast_launches}")
+    check(fast_launches["K1"] == 1 and fast_launches["K2"] >= 1,
+          f"K1 must launch once (the exact rescore), K2 for the export: {fast_launches}")
+
+    _, fm_launches = ga_path(
+        "memetic run_ga --precision fast --cull-eps 8e-2", "fast memetic",
+        "chip_smoke_fast_memetic", FAST_MEMETIC_GENS,
+        ["--precision", "fast", "--cull-eps", "8e-2", *memetic], monotone=True,
+    )
+    want_k7 = (FAST_MEMETIC_GENS // MEMETIC_EVERY) * MEMETIC_STEPS
+    check(fm_launches["K7"] == want_k7, f"K7 launched {fm_launches['K7']} times, not {want_k7}")
+    check(fm_launches["K3"] >= FAST_MEMETIC_GENS and fm_launches["K4"] >= FAST_MEMETIC_GENS,
+          f"fast memetic launches {fm_launches}")
+
+    grad_path("run_grad --precision fast", "run_grad fast", "chip_smoke_fast_grad",
+              ["--precision", "fast"])
+
+    _, bf16_launches = ga_path("run_ga --precision bf16", "bf16", "chip_smoke_bf16", BF16_GENS,
+                                  ["--precision", "bf16"])
+    check(bf16_launches["K1-bf16"] >= BF16_GENS, f"bf16 launches {bf16_launches}")
+
+    # selection fidelity of fast scoring (benchmarks/eps_sweep.py)
+    phase("selection fidelity")
+    H = W = 512
+    fid_tgt = torch.rand((H, W, 3), generator=torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda")
+    fidelity = selection_fidelity(fid_tgt, mask.compute_importance_mask(fid_tgt, H, W, smooth=3,
+                                                                        strength=0.7))
 
     # 5. times
     phase("times")
@@ -663,28 +923,70 @@ def main() -> int:
         bounds[f"K6_{k}"] = bound(c, "K6")
     del c512
 
+    # the fast tier's kernels at the fast GA's shapes (eps 2e-3, corner cull)
+    f32c = fast_cases[2e-3]
+    f512 = make_case(512, 512, 512, 512, "fast", seed=2, cull_eps=2e-3)
+    f1 = make_case(1, 512, 512, 512, "fast", seed=3, cull_eps=2e-3)
+    t.update({
+        "K3_B32": cuda_ms(lambda: run_k3(f32c), 50),
+        "K3_B512": cuda_ms(lambda: run_k3(f512), 10),
+        "K3_canvas_B1": cuda_ms(lambda: run_k3_canvas(f1), 100),
+        "K4_B32": cuda_ms(lambda: run_k4(f32c), 200),
+        "K1_bf16_B32": cuda_ms(lambda: run_k1_bf16(bf16_case), 20),
+        "K3_plain_B32": cuda_ms(lambda: run_k3(f32c, plain=True), 3, warmup=1),
+        "K3_plain_B512": cuda_ms(lambda: run_k3(f512, plain=True), 1, warmup=1),
+        "K3_canvas_plain_B1": cuda_ms(lambda: run_k3_canvas(f1, plain=True), 5, warmup=1),
+        "K4_plain_B32": cuda_ms(lambda: run_k4(f32c, plain=True), 20),
+        "K1_bf16_plain_B32": cuda_ms(lambda: run_k1_bf16(bf16_case, plain=True), 3, warmup=1),
+        # K1 on the bf16 case's lists (the reference box): K1-bf16's f32 twin
+        "K1_B32_reference_box": cuda_ms(lambda: run_k1(bf16_case), 50),
+    })
+    bounds.update({
+        "K3_B32": bound(f32c, "K3"), "K3_B512": bound(f512, "K3"),
+        "K3_canvas_B1": bound(f1, "K3-canvas"), "K4_B32": k4_bound(32, 512),
+        "K1_bf16_B32": bound(bf16_case, "K1-bf16"),
+    })
+    fast_pairs = {"B32_eps2e-3": pair_counts(f32c), "B32_eps8e-2": pair_counts(fast_cases[8e-2]),
+                  "B32_exact_tight": pair_counts(c32), "B32_reference_box": pair_counts(bf16_case)}
+    del f512
+
     # evaluate() end to end (codec, boxes, binning, K1) at bench.py's batch
     obj = objective.Objective(H=H, W=W, precision="exact-tight")
     gen = torch.Generator(device="cuda").manual_seed(5)
     pop512 = genome.new_population(gen, 512, 512, H, W, device="cuda")
     eval_ms = cuda_ms(lambda: objective.evaluate(obj, pop512, tgt, wm), 10)
     renders_per_s = 512 / (eval_ms / 1e3)
+    obj_fast = objective.Objective(H=H, W=W, precision="fast")
+    tier_renders_per_s = {}
+    for name, o in (("fast_eps2e-3", obj_fast), ("fast_eps8e-2", obj_fast._replace(cull_eps=8e-2)),
+                    ("bf16", objective.Objective(H=H, W=W, precision="bf16"))):
+        ms = cuda_ms(lambda: objective.evaluate(o, pop512, tgt, wm), 10)
+        tier_renders_per_s[name] = 512 / (ms / 1e3)
     del pop512
 
-    # GA generations/s at the main path's configuration, host-timed per block
+    # GA generations/s at the main path's configuration, host-timed per
+    # block; exact-tight and fast blocks alternate (E F F E ...)
     cfg = GAConfig(pop_size=32, generations=500_000)
     gnm = GenomeConfig(n_splats=512)
     st = ga.init(torch.Generator(device="cuda").manual_seed(9), obj, tgt, wm, cfg, gnm)
     st, _ = ga.run_block(st, obj, tgt, wm, cfg, gnm, 20)
+    st_fast = ga.init(torch.Generator(device="cuda").manual_seed(9), obj_fast, tgt, wm, cfg, gnm)
+    st_fast, _ = ga.run_block(st_fast, obj_fast, tgt, wm, cfg, gnm, 20)
     torch.cuda.synchronize()
-    block_rates = []
-    for _ in range(GA_BLOCKS):
-        t0 = time.perf_counter()
-        st, m = ga.run_block(st, obj, tgt, wm, cfg, gnm, GA_BLOCK_GENS)
-        m.cpu()
-        torch.cuda.synchronize()
-        block_rates.append(GA_BLOCK_GENS / (time.perf_counter() - t0))
+    block_rates, fast_block_rates = [], []
+    for i in range(GA_BLOCKS):
+        for tier in (("exact", "fast") if i % 2 == 0 else ("fast", "exact")):
+            t0 = time.perf_counter()
+            if tier == "exact":
+                st, m = ga.run_block(st, obj, tgt, wm, cfg, gnm, GA_BLOCK_GENS)
+            else:
+                st_fast, m = ga.run_block(st_fast, obj_fast, tgt, wm, cfg, gnm, GA_BLOCK_GENS)
+            m.cpu()
+            torch.cuda.synchronize()
+            rate = GA_BLOCK_GENS / (time.perf_counter() - t0)
+            (block_rates if tier == "exact" else fast_block_rates).append(rate)
     gens_per_s = sorted(block_rates)[GA_BLOCKS // 2]
+    fast_gens_per_s = sorted(fast_block_rates)[GA_BLOCKS // 2]
 
     # Adam steps/s: run_grad's defaults, and bench.py's gradient configuration
     # (B=1, N=2000, 512x512, precision "highest", no mask)
@@ -704,6 +1006,10 @@ def main() -> int:
         "renders_per_s_B512": renders_per_s,
         "ga_generations_per_s_P32_N512_512x512_exact_tight": gens_per_s,
         "ga_generations_per_s_blocks": block_rates,
+        "ga_generations_per_s_P32_N512_512x512_fast": fast_gens_per_s,
+        "ga_generations_per_s_fast_blocks": fast_block_rates,
+        "renders_per_s_B512_fast_and_bf16": tier_renders_per_s,
+        "pairs_fast_tier": fast_pairs,
         "adam_steps_per_s_run_grad_defaults": adam_rate,
         "adam_steps_per_s_run_grad_blocks": adam_rates,
         "adam_steps_per_s_bench_grad_config": bench_rate,
@@ -718,6 +1024,10 @@ def main() -> int:
     phase("profile")
     prof = profile_split(lambda: ga.run_block(st, obj, tgt, wm, cfg, gnm, 20)[1].cpu(), 20)
     print("PROFILE GA " + json.dumps(prof), flush=True)
+    prof_fast = profile_split(
+        lambda: ga.run_block(st_fast, obj_fast, tgt, wm, cfg, gnm, 20)[1].cpu(), 20
+    )
+    print("PROFILE GA fast " + json.dumps(prof_fast), flush=True)
     prof_adam = profile_split(
         lambda: gradient.run_block(adam_st, adam_step, tgt, wm, 20)[1].cpu(), 20,
         walk="grad_kernel",
@@ -752,6 +1062,48 @@ def main() -> int:
             "library_ms": None,
             "note": "K2' (the custom-VJP forward, render_grad.py:386) is this render_kernel, "
                     "launched from render_grad.RenderDiff",
+        },
+        {
+            "name": "K3 fitness_tiles_fast / render_tiles_fast (exp2 fast-tier walk)",
+            "route": "cuda",
+            "source": "ggs_tpu_torch/csrc/walk.cu",
+            "replaces": "ggs_tpu/ops/render_pallas.py:1460",
+            "launches": fast_launches["K3"] + fast_launches["K3-canvas"],
+            "max_abs_err": fast_errs[2e-3]["partials"],
+            "ms": t["K3_B32"],
+            "plain_ms": t["K3_plain_B32"],
+            "bound_ms": bounds["K3_B32"][0],
+            "bound_by": bounds["K3_B32"][1],
+            "library_ms": None,
+            "note": "turbo=True at both pallas_calls (render_pallas.py:1460 fitness, :118 "
+                    "canvas); times are the fitness epilogue at B=32",
+        },
+        {
+            "name": "K4 prep_fast (genome -> fast table + eps-tight boxes)",
+            "route": "cuda",
+            "source": "ggs_tpu_torch/csrc/walk.cu",
+            "replaces": "ggs_tpu/ops/render_pallas.py:334",
+            "launches": fast_launches["K4"],
+            "max_abs_err": fast_errs[2e-3]["k4_abs"],
+            "ms": t["K4_B32"],
+            "plain_ms": t["K4_plain_B32"],
+            "bound_ms": bounds["K4_B32"][0],
+            "bound_by": bounds["K4_B32"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "K1-bf16 fitness_tiles_bf16 (the walk in bf16)",
+            "route": "cuda",
+            "source": "ggs_tpu_torch/csrc/walk.cu",
+            "replaces": "ggs_tpu/ops/render_pallas.py:1460",
+            "launches": bf16_launches["K1-bf16"],
+            "max_abs_err": bf16_err["partials"],
+            "ms": t["K1_bf16_B32"],
+            "plain_ms": t["K1_bf16_plain_B32"],
+            "bound_ms": bounds["K1_bf16_B32"][0],
+            "bound_by": bounds["K1_bf16_B32"][1],
+            "library_ms": None,
+            "note": "compute_dtype=bfloat16 at render_pallas.py:1460",
         },
         {
             "name": "K6 bwd_tiles (backward walk, 9 gradients per splat)",

@@ -1,35 +1,57 @@
-// Tile walk kernels for Hopper (sm_90a): the exact painter-order "over"
-// composite of one (candidate, tile) splat list, with two epilogues.
+// Tile walk kernels for Hopper (sm_90a): the painter-order "over" composite
+// of one (candidate, tile) splat list, with two epilogues, in three blend
+// modes; and the fast tier's fused table builder.
 //
-//   K1 (ggs_walk_fitness) replaces the Pallas kernel _fitness_tile_kernel
-//      (ggs_tpu/ops/render_pallas.py, pallas_call in _fitness_partials):
-//      writes sum_px w * ((r-tr)^2 + (g-tg)^2 + (b-tb)^2) per (candidate, tile).
-//   K2 (ggs_walk_render) replaces _render_tile_kernel (pallas_call in
+//   K1 (ggs_walk_fitness, mode 0) replaces the Pallas kernel
+//      _fitness_tile_kernel (ggs_tpu/ops/render_pallas.py, pallas_call in
+//      _fitness_partials): writes sum_px w * ((r-tr)^2 + (g-tg)^2 + (b-tb)^2)
+//      per (candidate, tile).
+//   K2 (ggs_walk_render, mode 0) replaces _render_tile_kernel (pallas_call in
 //      _render_padded): writes the clamped canvas [B, 3, Hp, Wp].
+//   K3 (mode 1 of both) replaces the same two pallas_calls with turbo=True,
+//      the walk _composite_tile.blend_one_turbo over _splat_feats_turbo.
+//   K1-bf16 (ggs_walk_fitness, mode 2) replaces _fitness_tile_kernel with
+//      compute_dtype=bfloat16 (blend_one with dt=bf16).
+//   K4 (ggs_prep_fast) replaces _prep_turbo_kernel (pallas_call in
+//      _prep_turbo_pallas): renderer genome -> fast table + eps-tight boxes.
 //
-// Both share the walk of _composite_tile.blend_one: for k < cnt[b,t] with
-// s = idx[b,t,k], per pixel (x, y):
-//   qx = x - cx, qy = y - cy
-//   f  = exp(nsxx*(qx*qx) + nsxy*(qx*qy) + nsyy*(qy*qy)) * a   (summed left to right)
-//   f  = 0 unless x0 <= x <= x1 && y0 <= y <= y1
-//   C  = (1 - f)*C + f*c, per channel; finally C is clamped to [0, 1].
-// A pixel outside the AABB skips the blend: with f = 0 it is an exact
-// no-op, so skipping changes no bit. Build with -fmad=false and without
-// fast math: every product and sum is then rounded on its own, as in the
-// plain PyTorch version, and expf is the accurate one.
+// The walks, for k < cnt[b,t] with s = idx[b,t,k], per pixel (x, y):
+//   mode 0 (exact):  qx = x - cx, qy = y - cy
+//     f = exp(nsxx*(qx*qx) + nsxy*(qx*qy) + nsyy*(qy*qy)) * a   (left to right)
+//     f = 0 unless x0 <= x <= x1 && y0 <= y <= y1;  C = (1 - f)*C + f*c
+//   mode 1 (fast, the table holds log2e-folded precisions, log2(a) and the
+//     open-interval thresholds x0-1, x1+1, y0-1, y1+1):
+//     f = exp2(nsxx*(qx*qx) + (nsxy*(qx*qy) + (nsyy*(qy*qy) + log2a)))
+//     f = 0 unless x0 < x < x1 && y0 < y < y1;      C = C + f*(c - C)
+//   mode 2 (bf16): mode 0's walk with qx, qy rounded to bf16 after the f32
+//     subtraction, the table's entries rounded to bf16 where they enter, and
+//     every product, sum, exp and blend rounded to bf16 (as torch rounds each
+//     bf16 operation; expf of the bf16 value, then rounded); the canvas
+//     starts as the bf16 background and is carried in bf16.
+// Finally C is clamped to [0, 1] in f32. A pixel outside the box skips the
+// blend: with f = 0 it is an exact no-op in every mode, so skipping changes
+// no bit (mode 1: exp2f(-inf) = 0 for alpha 0 and the sentinel, which is
+// why no ex2.approx). Build with -fmad=false and without fast math: every
+// product and sum is rounded on its own, as in the plain PyTorch versions,
+// and expf/exp2f/logf/log2f are the accurate ones.
 //
-// What bounds it on the card: the arithmetic of the walk, about 30 f32
-// operations and one exp per (splat, pixel) pair inside the box, against
-// a few KB of list and table per tile. The design keeps every pixel's
-// canvas in registers for the whole walk (one block per (candidate,
-// tile), each thread owning one column and tile_h / (256 / tile_w) rows),
-// stages the list's splat parameters through shared memory 256 at a time
-// so each is read from device memory once per tile, and hoists the
-// per-column terms (qx, nsxx*qx*qx, the x test) out of the row loop. The
-// K1 reduction is fixed-order (rows in order, a warp shuffle tree, then
-// the warps in order), with no atomics, so fitness is the same bits on
-// every run.
+// What bounds the walks on the card: their arithmetic, about 20-30
+// operations and one exp per (splat, pixel) pair inside the box, against a
+// few KB of list and table per tile. The design keeps every pixel's canvas
+// in registers for the whole walk (one block per (candidate, tile), each
+// thread owning one column and tile_h / (256 / tile_w) rows), stages the
+// list's splat parameters through shared memory 256 at a time so each is
+// read from device memory once per tile, and hoists the per-column terms
+// (qx, nsxx*qx*qx, the x test) out of the row loop (in mode 1 that term is
+// the last add of the sum, so hoisting changes no bit). The K1 reduction is
+// fixed-order (rows in order, a warp shuffle tree, then the warps in order),
+// with no atomics, so fitness is the same bits on every run.
+//
+// K4 is elementwise, one thread per (candidate, splat), reading the
+// [B, N, 9] genome in place (no transpose copy): a few dozen operations
+// against 36 bytes in and 68 out a splat, so bytes and the launch bound it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ggs {
@@ -39,8 +61,9 @@ constexpr int kMaxRows = 32;   // tile rows one thread owns, at most
 constexpr int kChunk = 256;    // list entries staged per pass
 constexpr int kNFeat = 13;     // rows of the parameter table
 
-// rows of the parameter table (render_pallas._splat_feats_fast)
+// rows of the parameter table (render_pallas._splat_feats_fast / _turbo)
 enum { F_CX, F_CY, F_SXX, F_SXY, F_SYY, F_R, F_G, F_B, F_A, F_X0, F_X1, F_Y0, F_Y1 };
+enum { kExact = 0, kFast = 1, kBf16 = 2 };
 
 struct WalkParams {
   const int* cnt;      // [B, T]
@@ -51,19 +74,28 @@ struct WalkParams {
   float bg0, bg1, bg2;
 };
 
+// f32 -> bf16 (round to nearest even) -> f32: one bf16 rounding
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// one bf16 rounding in mode 2, the identity in the f32 modes
+template <int kMode>
+__device__ __forceinline__ float R(float x) { return kMode == kBf16 ? bf(x) : x; }
+
 // Walks the tile's list; leaves the clamped canvas of this thread's pixels
 // in cr/cg/cb[j] for rows j < nrows.
+template <int kMode>
 __device__ __forceinline__ void walk_tile(const WalkParams& p, int bt, int b, float xf,
                                           float ybase, int rstride, int nrows,
                                           float (&cr)[kMaxRows], float (&cg)[kMaxRows],
                                           float (&cb)[kMaxRows]) {
   __shared__ float sf[kNFeat][kChunk];
 
+  const float bg0 = R<kMode>(p.bg0), bg1 = R<kMode>(p.bg1), bg2 = R<kMode>(p.bg2);
 #pragma unroll
   for (int j = 0; j < kMaxRows; ++j) {
-    cr[j] = p.bg0;
-    cg[j] = p.bg1;
-    cb[j] = p.bg2;
+    cr[j] = bg0;
+    cg[j] = bg1;
+    cb[j] = bg2;
   }
 
   const int n = p.cnt[bt];
@@ -83,7 +115,8 @@ __device__ __forceinline__ void walk_tile(const WalkParams& p, int bt, int b, fl
     for (int k = 0; k < m; ++k) {
       const float x0 = sf[F_X0][k];
       const float x1 = sf[F_X1][k];
-      if (!(xf >= x0 && xf <= x1)) continue;  // this column is outside the box
+      // this column is outside the box
+      if (kMode == kFast ? !(xf > x0 && xf < x1) : !(xf >= x0 && xf <= x1)) continue;
       const float cx = sf[F_CX][k];
       const float cy = sf[F_CY][k];
       const float nsxx = sf[F_SXX][k];
@@ -92,24 +125,47 @@ __device__ __forceinline__ void walk_tile(const WalkParams& p, int bt, int b, fl
       const float rc = sf[F_R][k];
       const float gc = sf[F_G][k];
       const float bc = sf[F_B][k];
-      const float a = sf[F_A][k];
+      const float a = sf[F_A][k];  // mode 1: log2(alpha), -inf for alpha 0
       const float y0 = sf[F_Y0][k];
       const float y1 = sf[F_Y1][k];
-      const float qx = xf - cx;
-      const float txx = nsxx * (qx * qx);
+      if (kMode == kFast) {
+        const float qx = xf - cx;
+        const float txx = nsxx * (qx * qx);
 #pragma unroll
-      for (int j = 0; j < kMaxRows; ++j) {
-        if (j < nrows) {
-          const float yf = ybase + (float)(j * rstride);
-          if (yf >= y0 && yf <= y1) {
-            const float qy = yf - cy;
-            float quad = txx + nsxy * (qx * qy);
-            quad = quad + nsyy * (qy * qy);
-            const float f = expf(quad) * a;
-            const float omf = 1.0f - f;
-            cr[j] = omf * cr[j] + f * rc;
-            cg[j] = omf * cg[j] + f * gc;
-            cb[j] = omf * cb[j] + f * bc;
+        for (int j = 0; j < kMaxRows; ++j) {
+          if (j < nrows) {
+            const float yf = ybase + (float)(j * rstride);
+            if (yf > y0 && yf < y1) {
+              const float qy = yf - cy;
+              const float inner = nsxy * (qx * qy) + (nsyy * (qy * qy) + a);
+              const float f = exp2f(txx + inner);
+              cr[j] = cr[j] + f * (rc - cr[j]);
+              cg[j] = cg[j] + f * (gc - cg[j]);
+              cb[j] = cb[j] + f * (bc - cb[j]);
+            }
+          }
+        }
+      } else {
+        // the exact walk; mode 2 rounds to bf16 after each operation, as
+        // the JAX body's bf16 arithmetic does (R<kExact> is the identity)
+        const float qx = R<kMode>(xf - cx);
+        const float txx = R<kMode>(R<kMode>(nsxx) * R<kMode>(qx * qx));
+        const float bxy = R<kMode>(nsxy), byy = R<kMode>(nsyy), ba = R<kMode>(a);
+        const float brc = R<kMode>(rc), bgc = R<kMode>(gc), bbc = R<kMode>(bc);
+#pragma unroll
+        for (int j = 0; j < kMaxRows; ++j) {
+          if (j < nrows) {
+            const float yf = ybase + (float)(j * rstride);
+            if (yf >= y0 && yf <= y1) {
+              const float qy = R<kMode>(yf - cy);
+              float quad = R<kMode>(txx + R<kMode>(bxy * R<kMode>(qx * qy)));
+              quad = R<kMode>(quad + R<kMode>(byy * R<kMode>(qy * qy)));
+              const float f = R<kMode>(R<kMode>(expf(quad)) * ba);
+              const float omf = R<kMode>(1.0f - f);
+              cr[j] = R<kMode>(R<kMode>(omf * cr[j]) + R<kMode>(f * brc));
+              cg[j] = R<kMode>(R<kMode>(omf * cg[j]) + R<kMode>(f * bgc));
+              cb[j] = R<kMode>(R<kMode>(omf * cb[j]) + R<kMode>(f * bbc));
+            }
           }
         }
       }
@@ -142,11 +198,12 @@ __device__ __forceinline__ TileGeom tile_geom(const WalkParams& p) {
   return g;
 }
 
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) render_kernel(WalkParams p, float* __restrict__ out) {
   const TileGeom g = tile_geom(p);
   float cr[kMaxRows], cg[kMaxRows], cb[kMaxRows];
-  walk_tile(p, g.bt, g.b, (float)(g.tx0 + g.col), (float)(g.ty0 + g.row0), g.rstride, g.nrows,
-            cr, cg, cb);
+  walk_tile<kMode>(p, g.bt, g.b, (float)(g.tx0 + g.col), (float)(g.ty0 + g.row0), g.rstride,
+                   g.nrows, cr, cg, cb);
   const size_t plane = (size_t)p.Hp * p.Wp;
   float* ob = out + (size_t)g.b * 3 * plane;
   const int x = g.tx0 + g.col;
@@ -161,6 +218,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(WalkParams p, float* _
   }
 }
 
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) fitness_kernel(WalkParams p,
                                                            const float* __restrict__ target,
                                                            const float* __restrict__ w,
@@ -168,8 +226,8 @@ __global__ void __launch_bounds__(kThreads) fitness_kernel(WalkParams p,
   __shared__ float red[kThreads / 32];
   const TileGeom g = tile_geom(p);
   float cr[kMaxRows], cg[kMaxRows], cb[kMaxRows];
-  walk_tile(p, g.bt, g.b, (float)(g.tx0 + g.col), (float)(g.ty0 + g.row0), g.rstride, g.nrows,
-            cr, cg, cb);
+  walk_tile<kMode>(p, g.bt, g.b, (float)(g.tx0 + g.col), (float)(g.ty0 + g.row0), g.rstride,
+                   g.nrows, cr, cg, cb);
   const size_t plane = (size_t)p.Hp * p.Wp;
   const int x = g.tx0 + g.col;
   float acc = 0.0f;
@@ -194,6 +252,76 @@ __global__ void __launch_bounds__(kThreads) fitness_kernel(WalkParams p,
   }
 }
 
+// K4: one thread per (candidate, splat n <= N); n == N writes the sentinel
+// column. The expressions and their order are _prep_turbo_kernel's.
+__global__ void prep_fast_kernel(const float* __restrict__ g9, float* __restrict__ ff,
+                                 int* __restrict__ fi, int B, int N, float maxx, float maxy,
+                                 float k_sigma, float cull_eps, float log_eps) {
+  const int N1 = N + 1;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)B * N1) return;
+  const int b = (int)(i / N1);
+  const int n = (int)(i - (long long)b * N1);
+  float* fb = ff + (size_t)b * kNFeat * N1;
+  const float neg_inf = __int_as_float(0xff800000);
+  if (n == N) {  // exact no-op under the fast walk
+#pragma unroll
+    for (int r = 0; r < kNFeat; ++r) {
+      fb[(size_t)r * N1 + N] = r == F_A ? neg_inf
+                               : (r == F_X0 || r == F_Y0) ? 1e9f
+                               : (r == F_X1 || r == F_Y1) ? -1e9f
+                                                          : 0.0f;
+    }
+    return;
+  }
+  const float* g = g9 + ((size_t)b * N + n) * 9;
+  const float inv255 = (float)(1.0 / 255.0);  // as the JAX package folds (1.0 / 255.0)
+  const float cx = fminf(fmaxf(g[0], 0.0f), 1.0f) * maxx;
+  const float cy = fminf(fmaxf(g[1], 0.0f), 1.0f) * maxy;
+  const float l11 = fmaxf(expf(g[2]), 1e-6f);
+  const float l22 = fmaxf(expf(g[3]), 1e-6f);
+  const float l21 = g[4];
+  const float a = fminf(fmaxf(g[8], 0.0f), 255.0f) * inv255;
+  const float r2 = 2.0f * (logf(fmaxf(a, 1e-38f)) - log_eps);
+  const float r = fminf(sqrtf(fmaxf(r2, 0.0f)), k_sigma);
+  const float hx = fmaxf(r * l11, 1.0f);
+  const float hy = fmaxf(r * sqrtf(l21 * l21 + l22 * l22), 1.0f);
+  const bool live = a > cull_eps;
+  // dead splats: x0 = 1 > x1 = -1 empties the tile range too
+  const float x0 = live ? floorf(fminf(fmaxf(cx - hx, 0.0f), maxx)) : 1.0f;
+  const float x1 = live ? ceilf(fminf(fmaxf(cx + hx, 0.0f), maxx)) : -1.0f;
+  const float y0 = floorf(fminf(fmaxf(cy - hy, 0.0f), maxy));
+  const float y1 = ceilf(fminf(fmaxf(cy + hy, 0.0f), maxy));
+  const float inv11 = 1.0f / l11;
+  const float inv22 = 1.0f / l22;
+  const float inv21 = -l21 * (inv11 * inv22);
+  // the constants rounded from double, as the JAX package folds them
+  const float half_log2e = (float)(-0.5 * 1.4426950408889634);
+  const float neg_log2e = (float)(-1.4426950408889634);
+  const float rows[kNFeat] = {
+      cx,
+      cy,
+      half_log2e * (inv11 * inv11 + inv21 * inv21),
+      neg_log2e * (inv21 * inv22),
+      half_log2e * (inv22 * inv22),
+      fminf(fmaxf(g[5], 0.0f), 255.0f) * inv255,
+      fminf(fmaxf(g[6], 0.0f), 255.0f) * inv255,
+      fminf(fmaxf(g[7], 0.0f), 255.0f) * inv255,
+      a > 0.0f ? log2f(fmaxf(a, 1e-38f)) : neg_inf,
+      x0 - 1.0f,
+      x1 + 1.0f,
+      y0 - 1.0f,
+      y1 + 1.0f,
+  };
+#pragma unroll
+  for (int r = 0; r < kNFeat; ++r) fb[(size_t)r * N1 + n] = rows[r];
+  int* ib = fi + (size_t)b * 4 * N;
+  ib[n] = (int)x0;
+  ib[N + n] = (int)x1;
+  ib[2 * N + n] = (int)y0;
+  ib[3 * N + n] = (int)y1;
+}
+
 // tile_w must divide the block, and the block's rows must tile tile_h
 // within kMaxRows rows a thread.
 bool geometry_ok(int tile_h, int tile_w) {
@@ -210,24 +338,54 @@ int ggs_walk_geometry_ok(int tile_h, int tile_w) { return ggs::geometry_ok(tile_
 
 const char* ggs_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int ggs_walk_render(const int* cnt, const int* idx, const float* feats, float* canvas, int B, int T,
-                    int L, int N1, int n_tx, int tile_h, int tile_w, int Hp, int Wp, float bg0,
-                    float bg1, float bg2, void* stream) {
+// mode: 0 exact (K2), 1 fast (K3); the canvas has no bf16 mode
+int ggs_walk_render(int mode, const int* cnt, const int* idx, const float* feats, float* canvas,
+                    int B, int T, int L, int N1, int n_tx, int tile_h, int tile_w, int Hp, int Wp,
+                    float bg0, float bg1, float bg2, void* stream) {
   if (!ggs::geometry_ok(tile_h, tile_w)) return (int)cudaErrorInvalidValue;
   if (B * T == 0) return 0;
   ggs::WalkParams p{cnt, idx, feats, T, L, N1, n_tx, tile_h, tile_w, Hp, Wp, bg0, bg1, bg2};
-  ggs::render_kernel<<<B * T, ggs::kThreads, 0, (cudaStream_t)stream>>>(p, canvas);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case ggs::kExact: ggs::render_kernel<ggs::kExact><<<B * T, ggs::kThreads, 0, s>>>(p, canvas); break;
+    case ggs::kFast: ggs::render_kernel<ggs::kFast><<<B * T, ggs::kThreads, 0, s>>>(p, canvas); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-int ggs_walk_fitness(const int* cnt, const int* idx, const float* feats, const float* target,
-                     const float* w, float* partials, int B, int T, int L, int N1, int n_tx,
-                     int tile_h, int tile_w, int Hp, int Wp, float bg0, float bg1, float bg2,
-                     void* stream) {
+// mode: 0 exact (K1), 1 fast (K3), 2 bf16 (K1-bf16)
+int ggs_walk_fitness(int mode, const int* cnt, const int* idx, const float* feats,
+                     const float* target, const float* w, float* partials, int B, int T, int L,
+                     int N1, int n_tx, int tile_h, int tile_w, int Hp, int Wp, float bg0, float bg1,
+                     float bg2, void* stream) {
   if (!ggs::geometry_ok(tile_h, tile_w)) return (int)cudaErrorInvalidValue;
   if (B * T == 0) return 0;
   ggs::WalkParams p{cnt, idx, feats, T, L, N1, n_tx, tile_h, tile_w, Hp, Wp, bg0, bg1, bg2};
-  ggs::fitness_kernel<<<B * T, ggs::kThreads, 0, (cudaStream_t)stream>>>(p, target, w, partials);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case ggs::kExact:
+      ggs::fitness_kernel<ggs::kExact><<<B * T, ggs::kThreads, 0, s>>>(p, target, w, partials);
+      break;
+    case ggs::kFast:
+      ggs::fitness_kernel<ggs::kFast><<<B * T, ggs::kThreads, 0, s>>>(p, target, w, partials);
+      break;
+    case ggs::kBf16:
+      ggs::fitness_kernel<ggs::kBf16><<<B * T, ggs::kThreads, 0, s>>>(p, target, w, partials);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int ggs_prep_fast(const float* g9, float* ff, int* fi, int B, int N, float maxx, float maxy,
+                  float k_sigma, float cull_eps, float log_eps, void* stream) {
+  const long long n = (long long)B * (N + 1);
+  if (n == 0) return 0;
+  const int threads = 256;
+  const int blocks = (int)((n + threads - 1) / threads);
+  ggs::prep_fast_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      g9, ff, fi, B, N, maxx, maxy, k_sigma, cull_eps, log_eps);
   return (int)cudaGetLastError();
 }
 

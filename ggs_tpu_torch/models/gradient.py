@@ -10,11 +10,15 @@ renderer's exact backward (ops/render_grad.py), which gives:
   the GA's own evaluator scores it better (Lamarckian refinement; the
   memetic block of models/ga.py calls it).
 
-`optax.adam` becomes `torch.optim.Adam` with the same lr, betas and eps
-(the same update up to rounding); the optimizer updates the state's genome
-tensor in place and the projection follows under `torch.no_grad()`. Not
-ported yet (each raises NotImplementedError): the tile-sharded loss, the
-blur homotopy (`anneal_sigma0`), metrics "ssim" and "mix", precision "fast".
+Under precision "fast" the gradient paths walk the eps-culled lists
+(`_grad_cull_eps`, `_grad_corner`): exact gradients of the culled render the
+fast GA selects on. `optax.adam` becomes `torch.optim.Adam` with the same
+lr, betas and eps (the same update up to rounding); the optimizer updates
+the state's genome tensor in place and the projection follows under
+`torch.no_grad()`. Not ported yet (each raises NotImplementedError): the
+tile-sharded loss, the blur homotopy (`anneal_sigma0`), metrics "ssim" and
+"mix". Precision "bf16" is a fitness-only tier and is refused here, as
+runners/run_grad.py refuses it.
 """
 from __future__ import annotations
 
@@ -31,8 +35,23 @@ from ..ops.objective import Objective
 from . import genome as genome_mod
 
 
+def _grad_cull_eps(obj: Objective) -> Optional[float]:
+    """The eps cull of the differentiable tiled paths: obj.cull_eps (or the
+    default) under precision "fast", else None (gradient.py:32-47)."""
+    if obj.precision != "fast":
+        return None
+    return render_cuda._eps(obj.cull_eps)
+
+
+def _grad_corner(obj: Objective) -> bool:
+    """The corner cull of the differentiable tiled paths: on exactly when
+    the fast evaluator's is (gradient.py:50-57)."""
+    return bool(obj.corner_cull) and obj.precision == "fast"
+
+
 def _grad_box(obj: Objective) -> str:
-    """"tight" trains on the exact-tight tier's boxes, else the reference's."""
+    """"tight" trains on the exact-tight tier's boxes, else the reference's
+    (under "fast" the eps-tight boxes of _grad_cull_eps take their place)."""
     return "tight" if obj.precision == "exact-tight" else "reference"
 
 
@@ -40,6 +59,8 @@ def _check_objective(obj: Objective) -> None:
     if obj.metric != "mse":
         raise NotImplementedError(f"metric={obj.metric!r} is not ported yet (only 'mse')")
     render_cuda._check_precision(obj.precision)
+    if obj.precision == "bf16":
+        raise NotImplementedError("precision 'bf16' is a fitness-only tier: no gradients")
     if obj.impl not in ("cuda", "oracle"):
         raise ValueError(f"unknown renderer impl: {obj.impl!r}")
 
@@ -47,7 +68,8 @@ def _check_objective(obj: Objective) -> None:
 def make_loss_fn(obj: Objective, gnm: GenomeConfig):
     """Differentiable loss: axes-angle genomes [B, N, 9] -> (mean fitness,
     fits [B]). impl "cuda" renders with render_grad.render_diff (forward
-    K2, backward K6); impl "oracle" with the dense renderer and autograd."""
+    K2, backward K6; eps-culled under "fast"); impl "oracle" with the dense
+    renderer and autograd (always exact)."""
     _check_objective(obj)
     bg = tuple(float(c) for c in obj.background)
 
@@ -56,7 +78,8 @@ def make_loss_fn(obj: Objective, gnm: GenomeConfig):
         if obj.impl == "cuda":
             imgs = render_grad.render_diff(
                 g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=bg,
-                bin_capacity=obj.bin_capacity, box=_grad_box(obj),
+                bin_capacity=obj.bin_capacity, cull_eps=_grad_cull_eps(obj),
+                corner_cull=_grad_corner(obj), box=_grad_box(obj),
             )
         else:
             imgs = oracle.render_dense(
@@ -98,7 +121,7 @@ def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
             g_axes, target, weight_mask, obj.H, obj.W,
             boost_only=obj.boost_only, boost_beta=obj.boost_beta, k_sigma=obj.k_sigma,
             background=tuple(obj.background), bin_capacity=obj.bin_capacity,
-            box=_grad_box(obj),
+            cull_eps=_grad_cull_eps(obj), corner_cull=_grad_corner(obj), box=_grad_box(obj),
         )
 
     return fused_vg

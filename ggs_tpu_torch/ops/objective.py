@@ -23,14 +23,20 @@ class Objective(NamedTuple):
     k_sigma: float = 3.0
     boost_only: bool = False
     boost_beta: float = 1.0
-    impl: str = "cuda"  # "cuda" (tiled walk, K1/K2) | "oracle" (dense)
+    impl: str = "cuda"  # "cuda" (tiled walks, K1-K4) | "oracle" (dense)
     chunk: Optional[int] = None
     bin_capacity: Optional[int] = None
     background: Sequence[float] = (1.0, 1.0, 1.0)
     metric: str = "mse"
     # "highest": the reference's conservative box; "exact-tight": the same
-    # exact f32 walk over the tight k-sigma box (codec.tighten_boxes_exact)
+    # exact f32 walk over the tight k-sigma box (codec.tighten_boxes_exact);
+    # "fast": the exp2 walk (K3) over the eps-tight boxes; "bf16": the exact
+    # walk in bf16 (K1-bf16), fitness only
     precision: str = "highest"
+    # the fast tier's cull eps (None means the same default) and its rect-min
+    # corner cull at that eps; the JAX package's defaults
+    cull_eps: Optional[float] = render_cuda.DEFAULT_CULL_EPS
+    corner_cull: bool = True
 
 
 def _as_f32(x, device: torch.device) -> torch.Tensor:
@@ -40,13 +46,15 @@ def _as_f32(x, device: torch.device) -> torch.Tensor:
 def render_genomes(
     obj: Objective, g_axes, exact: bool = False, device="cuda"
 ) -> torch.Tensor:
-    """Axes-angle genomes [B, N, 9] -> images [B, H, W, 3]; `exact=True`
-    renders precision "highest" whatever obj.precision is."""
+    """Axes-angle genomes [B, N, 9] -> images [B, H, W, 3] at obj's tier;
+    `exact=True` renders precision "highest" without the corner cull,
+    whatever obj.precision is."""
     g9 = codec.genome_to_renderer(_as_f32(g_axes, resolve_device(device)))
     return render.render_splats(
         g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=tuple(obj.background),
         impl=obj.impl, bin_capacity=obj.bin_capacity,
         precision="highest" if exact else obj.precision,
+        cull_eps=obj.cull_eps, corner_cull=False if exact else obj.corner_cull,
     )
 
 
@@ -78,11 +86,12 @@ def evaluate(
                 g9, target, weight_mask, obj.H, obj.W, k_sigma=obj.k_sigma,
                 background=tuple(obj.background), boost_only=obj.boost_only,
                 boost_beta=obj.boost_beta, bin_capacity=obj.bin_capacity,
-                precision=obj.precision,
+                precision=obj.precision, cull_eps=obj.cull_eps, corner_cull=obj.corner_cull,
             )
         imgs = render.render_splats(
             g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=tuple(obj.background),
             impl=obj.impl, bin_capacity=obj.bin_capacity, precision=obj.precision,
+            cull_eps=obj.cull_eps, corner_cull=obj.corner_cull,
         )
         return fitness.fitness_from_images(
             imgs, target, weight_mask=weight_mask,

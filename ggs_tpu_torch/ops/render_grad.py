@@ -20,10 +20,14 @@ Both walks use the two-level replay of `_bwd_tile_kernel` (boundary canvas
 every CHUNK splats, then each chunk replayed and walked backward): there is
 no division by (1 - f), which is 0 for alpha 255 at a splat's centre. The
 kernels and the walks' lists use one tile shape, GRAD_TILE_H x GRAD_TILE_W;
-tiling changes nothing but the order of the sums. Not ported yet: the init
-canvas that chains passes above 8000 splats (`has_init`), row slabs
-(`y_origin`, `out_rows`) and the fast tier's culls (`cull_eps`,
-`corner_cull`); each raises NotImplementedError.
+tiling changes nothing but the order of the sums. The fast tier's culls
+need no kernel of their own: with `cull_eps` the boxes are the eps-tight
+ones (`render_cuda._tighten_boxes`) and with `corner_cull` the lists drop
+the corner-culled pairs, and the exact walks (K2', K6, K7) run over them,
+giving the exact gradients of the culled render (render_grad.py:687-701,
+791-814). Not ported yet: the init canvas that chains passes above 8000
+splats (`has_init`) and row slabs (`y_origin`, `out_rows`); each raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -33,12 +37,11 @@ from typing import Optional, Sequence
 import torch
 
 from . import codec, fitness as fitness_mod, render_cuda
-from .render_cuda import _NFEAT, _cdiv, _require, bin_splats_dense, pad_planes
+from .render_cuda import MAX_SPLATS, _NFEAT, _cdiv, _require, bin_splats_dense, pad_planes
 
 NGRAD = 9  # dcx, dcy, dsxx, dsxy, dsyy, drc, dgc, dbc, da
 CHUNK = 32  # the plain walks' splats per boundary canvas, as walk_grad.cu's kChunk
 GRAD_TILE_H, GRAD_TILE_W = 16, 128  # the kernels' tile (walk_grad.cu kTileH, kTileW)
-MAX_SPLATS = 8000  # one pass; above it the JAX package chains passes (has_init)
 
 
 def _splat_feats(p: codec.SplatScreen) -> torch.Tensor:
@@ -281,9 +284,9 @@ class RenderDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1, geom):
-        n_tx, n_ty, tile_h, tile_w, cap, bg = geom
         p = codec.SplatScreen(cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1)
-        idx, cnt = bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap)
+        n_tx, _, tile_h, tile_w, _, bg, _ = geom
+        idx, cnt = _bin(p, geom)
         canvas = render_cuda.render_tiles(
             cnt, idx, render_cuda._splat_feats_fast(p), n_tx, tile_h, tile_w, bg
         )
@@ -294,7 +297,7 @@ class RenderDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_img):
         feats, cnt, idx = ctx.saved_tensors
-        n_tx, _, tile_h, tile_w, _, bg = ctx.geom
+        n_tx, _, tile_h, tile_w, _, bg, _ = ctx.geom
         g = bwd_tiles(cnt, idx, feats, g_img.contiguous(), n_tx, tile_h, tile_w, bg)
         return tuple(g[:, i] for i in range(NGRAD)) + (None,) * 5
 
@@ -306,9 +309,9 @@ class _FusedNum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1, target_p, w_p, geom):
-        n_tx, n_ty, tile_h, tile_w, cap, bg = geom
         p = codec.SplatScreen(cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1)
-        idx, cnt = bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap)
+        n_tx, _, tile_h, tile_w, _, bg, _ = geom
+        idx, cnt = _bin(p, geom)
         # cotangent scale 2: d(w |C - target|^2)/dC = 2 w (C - target)
         num, grads = lossgrad_tiles(
             cnt, idx, _splat_feats(p), target_p, w_p, n_tx, tile_h, tile_w, bg, 2.0
@@ -323,26 +326,37 @@ class _FusedNum(torch.autograd.Function):
         return tuple(g[:, i] for i in range(NGRAD)) + (None,) * 7
 
 
-def _check_single_pass(N: int, cull_eps, corner_cull) -> None:
-    if cull_eps is not None or corner_cull:
-        raise NotImplementedError("the fast tier's culls (cull_eps, corner_cull) are not ported yet")
+def _check_single_pass(N: int) -> None:
     if N > MAX_SPLATS:
         raise NotImplementedError(
             f"N={N} > {MAX_SPLATS}: chaining passes through an init canvas is not ported yet"
         )
 
 
-def _geometry(H, W, N, bin_capacity, background):
-    """The walks' geometry (n_tx, n_ty, tile_h, tile_w, cap, background)."""
+def _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull):
+    """The walks' geometry (n_tx, n_ty, tile_h, tile_w, cap, background,
+    corner_eps): the corner cull runs at cull_eps, and only with it."""
     cap = N if bin_capacity is None else min(bin_capacity, N)
+    corner_eps = float(cull_eps) if (corner_cull and cull_eps is not None) else None
     return (_cdiv(W, GRAD_TILE_W), _cdiv(H, GRAD_TILE_H), GRAD_TILE_H, GRAD_TILE_W, cap,
-            tuple(float(c) for c in background))
+            tuple(float(c) for c in background), corner_eps)
 
 
-def _screen_params(g9, H, W, k_sigma, box):
+def _bin(p: codec.SplatScreen, geom):
+    """The walks' lists of p's boxes, corner-culled when geom says so."""
+    n_tx, n_ty, tile_h, tile_w, cap, _, corner_eps = geom
+    corner = None if corner_eps is None else render_cuda._corner_params(p, corner_eps)
+    return bin_splats_dense(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, tile_h, tile_w, cap, corner)
+
+
+def _screen_params(g9, H, W, k_sigma, box, cull_eps=None):
+    """Screen-space parameters with the boxes the walks use: eps-tight when
+    cull_eps is set (it subsumes the tight box), else the box tier's."""
     if box not in ("reference", "tight"):
         raise ValueError(f"unknown box {box!r}")
     p = codec.preprocess(g9[..., : codec.GENE_DIM].to(torch.float32), H, W, k_sigma)
+    if cull_eps is not None:
+        return render_cuda._tighten_boxes(p, k_sigma, cull_eps)
     return codec.tighten_boxes_exact(p, k_sigma) if box == "tight" else p
 
 
@@ -360,16 +374,19 @@ def render_diff(
     box: str = "reference",  # "reference" | "tight" (exact-tight tier)
 ) -> torch.Tensor:
     """Differentiable render: renderer genomes [B, N, 9] (or [N, 9]) ->
-    [B, H, W, 3] (render_pallas_diff, one pass). Forward K2, backward K6."""
+    [B, H, W, 3] (render_pallas_diff, one pass). Forward K2, backward K6.
+    cull_eps: the fast tier's eps-tight boxes; corner_cull (with cull_eps):
+    its corner cull at binning. The gradients are the exact gradients of
+    that culled render; a splat with alpha <= eps gets exactly zero."""
     if y_origin is not None or out_rows is not None:
         raise NotImplementedError("row slabs (y_origin, out_rows) are not ported yet")
     squeeze = g9.dim() == 2
     if squeeze:
         g9 = g9[None]
     B, N, _ = g9.shape
-    _check_single_pass(N, cull_eps, corner_cull)
-    p = _screen_params(g9, H, W, k_sigma, box)
-    geom = _geometry(H, W, N, bin_capacity, background)
+    _check_single_pass(N)
+    p = _screen_params(g9, H, W, k_sigma, box, cull_eps)
+    geom = _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull)
     canvas = RenderDiff.apply(*p, geom)
     img = canvas[:, :, :H, :W].permute(0, 2, 3, 1)
     return img[0] if squeeze else img
@@ -396,16 +413,17 @@ def fused_value_and_grad(
 
     g_axes [B, N, 9] axes-angle genomes; target [H, W, 3]; weight_mask
     [H, W] or None (the scoring modes of fitness.weff_denom). The grads
-    [B, N, 9] chain through the codec by autograd."""
+    [B, N, 9] chain through the codec by autograd. cull_eps and
+    corner_cull as in render_diff: K7 walks the culled lists."""
     B, N = int(g_axes.shape[0]), int(g_axes.shape[1])
-    _check_single_pass(N, cull_eps, corner_cull)
-    geom = _geometry(H, W, N, bin_capacity, background)
+    _check_single_pass(N)
+    geom = _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull)
     n_tx, n_ty = geom[:2]
     w_eff, denom = fitness_mod.weff_denom(weight_mask, boost_only, boost_beta, H, W)
     target_p, w_p = pad_planes(target, w_eff, n_ty * GRAD_TILE_H, n_tx * GRAD_TILE_W)
     g = g_axes.detach().to(torch.float32).requires_grad_(True)
     with torch.enable_grad():
-        p = _screen_params(codec.genome_to_renderer(g), H, W, k_sigma, box)
+        p = _screen_params(codec.genome_to_renderer(g), H, W, k_sigma, box, cull_eps)
         num = _FusedNum.apply(*p, target_p, w_p, geom)
         fits = num / denom  # a 0-d CPU denom is a scalar: no copy, no sync
         loss = torch.mean(fits)

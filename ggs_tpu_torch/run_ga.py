@@ -6,11 +6,15 @@ full-resolution render and the loss curves.
 
     python -m ggs_tpu_torch.run_ga --image synthetic --generations 5000 --no-video
 
-Options of runners/run_ga.py that are not ported yet (meshes, islands,
-annealing, recycling, growth, progressive stages, checkpoints, video
-frames) are not accepted; precision "fast"/"bf16" and the SSIM/mix metrics
-raise NotImplementedError. `--memetic-every E` gives the elites
-`--memetic-steps` Adam steps every E generations (the K7 kernel).
+`--precision fast` scores with the fast tier (K4 table and eps-tight boxes,
+corner-culled lists, the K3 exp2 walk) at `--cull-eps` (default 2e-3);
+`--precision bf16` with the bf16 walk (K1-bf16); either way the winner is
+rescored on the exact "highest" energy. Options of runners/run_ga.py that
+are not ported yet (meshes, islands, annealing, recycling, growth,
+progressive stages, checkpoints, video frames) are not accepted; the
+SSIM/mix metrics raise NotImplementedError. `--memetic-every E` gives the
+elites `--memetic-steps` Adam steps every E generations (the K7 kernel,
+over the eps-culled lists under "fast"; refused under "bf16").
 """
 from __future__ import annotations
 
@@ -41,8 +45,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--precision", default="exact-tight",
         choices=["highest", "exact-tight", "fast", "bf16"],
         help="exact-tight (default): the exact f32 walk over the tight k-sigma "
-        "box; highest: the reference's conservative box; fast and bf16 are "
-        "not ported yet",
+        "box; highest: the reference's conservative box; fast: the exp2 walk "
+        "over eps-culled boxes and lists (--cull-eps); bf16: the exact walk in "
+        "bf16 (fitness only)",
+    )
+    p.add_argument(
+        "--cull-eps", type=float, default=None,
+        help="fast tier: the splat-contribution cull eps (default 2e-3); 8e-2 is "
+        "the largest value the JAX package validated as selection-safe",
     )
     p.add_argument("--metric", default="mse", choices=["mse", "ssim", "mix"])
     p.add_argument("--seed", type=int, default=42)
@@ -87,6 +97,7 @@ def main(argv=None) -> dict:
     obj = objective.Objective(
         H=H, W=W, k_sigma=args.k_sigma, boost_only=args.boost_only, impl=args.impl,
         chunk=args.eval_chunk or None, metric=args.metric, precision=args.precision,
+        cull_eps=args.cull_eps,
     )
     ga_cfg = GAConfig(
         pop_size=args.pop_size, generations=args.generations, tour_k=args.tour_k,
@@ -110,7 +121,8 @@ def main(argv=None) -> dict:
         wm = mask_mod.mask_from_config(t_work, H, W, mask_cfg)
         best_fit = float(
             objective.evaluate(
-                obj._replace(precision="highest"), best[None], t_work, wm, device=dev
+                obj._replace(precision="highest", cull_eps=None), best[None], t_work, wm,
+                device=dev,
             )[0]
         )
         print(f"Best {label} (exact rescore):", best_fit)

@@ -5,11 +5,13 @@ differentiable renderer, on the card.
     python -m ggs_tpu_torch.run_grad --image synthetic --steps 2000
 
 Each Adam step is one fused K7 launch (forward walk, loss head, backward
-walk); the final loss is rescored on the "highest" energy. Options of
-runners/run_grad.py that are not ported yet raise NotImplementedError:
---metric ssim|mix, --precision fast (and --cull-eps), --anneal-sigma0 > 0,
-and --pop-shards / --tile-shards above 1; --ssim-weight and --anneal-frac,
-which only those read, are not accepted.
+walk); under `--precision fast` it walks the eps-culled lists (`--cull-eps`,
+default 2e-3, and the corner cull), giving the exact gradients of that
+culled render. The final loss is rescored on the "highest" energy. Options
+of runners/run_grad.py that are not ported yet raise NotImplementedError:
+--metric ssim|mix, --anneal-sigma0 > 0, and --pop-shards / --tile-shards
+above 1; --ssim-weight and --anneal-frac, which only those read, are not
+accepted.
 """
 from __future__ import annotations
 
@@ -40,10 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--precision", default="exact-tight", choices=["highest", "exact-tight", "fast"],
         help="exact-tight (default): exact gradients of the tight k-sigma box "
-        "render; highest: the reference's conservative box; fast is not ported. "
+        "render; highest: the reference's conservative box; fast: exact "
+        "gradients of the eps-culled render (sub-eps splats get zero gradient). "
         "The final loss is always rescored on the highest energy.",
     )
-    p.add_argument("--cull-eps", type=float, default=None, help="fast tier only: not ported")
+    p.add_argument("--cull-eps", type=float, default=None,
+                   help="fast tier: the cull eps (default 2e-3)")
     p.add_argument("--pop-shards", type=int, default=1, help="not ported (must be 1)")
     p.add_argument("--tile-shards", type=int, default=1, help="not ported (must be 1)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
@@ -55,8 +59,6 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.pop_shards * args.tile_shards > 1:
         raise NotImplementedError("meshes (--pop-shards, --tile-shards) are not ported yet")
-    if args.cull_eps is not None:
-        raise NotImplementedError("--cull-eps belongs to precision 'fast', not ported yet")
 
     import numpy as np
     import torch
@@ -77,7 +79,7 @@ def main(argv=None) -> dict:
 
     obj = objective.Objective(
         H=H, W=W, k_sigma=args.k_sigma, impl=args.impl, metric=args.metric,
-        precision=args.precision,
+        precision=args.precision, cull_eps=args.cull_eps,
     )
     gnm = GenomeConfig(n_splats=args.n_splats)
     cfg = GradConfig(steps=args.steps, lr=args.lr)

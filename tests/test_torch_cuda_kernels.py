@@ -1,9 +1,10 @@
-"""The port's CUDA kernels (csrc/walk.cu: K1 fitness_tiles, K2 render_tiles;
-csrc/walk_grad.cu: K6 bwd_tiles, K7 lossgrad_tiles) against their plain
-PyTorch versions on the card, at the GA main path's shapes (512x512, N=512,
-B=32, 64x128 tiles), on an odd canvas, with bin_capacity truncating the
-lists, and at the gradient paths' shapes (16x128 tiles); plus the wrappers'
-argument checks.
+"""The port's CUDA kernels (csrc/walk.cu: K1 fitness_tiles, K2 render_tiles,
+K3 fitness_tiles_fast/render_tiles_fast, K4 prep_fast, K1-bf16
+fitness_tiles_bf16; csrc/walk_grad.cu: K6 bwd_tiles, K7 lossgrad_tiles)
+against their plain PyTorch versions on the card, at the GA main path's
+shapes (512x512, N=512, B=32, 64x128 tiles), on an odd canvas, with
+bin_capacity truncating the lists, and at the gradient paths' shapes (16x128
+tiles); plus the wrappers' argument checks.
 
 Needs an NVIDIA card and nvcc: marked `cuda`, skipped elsewhere. Run on
 the card with `python -m pytest tests/ -m cuda -q`. Tolerances: canvas
@@ -11,7 +12,10 @@ atol 2e-6 and fitness rtol 5e-5 (the kernel builds with -fmad=false and
 the accurate expf, so both sides round the same operations; what remains
 is the order of the per-tile sums); each of the 9 gradient rows (one field
 over every image and splat) within 1e-5 of that row's largest plain
-magnitude (sums over a tile's pixels in another order)."""
+magnitude (sums over a tile's pixels in another order); K4's table within
+2 ulp with equal boxes and -inf entries; K1-bf16's fitness rtol 1e-5 (bf16
+roundings of equal inputs; chip_smoke.py measured 2.2e-7 on an H100), and more than 1e-4
+from K1's on the same lists (the bf16 roundings show)."""
 import pytest
 import torch
 
@@ -33,7 +37,10 @@ def _row_err(got, want):
     return (got - want).abs().amax(dim=(0, 2)) / want.abs().amax(dim=(0, 2)).clamp_min(1e-30)
 
 
-def _case(dev, B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0):
+def _case(dev, B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, cull_eps=None,
+          genomes=False):
+    """The walk's inputs; under "fast" fast fitness's route (K4's table and
+    boxes, corner-culled lists). genomes=True also returns the renderer genomes."""
     from ggs_tpu_torch.models import genome
     from ggs_tpu_torch.ops import codec, mask, render_cuda
     from ggs_tpu_torch.utils import io
@@ -41,7 +48,7 @@ def _case(dev, B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device=dev))
     cnt, idx, feats, n_tx, n_ty = render_cuda._prepare(
-        g9, H, W, 3.0, precision, cap, tile_h, tile_w
+        g9, H, W, 3.0, precision, cap, tile_h, tile_w, cull_eps, True, fitness_route=True
     )
     tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
     Hp, Wp = n_ty * tile_h, n_tx * tile_w
@@ -49,6 +56,8 @@ def _case(dev, B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0):
     tgt_p[:, :H, :W] = tgt.permute(2, 0, 1)
     w_p = torch.zeros((Hp, Wp), device=dev)
     w_p[:H, :W] = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
+    if genomes:
+        return cnt, idx, feats, tgt_p, w_p, n_tx, g9
     return cnt, idx, feats, tgt_p, w_p, n_tx
 
 
@@ -76,6 +85,58 @@ def test_kernels_match_plain(dev, B, N, H, W, precision, cap):
     torch.testing.assert_close(k1.sum(1), p1.sum(1), rtol=5e-5, atol=0)
     # fixed-order reduction: the same bits on a second launch
     assert torch.equal(k1, rc.fitness_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg))
+
+
+@pytest.mark.parametrize(
+    "B,N,H,W,eps",
+    [
+        (32, 512, 512, 512, 2e-3),  # the fast GA's main path
+        (32, 512, 512, 512, 8e-2),
+        (4, 256, 200, 328, 8e-2),  # odd canvas: padded tiles
+    ],
+)
+def test_fast_kernels_match_plain(dev, B, N, H, W, eps):
+    """K3 (both epilogues) on K4's lists and K4 itself against their plain
+    versions; the same bits on a second launch; one count per launch."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    cnt, idx, ff, tgt_p, w_p, n_tx, g9 = _case(dev, B, N, H, W, "fast", seed=3, cull_eps=eps,
+                                               genomes=True)
+    bg = (1.0, 1.0, 1.0)
+    counts = (rc.fitness_tiles_fast.launches, rc.render_tiles_fast.launches, rc.prep_fast.launches)
+    k3c = rc.render_tiles_fast(cnt, idx, ff, n_tx, 64, 128, bg)
+    p3c = rc.render_tiles_plain(cnt, idx, ff, n_tx, 64, 128, bg, *k3c.shape[2:], mode="fast")
+    torch.testing.assert_close(k3c, p3c, atol=2e-6, rtol=0)
+    k3 = rc.fitness_tiles_fast(cnt, idx, ff, tgt_p, w_p, n_tx, 64, 128, bg)
+    p3 = rc.fitness_tiles_plain(cnt, idx, ff, tgt_p, w_p, n_tx, 64, 128, bg, mode="fast")
+    torch.testing.assert_close(k3.sum(1), p3.sum(1), rtol=5e-5, atol=0)
+    assert torch.equal(k3, rc.fitness_tiles_fast(cnt, idx, ff, tgt_p, w_p, n_tx, 64, 128, bg))
+    ff_p, fi_p = rc.prep_fast_plain(g9, H, W, 3.0, eps)
+    fi = rc.prep_fast(g9, H, W, 3.0, eps)[1]
+    assert torch.equal(ff.isneginf(), ff_p.isneginf()) and torch.equal(fi, fi_p)
+    fin = ff_p.isfinite()
+    ulps = (ff.view(torch.int32).long() - ff_p.view(torch.int32).long()).abs()[fin]
+    assert int(ulps.max()) <= 2
+    assert (rc.fitness_tiles_fast.launches, rc.render_tiles_fast.launches,
+            rc.prep_fast.launches) == (counts[0] + 2, counts[1] + 1, counts[2] + 1)
+
+
+def test_bf16_kernel_matches_plain(dev):
+    """K1-bf16 against torch bf16 on the card, on the reference box's lists."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    cnt, idx, feats, tgt_p, w_p, n_tx = _case(dev, 32, 512, 512, 512, "bf16", seed=4)
+    bg = (1.0, 1.0, 1.0)
+    n = rc.fitness_tiles_bf16.launches
+    k = rc.fitness_tiles_bf16(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg)
+    p = rc.fitness_tiles_plain(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg, mode="bf16")
+    torch.testing.assert_close(k.sum(1), p.sum(1), rtol=1e-5, atol=0)
+    f32 = rc.fitness_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg).sum(1)
+    assert float((k.sum(1) / f32 - 1.0).abs().max()) > 1e-4
+    assert torch.equal(k, rc.fitness_tiles_bf16(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg))
+    assert rc.fitness_tiles_bf16.launches == n + 2
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones: no quiet fallback
+        rc.fitness_tiles_bf16(cnt.cpu(), idx, feats, tgt_p, w_p, n_tx, 64, 128, bg)
 
 
 def test_launch_counts_and_small_tiles(dev):

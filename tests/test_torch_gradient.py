@@ -170,7 +170,8 @@ def test_loss_fns_agree_and_unported_raise():
         obj = OBJ._replace(impl=impl)
         _, fits = tgradient.make_loss_fn(obj, GNM)(g, target, None)
         np.testing.assert_allclose(fits.numpy(), want.numpy(), rtol=1e-5, atol=1e-7)
-    for bad in (OBJ._replace(metric="mix"), OBJ._replace(precision="fast")):
+    # "fast" is ported (tests/test_torch_fast_grad.py); "bf16" is fitness-only
+    for bad in (OBJ._replace(metric="mix"), OBJ._replace(precision="bf16")):
         with pytest.raises(NotImplementedError):
             tgradient.make_fit_step(bad, GNM, GradConfig())
     with pytest.raises(NotImplementedError):
@@ -181,7 +182,7 @@ def test_loss_fns_agree_and_unported_raise():
 
 @pytest.mark.parametrize(
     "extra",
-    [["--metric", "ssim"], ["--precision", "fast"], ["--anneal-sigma0", "2"], ["--tile-shards", "2"]],
+    [["--metric", "ssim"], ["--pop-shards", "2"], ["--anneal-sigma0", "2"], ["--tile-shards", "2"]],
 )
 def test_run_grad_unported_flags_raise(extra, tmp_path):
     with pytest.raises(NotImplementedError):

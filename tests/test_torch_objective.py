@@ -106,7 +106,7 @@ def test_synthetic_target_and_ensure_hw():
 
 def test_run_ga_cpu_end_to_end(tmp_path):
     """The runner on the CPU at a tiny size: best falls, artifacts written,
-    unported options refused."""
+    unported options refused (the fast tiers run: tests/test_torch_fast_grad.py)."""
     out = run_ga.main([
         "--image", "synthetic:40x200", "--work-max-side", "200", "--n-splats", "16",
         "--pop-size", "6", "--elite-k", "2", "--generations", "8", "--log-every", "4",
@@ -120,6 +120,6 @@ def test_run_ga_cpu_end_to_end(tmp_path):
     base = ["--image", "synthetic:40x200", "--device", "cpu", "--generations", "1"]
     with pytest.raises(NotImplementedError):
         run_ga.main(base)  # video frames
-    for extra in (["--precision", "fast"], ["--metric", "ssim"]):
+    for extra in (["--metric", "mix"], ["--metric", "ssim"]):
         with pytest.raises(NotImplementedError):
             run_ga.main(base + ["--no-video", "--output-dir", str(tmp_path)] + extra)

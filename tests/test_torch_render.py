@@ -153,8 +153,11 @@ def test_render_splats_dispatch():
         a = trender.render_splats(g9, H, W, impl="oracle", precision=precision)
         b = trender.render_splats(g9, H, W, impl="cuda", tile_h=TH, precision=precision)
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    for precision in ("fast", "bf16"):
-        with pytest.raises(NotImplementedError):
-            trender.render_splats(g9, H, W, precision=precision)
+    # the fast tiers are ported: "bf16" renders as "highest", "fast" walks K3
+    a = trender.render_splats(g9, H, W, impl="oracle", precision="bf16")
+    b = trender.render_splats(g9, H, W, impl="cuda", tile_h=TH, precision="bf16")
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    fast = trender.render_splats(g9, H, W, impl="cuda", tile_h=TH, precision="fast")
+    np.testing.assert_array_equal(fast.numpy(), rc.render(g9, H, W, tile_h=TH, precision="fast").numpy())
     with pytest.raises(ValueError):
         trender.render_splats(g9, H, W, impl="xla")

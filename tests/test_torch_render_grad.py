@@ -262,9 +262,15 @@ def test_plain_walks_agree_and_cpu_takes_plain():
 
 def test_unported_options_raise():
     g9 = tcodec.genome_to_renderer(torch.from_numpy(axes_genomes(6, 1, 8, H, W)))
-    for kw in ({"y_origin": 0, "out_rows": 16}, {"cull_eps": 2e-3}, {"corner_cull": True}):
+    for kw in ({"y_origin": 0, "out_rows": 16}, {"out_rows": 16}):
         with pytest.raises(NotImplementedError):
             trg.render_diff(g9, H, W, **kw)
+    # the fast tier's culls are ported (tests/test_torch_fast_grad.py); the
+    # corner cull runs only with cull_eps, as in the JAX package
+    np.testing.assert_array_equal(
+        trg.render_diff(g9, H, W, corner_cull=True).detach().numpy(),
+        trg.render_diff(g9, H, W).detach().numpy(),
+    )
     with pytest.raises(NotImplementedError):  # passes chained through an init canvas
         trg.render_diff(torch.zeros((1, trg.MAX_SPLATS + 1, 9)), H, W)
     with pytest.raises(ValueError):
