@@ -53,6 +53,29 @@ populations of 64 (benchmarks/eps_sweep.py: the largest exact-fitness gap
 inverted, under 1.5e-2); K3/K4/K1-bf16 times with their bounds, renders/s
 under fast and bf16, and fast GA generations/s in blocks alternating with
 exact-tight's.
+The large-canvas path (the JAX package's benchmarks/suite.py configurations
+grad-10k-1024, big-10k-1024 and canvas-4k, and the GA at 2048x2048 with
+N=10,000) adds: K1/K2, K3 (both epilogues) and K1-bf16 from an init canvas
+against their plain versions, K6 with d(init) against its plain version,
+each from a seeded canvas and on the last pass of a two-pass chain built as
+its main path builds it (K1/K2 and K3 with the corner cull at the 2048x2048
+GA's B=32, K1-bf16 at big-10k-1024, K6 at grad-10k-1024), and
+K5 (bin_splats_scatter) against bin_splats_scatter_plain (integer-equal idx,
+cnt and largest true count) at the first pass of the 2048x2048 GA (512
+tiles, exact-tight and fast with the corner cull), of canvas-4k (2,048
+tiles), at 1024x1024 on the gradient tiles, and with the overflow fallback
+forced by coincident splats, and against bin_splats_dense without the cull;
+chained passes against one pass at N=10,000 (bit for bit, exact tiers); the
+main paths run_grad at grad-10k-1024 (BIG_GRAD_STEPS steps: K5, K2 and K6
+twice a step, once each from an init canvas), run_ga at 2048x2048, N=10,000,
+P=32, exact-tight and fast (BIG_GA_GENS generations: K5 twice and the
+chained fitness walk once a generation), the canvas-4k render in three tiers
+(7 passes, K5 each) and the bf16 fitness at big-10k-1024 (K2, then K1-bf16
+from its canvas); K5's times beside its bound, its plain version and the
+dense sort it replaces (also at the fast GA's pass, where its overflow
+fallback rebuilds the lists; the fallback's launches are counted apart),
+renders/s at big-10k-1024 and canvas-4k, Adam
+steps/s at grad-10k-1024, and one chained Adam step with no host sync.
 Prints one `kernels` JSON line, the card line, and last the device line.
 Imports nothing of JAX.
 """
@@ -118,6 +141,10 @@ OPS_PER_PAIR_COLUMN_GRAD = 5  # one walk: 2 x compares, qx, qx*qx, sxx*
 # per pixel, K7's loss head: 6 clamps, 3 sub, 5 for the squared norm, *w, +=,
 # scale*w, 3 cotangent products
 OPS_PER_PIXEL_K7 = 20
+# K5's overflow fallback per (tile, splat) pair: render_cuda._corner_keep's
+# f32 operations (4 clamped edge offsets of 2, rx and ry of 3, the two
+# clamped vertices of 2 + 3, the two quadratics of 7, max, add, compare)
+OPS_CORNER_TEST = 41
 
 CANVAS_ATOL = 2e-6
 FITNESS_RTOL = 5e-5
@@ -133,6 +160,16 @@ FAST_GENS, FAST_MEMETIC_GENS, BF16_GENS = 200, 50, 50
 # and splat) within GRAD_ROW_REL of that row's largest plain magnitude
 GRAD_ROW_REL = 1e-5
 GRAD_SCALED_ATOL = 2e-6  # K6 vs K7, each row divided by its largest value
+# The large-canvas path, at the JAX package's own large configurations
+# (benchmarks/suite.py): grad-10k-1024 (Adam, B=1, N=10,000, 1024x1024),
+# big-10k-1024 (fused fitness, B=4, N=10,000, 1024x1024) and canvas-4k
+# (render, B=1, N=50,000, 4096x4096, min_scale 1, max_scale 0.02), and the
+# GA at 2048x2048 with N=10,000 and a population of 32. Depth only is cut:
+# BIG_GRAD_STEPS Adam steps, BIG_GA_GENS generations.
+BIG_GRAD_STEPS, BIG_GA_GENS = 30, 8
+BIG_N, BIG_SIDE, BIG_B = 10_000, 1024, 4
+GA_SIDE, GA_P = 2048, 32
+C4K_SIDE, C4K_N, C4K_SCALES, C4K_EPS = 4096, 50_000, (1.0, 0.02), 8e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -174,9 +211,13 @@ def make_case(B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, de
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device=dev))
-    cnt, idx, feats, n_tx, n_ty = render_cuda._prepare(
-        g9, H, W, 3.0, precision, cap, tile_h, tile_w, cull_eps, True, fitness_route=True
-    )
+    n_tx, n_ty = -(-W // tile_w), -(-H // tile_h)
+    if precision == "fast":
+        cnt, idx, feats = render_cuda._k4_pass(g9, H, W, 3.0, cap, tile_h, tile_w, cull_eps, True)
+    else:
+        p = render_cuda._screen(g9, H, W, 3.0, precision, cull_eps)
+        cnt, idx, feats = render_cuda._pass_lists(p, n_tx, n_ty, tile_h, tile_w, cap, precision,
+                                                  None)
     tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
     w = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
     tgt_p, w_p = render_cuda.pad_planes(tgt, w, n_ty * tile_h, n_tx * tile_w)
@@ -278,9 +319,8 @@ def run_k2(c):
 def run_k2_plain(c):
     from ggs_tpu_torch.ops import render_cuda as rc
 
-    Hp, Wp = c["w_p"].shape
     return rc.render_tiles_plain(c["cnt"], c["idx"], c["feats"], c["n_tx"], c["tile_h"],
-                                 c["tile_w"], (1.0, 1.0, 1.0), Hp, Wp)
+                                 c["tile_w"], (1.0, 1.0, 1.0))
 
 
 def k4_bound(B: int, N: int):
@@ -304,7 +344,7 @@ def run_k3_canvas(c, plain=False):
 
     args = (c["cnt"], c["idx"], c["feats"], c["n_tx"], c["tile_h"], c["tile_w"], (1.0, 1.0, 1.0))
     if plain:
-        return rc.render_tiles_plain(*args, *c["w_p"].shape, mode="fast")
+        return rc.render_tiles_plain(*args, mode="fast")
     return rc.render_tiles_fast(*args)
 
 
@@ -487,8 +527,9 @@ def run_k6(c, plain=False):
     from ggs_tpu_torch.ops import render_grad as rg
 
     fn = rg.bwd_tiles_plain if plain else rg.bwd_tiles
-    return fn(c["cnt"], c["idx"], c["feats"], c["g_img"], c["n_tx"], c["tile_h"], c["tile_w"],
-              (1.0, 1.0, 1.0))
+    grads, _ = fn(c["cnt"], c["idx"], c["feats"], c["g_img"], c["n_tx"], c["tile_h"], c["tile_w"],
+                  (1.0, 1.0, 1.0))
+    return grads
 
 
 def run_k7(c, plain=False):
@@ -541,6 +582,245 @@ def compare_grad(c, label: str) -> dict:
     check(same6 and same7, f"{label}: K6/K7 are not the same bits on a second launch")
     return {"K7": err7, "K6": err6, "K7_rows": rows7, "K6_rows": rows6, "num_rel": num_rel,
             "K6_vs_K7": k6_k7}
+
+
+BG = (1.0, 1.0, 1.0)
+
+
+def init_canvas(B, Hp, Wp, seed, device="cuda"):
+    """A seeded canvas [B, 3, Hp, Wp] in [0.05, 0.95]: what a chained pass
+    starts from."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((B, 3, Hp, Wp), generator=gen, device=device) * 0.9 + 0.05
+
+
+def compare_init(c, mode: str, label: str, init_must_show: bool = True) -> dict:
+    """K1/K2 (mode "exact"), K3 (both epilogues, "fast") or K1-bf16 ("bf16")
+    from an init canvas against its plain version from the same canvas: the
+    case's own (a chained pass's) or a seeded one; the same tolerances as
+    from the background, the same bits twice, and (init_must_show) the init
+    must change the result."""
+    import torch
+
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    init = c.get("init")
+    if init is None:
+        init = init_canvas(c["idx"].shape[0], *c["w_p"].shape, seed=40, device=c["idx"].device)
+    fit = {"exact": rc.fitness_tiles, "fast": rc.fitness_tiles_fast,
+           "bf16": rc.fitness_tiles_bf16}[mode]
+    args = (c["cnt"], c["idx"], c["feats"], c["tgt_p"], c["w_p"], c["n_tx"], c["tile_h"],
+            c["tile_w"], BG)
+    k = fit(*args, init=init)
+    p = rc.fitness_tiles_plain(*args, mode=mode, init=init)
+    torch.cuda.synchronize()
+    rel, part = rel_err(k.sum(1), p.sum(1)), float((k - p).abs().max())
+    same = torch.equal(k, fit(*args, init=init))
+    moved = not torch.equal(k, fit(*args))
+    canvas_err = 0.0
+    if mode != "bf16":
+        walk = rc.render_tiles_fast if mode == "fast" else rc.render_tiles
+        kc = walk(*args[:3], *args[5:], init=init)
+        pc = rc.render_tiles_plain(*args[:3], *args[5:], mode=mode, init=init)
+        canvas_err = float((kc - pc).abs().max())
+        same = same and torch.equal(kc, walk(*args[:3], *args[5:], init=init))
+        del kc, pc
+    B, T, _ = c["idx"].shape
+    rtol = BF16_RTOL if mode == "bf16" else FITNESS_RTOL
+    print(f"CHECK init canvas, {mode} walk, {label} (B={B} T={T} max cnt {int(c['cnt'].max())}): "
+          f"fitness max rel {rel:.3e} (<= {rtol}), partials max abs {part:.3e}, canvas max abs "
+          f"{canvas_err:.3e} (<= {CANVAS_ATOL}), same bits twice {same}, the init changes the "
+          f"fitness {moved}", flush=True)
+    check(rel <= rtol and canvas_err <= CANVAS_ATOL, f"{mode} walk from an init canvas, {label}")
+    check(same, f"{mode} walk from an init canvas, {label}: not the same bits twice")
+    check(moved or not init_must_show, f"{mode} walk from an init canvas, {label}: init ignored")
+    return {"fitness_rel": rel, "partials": part, "canvas": canvas_err, "init_shows": moved}
+
+
+def faint(c) -> dict:
+    """The case with every alpha / 32 (row 8 of its table: alpha, or
+    log2(alpha) in the fast table): the same lists and shapes, with an init
+    canvas showing through a pass of many layers."""
+    f = c["feats"].clone()
+    if c.get("precision") == "fast":
+        f[:, 8] -= 5.0
+    else:
+        f[:, 8] *= 1.0 / 32
+    return dict(c, feats=f)
+
+
+def chained_case(g9, tgt, wm, precision, cull_eps=None, corner_cull=False, tile_h=64):
+    """The last pass of a chained fitness at a main path's shape, built as
+    render_cuda.fitness builds it (tile_w 128): its lists (K5 from 256
+    tiles) and table, and as `init` the canvas the passes before it leave
+    (K2's, or K3's under "fast")."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    H, W = tgt.shape[0], tgt.shape[1]
+    n_tx, n_ty = -(-W // 128), -(-H // tile_h)
+    corner_eps = rc._corner_eps(precision, corner_cull, cull_eps)
+    p = rc._screen(g9, H, W, 3.0, precision, cull_eps)
+    init, p_last = rc._chunked_passes(p, H, W, tile_h, 128, BG, None, True, precision, corner_eps)
+    check(init is not None, "the chained case has one pass")
+    cnt, idx, feats = rc._pass_lists(p_last, n_tx, n_ty, tile_h, 128, None, precision, corner_eps)
+    tgt_p, w_p = rc.pad_planes(tgt, wm, n_ty * tile_h, n_tx * 128)
+    return dict(cnt=cnt, idx=idx, feats=feats, tgt_p=tgt_p, w_p=w_p, n_tx=n_tx, tile_h=tile_h,
+                tile_w=128, init=init, precision=precision)
+
+
+def chained_grad_case(g9, tgt, wm):
+    """The second of two passes of render_diff at run_grad's exact-tight
+    boxes, built as render_grad.RenderDiff builds it: the pass's lists on
+    the gradient tiles (K5 from 256 tiles), its raw table, `init` the first
+    pass's K2 canvas, and the image cotangent of the weighted SSE of the
+    chained canvas."""
+    import torch
+
+    from ggs_tpu_torch.ops import render_cuda as rc, render_grad as rg
+
+    H, W = tgt.shape[0], tgt.shape[1]
+    with torch.no_grad():
+        p = rg._screen_params(g9, H, W, 3.0, "tight")
+    bounds = rc._chunk_bounds(g9.shape[1])
+    check(len(bounds) == 3, f"the gradient case chains {len(bounds) - 1} passes, not 2")
+    init = None
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        pc = rc._split_screen(p, lo, hi)
+        geom = rg._geometry(H, W, hi - lo, None, BG, None, False)
+        n_tx, n_ty, th, tw = geom[:4]
+        idx, cnt = rg._bin(pc, geom)
+        canvas = rc.render_tiles(cnt, idx, rc._splat_feats_fast(pc), n_tx, th, tw, BG, init=init)
+        if hi < bounds[-1]:
+            first = canvas
+        init = canvas
+    tgt_p, w_p = rc.pad_planes(tgt, wm, n_ty * th, n_tx * tw)
+    g_img = (2.0 * w_p * (torch.clamp(canvas, 0.0, 1.0) - tgt_p[None])).contiguous()
+    return dict(cnt=cnt, idx=idx, feats=rg._splat_feats(pc), g_img=g_img, n_tx=n_tx, tile_h=th,
+                tile_w=tw, w_p=w_p, init=first)
+
+
+def compare_grad_init(c, label: str, init_must_show: bool = True) -> dict:
+    """K6 from an init canvas (the case's own, a chained pass's, or a seeded
+    one) against its plain version: each gradient row and d(init) = g *
+    T_total within GRAD_ROW_REL of their largest plain magnitude; the same
+    bits twice; and (init_must_show) d(init) not 0 everywhere."""
+    import torch
+
+    from ggs_tpu_torch.ops import render_grad as rg
+
+    init = c.get("init")
+    if init is None:
+        init = init_canvas(c["idx"].shape[0], *c["w_p"].shape, seed=41, device=c["idx"].device)
+    args = (c["cnt"], c["idx"], c["feats"], c["g_img"], c["n_tx"], c["tile_h"], c["tile_w"], BG)
+    g6, d6 = rg.bwd_tiles(*args, init=init)
+    g6_p, d6_p = rg.bwd_tiles_plain(*args, init=init)
+    torch.cuda.synchronize()
+    rows = row_err(g6, g6_p).tolist()
+    d_max = float(d6_p.abs().max())
+    d_rel = float((d6 - d6_p).abs().max()) / max(d_max, 1e-30)
+    g6b, d6b = rg.bwd_tiles(*args, init=init)
+    same = torch.equal(g6, g6b) and torch.equal(d6, d6b)
+    B, T, L = c["idx"].shape
+    print(f"CHECK K6 from an init canvas, {label} (B={B} T={T} list width {L} max cnt "
+          f"{int(c['cnt'].max())}): err/row {fmt(rows)}, d(init) max rel {d_rel:.3e} (each <= "
+          f"{GRAD_ROW_REL}), max |d(init)| {d_max:.3e}, same bits twice {same}", flush=True)
+    check(max(rows) <= GRAD_ROW_REL and d_rel <= GRAD_ROW_REL, f"K6 from an init canvas, {label}")
+    check(same, f"K6 with init, {label}: not the same bits on a second launch")
+    check(d_max > 0.0 or not init_must_show, f"K6 with init, {label}: d(init) is 0 everywhere")
+    return {"rows": rows, "dinit_rel": d_rel, "max_abs": float((g6 - g6_p).abs().max()),
+            "dinit_max": d_max}
+
+
+def scatter_case(B, N, side, tile_h, precision, eps=None, chunk=None, scales=(3.0, 0.1), seed=0,
+                 coincident=0, pad_slots=8, device="cuda"):
+    """Seeded genomes -> K5's arguments for the first pass (`chunk` splats)
+    of a chained render at this shape: the tier's boxes, the corner
+    parameters under "fast"; `coincident` splats of candidate 0 at the
+    canvas centre (sigma 4 px) force the overflow fallback."""
+    import torch
+
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec, render_cuda as rc
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = genome.new_population(gen, B, N, side, side, *scales, device=device)
+    if coincident:
+        g[0, :coincident] = torch.tensor([0.5, 0.5, 1.4, 1.4, 0.0, 128.0, 128.0, 128.0, 200.0],
+                                         device=device)
+    p = rc._screen(codec.genome_to_renderer(g), side, side, 3.0, precision, eps)
+    if chunk is not None:
+        p = rc._split_screen(p, 0, chunk)
+    corner = rc._corner_params(p, eps) if eps is not None else None
+    n = p.cx.shape[1]
+    n_t = -(-side // 128), -(-side // tile_h)
+    args = rc.scatter_args(p.x0, p.x1, p.y0, p.y1, *n_t, tile_h, 128, n, pad_slots, corner=corner)
+    check(args is not None, "the scatter rules chose the dense route")
+    return {"args": args, "p": p, "corner": corner}
+
+
+def compare_scatter(sc, label, dense=False) -> dict:
+    """K5 against bin_splats_scatter_plain: idx over its whole width, cnt and
+    the largest true count integer-equal; the same bits twice; with
+    dense=True (no corner cull) also equal to bin_splats_dense."""
+    import torch
+
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    args, p = sc["args"], sc["p"]
+    idx, cnt, tmax = rc.bin_splats_scatter(**args)
+    idx_p, cnt_p, tmax_p = rc.bin_splats_scatter_plain(**args)
+    torch.cuda.synchronize()
+    diff = int((idx != idx_p).sum()) + int((cnt != cnt_p).sum())
+    err = int((idx.long() - idx_p.long()).abs().max())
+    again = rc.bin_splats_scatter(**args)
+    same = torch.equal(again[0], idx) and torch.equal(again[1], cnt)
+    overflow = args["fallback"] is not None and int(tmax) > args["cap_s"]
+    dense_diff = None
+    if dense:
+        di, dc = rc.bin_splats_dense(p.x0, p.x1, p.y0, p.y1, args["n_tx"], args["n_ty"],
+                                     args["tile_h"], args["tile_w"], args["cap"])
+        dense_diff = int((di != idx).sum()) + int((dc != cnt).sum())
+    B, T, cap = idx.shape
+    print(f"CHECK K5 {label}: B={B} T={T} cap={cap} cap_s={args['cap_s']} rpg={args['rpg']} "
+          f"bands {args['gl'] is not None} band cull {args['cxr'] is not None}: entries differing "
+          f"from plain {diff}, true max {int(tmax)} (plain {int(tmax_p)}), overflow fallback "
+          f"{overflow}, same bits twice {same}, differing from dense {dense_diff}, pairs "
+          f"{int(cnt.sum())}", flush=True)
+    check(diff == 0 and int(tmax) == int(tmax_p), f"K5 {label}: differs from its plain version")
+    check(same, f"K5 {label}: not the same bits on a second launch")
+    check(dense_diff in (None, 0), f"K5 {label}: differs from the dense binning")
+    return {"max_abs_err": err, "overflow": overflow, "tmax": int(tmax), "pairs": int(cnt.sum())}
+
+
+def scatter_bound(args, cnt_sum_gl, overflow=False):
+    """(bound_ms, bound_by) of one K5 call: its inputs read once (tile
+    bounds, the band lists' entries and lengths, the band column ranges) and
+    its outputs written once (the lists padded to cap, the counts); its few
+    integer compares a pair are far below the byte time. Where the overflow
+    fallback takes over (overflow), the lists are the per-tile corner
+    test's: the inputs are the boxes and the six corner parameters, and
+    OPS_CORNER_TEST f32 operations for each (tile, splat) pair inside the
+    box's tile range count too."""
+    rng = args["rng"]
+    B, _, N = rng.shape
+    n_tx, n_ty, cap = args["n_tx"], args["n_ty"], args["cap"]
+    words = B * n_tx * n_ty * (cap + 1) + 1
+    ops = 0
+    if overflow:
+        words += B * (4 + 6) * N
+        nx = (rng[:, 1].clamp(max=n_tx - 1) - rng[:, 0].clamp(min=0) + 1).clamp(min=0)
+        ny = (rng[:, 3].clamp(max=n_ty - 1) - rng[:, 2].clamp(min=0) + 1).clamp(min=0)
+        ops = OPS_CORNER_TEST * int((nx.long() * ny.long()).sum())
+    else:
+        words += B * 4 * N
+        if args["gl"] is not None:
+            words += cnt_sum_gl + B * 8
+        if args["cxr"] is not None:
+            words += B * 8 * 2 * N
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, 4 * words / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
 def fmt(xs) -> str:
@@ -618,9 +898,9 @@ def check_no_sync(fn, what: str) -> None:
 
 def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
     """Device time of one fn() (n_gens GA generations or Adam steps) under
-    torch.profiler, split between the walk kernel, K4 (prep), sort kernels
-    (the dense binning) and the rest, with the device's busy share of the
-    host-timed window."""
+    torch.profiler, split between the walk kernel, K4 (prep), K5 (the
+    scatter binning), sort kernels (the dense binning and the band lists)
+    and the rest, with the device's busy share of the host-timed window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -631,7 +911,7 @@ def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    split = {"walk": 0.0, "prep": 0.0, "sort": 0.0, "other": 0.0}
+    split = {"walk": 0.0, "prep": 0.0, "scatter": 0.0, "sort": 0.0, "other": 0.0}
     by_name = []
     for e in prof.key_averages():
         # user annotations (torch.optim's "Optimizer.step#Adam.step") span
@@ -641,6 +921,7 @@ def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
         key = ("walk" if walk in e.key else "prep" if "prep_fast_kernel" in e.key
+               else "scatter" if "ggs_scatter" in e.key
                else "sort" if "sort" in e.key.lower() or "radix" in e.key.lower() else "other")
         split[key] += us / 1e3
         by_name.append((us / 1e3, e.count, e.key[:90]))
@@ -747,16 +1028,95 @@ def main() -> int:
     bf16_err = compare_bf16(bf16_case, "B=32 N=512 512x512 bf16")
     check_fast_entry_points()
 
+    # the large-canvas path: every walk from an init canvas (a chained
+    # pass), K6 with d(init), and K5 at the shapes of its main paths. First
+    # from a seeded canvas at the earlier shapes, then on the last pass of a
+    # two-pass chain as each main path builds it: the 2048x2048 GA (B=32,
+    # 5,000-splat passes, 512 tiles; exact-tight K1/K2, fast K3 with the
+    # corner cull), big-10k-1024 (B=4, K1-bf16 from the f32 pass's canvas)
+    # and grad-10k-1024 (B=1, K6 with d(init) on 512 gradient tiles). Each
+    # chained case runs on its own data, where the last pass's hundreds of
+    # layers may hide the init canvas, and on its faint copy (alphas / 32,
+    # the same lists), where the init shows and must move the result
+    init_errs = {mode: compare_init(c, mode, "seeded canvas, B=32 N=512 512x512")
+                 for mode, c in (("exact", main_case["exact-tight"]), ("fast", fast_cases[2e-3]),
+                                 ("bf16", bf16_case))}
+    compare_grad_init(grad_cases["B1_N2000"], "seeded canvas, B=1 N=2000 512x512")
+
+    def chained_init(key, c, mode, label):
+        own = compare_init(c, mode, label, init_must_show=False)
+        fnt = compare_init(faint(c), mode, label + ", alphas / 32")
+        init_errs[key] = {k: max(own[k], fnt[k]) for k in ("fitness_rel", "partials", "canvas")}
+        init_errs[key]["init_shows_in_own_data"] = own["init_shows"]
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    g9_ga = codec.genome_to_renderer(
+        genome.new_population(gen, GA_P, BIG_N, GA_SIDE, GA_SIDE, device="cuda"))
+    tgt_ga = io.ensure_hw(io.synthetic_target(GA_SIDE, GA_SIDE), GA_SIDE, GA_SIDE, device="cuda")
+    wm_ga = mask.mask_from_config(tgt_ga, GA_SIDE, GA_SIDE, MaskConfig())
+    ga_label = f"2048x2048 GA's 2nd pass, N={BIG_N}"
+    chained_init("ga_exact", chained_case(g9_ga, tgt_ga, wm_ga, "exact-tight"), "exact", ga_label)
+    eps = rc.DEFAULT_CULL_EPS  # the fast GA's, with Objective's corner cull
+    chained_init("ga_fast", chained_case(g9_ga, tgt_ga, wm_ga, "fast", eps, corner_cull=True),
+                 "fast", f"{ga_label}, eps {eps} corner cull")
+    del g9_ga, tgt_ga, wm_ga
+    gen = torch.Generator(device="cuda").manual_seed(34)  # the bf16 main path's population
+    g9_b = codec.genome_to_renderer(
+        genome.new_population(gen, BIG_B, BIG_N, BIG_SIDE, BIG_SIDE, device="cuda"))
+    tgt_b = io.ensure_hw(io.synthetic_target(BIG_SIDE, BIG_SIDE), BIG_SIDE, BIG_SIDE,
+                         device="cuda")
+    chained_init("big_bf16", chained_case(g9_b, tgt_b, None, "bf16"), "bf16",
+                 f"big-10k-1024's 2nd pass, N={BIG_N}")
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    g9_g = codec.genome_to_renderer(genome.new_population(gen, 1, BIG_N, BIG_SIDE, BIG_SIDE,
+                                                          device="cuda"))
+    wm_b = mask.mask_from_config(tgt_b, BIG_SIDE, BIG_SIDE, MaskConfig())
+    cg = chained_grad_case(g9_g, tgt_b, wm_b)
+    grad_label = f"grad-10k-1024's 2nd pass, N={BIG_N}"
+    own = compare_grad_init(cg, grad_label, init_must_show=False)
+    fnt = compare_grad_init(faint(cg), grad_label + ", alphas / 32")
+    big_grad_init_err = {"dinit_rel": max(own["dinit_rel"], fnt["dinit_rel"]),
+                         "rows": [max(a, b) for a, b in zip(own["rows"], fnt["rows"])]}
+    del g9_b, g9_g, tgt_b, wm_b, cg
+    chunk = BIG_N // 2  # the first of two passes
+    scatter_cases = {
+        "ga_exact": scatter_case(GA_P, BIG_N, GA_SIDE, 64, "exact-tight", chunk=chunk, seed=30),
+        "ga_fast": scatter_case(GA_P, BIG_N, GA_SIDE, 64, "fast", 2e-3, chunk=chunk, seed=30),
+        "c4k_exact": scatter_case(1, C4K_N, C4K_SIDE, 64, "highest", chunk=C4K_N // 7,
+                                  scales=C4K_SCALES, seed=31),
+        "c4k_fast": scatter_case(1, C4K_N, C4K_SIDE, 64, "fast", C4K_EPS, chunk=C4K_N // 7,
+                                 scales=C4K_SCALES, seed=31),
+        "grad_1024": scatter_case(1, BIG_N, BIG_SIDE, rg.GRAD_TILE_H, "exact-tight", chunk=chunk,
+                                  seed=32, pad_slots=rg.GRAD_SCATTER_PAD),
+        "c4k_overflow": scatter_case(1, C4K_N, C4K_SIDE, 64, "fast", C4K_EPS, chunk=C4K_N // 7,
+                                     scales=C4K_SCALES, seed=33, coincident=300),
+    }
+    scatter_errs = {k: compare_scatter(sc, k, dense=sc["corner"] is None)
+                    for k, sc in scatter_cases.items()}
+    # the fallback forced, and absent (at the GA's first pass a tile may hold
+    # more than cap_s = 703 splats: JAX's rule then takes the per-tile lists)
+    check(scatter_errs["c4k_overflow"]["overflow"], "the coincident splats did not overflow cap_s")
+    check(not scatter_errs["c4k_fast"]["overflow"], "canvas-4k's band lists overflowed")
+
     counted = {"K1": rc.fitness_tiles, "K2": rc.render_tiles, "K3": rc.fitness_tiles_fast,
                "K3-canvas": rc.render_tiles_fast, "K4": rc.prep_fast,
-               "K1-bf16": rc.fitness_tiles_bf16, "K6": rg.bwd_tiles, "K7": rg.lossgrad_tiles}
+               "K1-bf16": rc.fitness_tiles_bf16, "K5": rc.bin_splats_scatter,
+               "K6": rg.bwd_tiles, "K7": rg.lossgrad_tiles}
 
     def reset_counts():
         for fn in counted.values():
-            fn.launches = 0
+            for attr in ("launches", "init_launches", "fallback_launches"):
+                if hasattr(fn, attr):
+                    setattr(fn, attr, 0)
 
     def read_counts():
-        return {k: fn.launches for k, fn in counted.items()}
+        """Launches per kernel, as "<kernel>-init" those from an init canvas,
+        and as "K5-fallback" K5's calls that also launched its fallback."""
+        out = {k: fn.launches for k, fn in counted.items()}
+        out.update({f"{k}-init": fn.init_launches for k, fn in counted.items()
+                    if hasattr(fn, "init_launches")})
+        out["K5-fallback"] = rc.bin_splats_scatter.fallback_launches
+        return out
 
     # 4. the main paths, each driven with every launch count set to 0 just
     # before and read just after
@@ -879,6 +1239,133 @@ def main() -> int:
     _, bf16_launches = ga_path("run_ga --precision bf16", "bf16", "chip_smoke_bf16", BF16_GENS,
                                   ["--precision", "bf16"])
     check(bf16_launches["K1-bf16"] >= BF16_GENS, f"bf16 launches {bf16_launches}")
+
+    # the large-canvas main paths: chained passes, K5 from 256 tiles
+    phase("chained equals one pass")
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    g_big = genome.new_population(gen, BIG_B, BIG_N, BIG_SIDE, BIG_SIDE, device="cuda")
+    g9_big = codec.genome_to_renderer(g_big)
+    tgt_big = io.ensure_hw(io.synthetic_target(BIG_SIDE, BIG_SIDE), BIG_SIDE, BIG_SIDE,
+                           device="cuda")
+    # the random population's second pass hides the first wherever the
+    # transmittance through its hundreds of layers rounds to 0; with every
+    # alpha / 32 ("faint") the first pass shows through, so a chain that
+    # dropped its init canvas would differ from one pass there
+    g9_faint = g9_big.clone()
+    g9_faint[..., 8] *= 1.0 / 32  # the renderer genome's alpha, 0..255
+    for pop, g9c in (("random", g9_big), ("faint", g9_faint)):
+        for precision in ("highest", "exact-tight"):
+            reset_counts()
+            img_c = rc.render(g9c[:1], BIG_SIDE, BIG_SIDE, precision=precision)
+            fit_c = rc.fitness(g9c, tgt_big, None, BIG_SIDE, BIG_SIDE, precision=precision)
+            torch.cuda.synchronize()
+            chained_counts = read_counts()
+            pass_size, rc.MAX_SPLATS = rc.MAX_SPLATS, BIG_N  # one pass
+            img_1 = rc.render(g9c[:1], BIG_SIDE, BIG_SIDE, precision=precision)
+            fit_1 = rc.fitness(g9c, tgt_big, None, BIG_SIDE, BIG_SIDE, precision=precision)
+            rc.MAX_SPLATS = pass_size
+            same = torch.equal(img_c, img_1) and torch.equal(fit_c, fit_1)
+            # the first pass's share of the canvas: against the last pass alone
+            shows = float((img_c - rc.render(g9c[:1, BIG_N // 2:], BIG_SIDE, BIG_SIDE,
+                                             precision=precision)).abs().max())
+            print(f"CHECK chained (2 passes) vs one pass, N={BIG_N} {BIG_SIDE}x{BIG_SIDE} {pop} "
+                  f"{precision}: canvas and fitness bit-equal {same}; max abs canvas "
+                  f"{float((img_c - img_1).abs().max()):.3e}, fitness "
+                  f"{fmt((fit_c - fit_1).tolist())}; the first pass moves the canvas by up to "
+                  f"{shows:.3e}; chained launches {chained_counts}", flush=True)
+            check(same, f"{pop} {precision}: the chained render differs from one pass")
+            check(chained_counts["K2-init"] == 1 and chained_counts["K1-init"] == 1,
+                  f"the chain did not walk from an init canvas: {chained_counts}")
+            check(pop == "random" or shows > 1e-2, f"faint {precision}: the first pass is hidden")
+    del g9_faint
+
+    res, big_grad_launches, wall = drive(
+        f"run_grad {BIG_SIDE}x{BIG_SIDE} N={BIG_N} (grad-10k-1024)", run_grad,
+        "chip_smoke_grad_10k",
+        ["--image", f"synthetic:{BIG_SIDE}x{BIG_SIDE}", "--work-max-side", str(BIG_SIDE),
+         "--n-splats", str(BIG_N), "--steps", str(BIG_GRAD_STEPS), "--log-every", "10"],
+    )
+    curve = res["curve"]
+    print("MAIN PATH run_grad 10k " + json.dumps({
+        "steps": BIG_GRAD_STEPS, "seconds": wall, "loss_first": curve[0], "loss_last": curve[-1],
+        "highest_rescore": res["best_loss"], "launches": big_grad_launches,
+    }), flush=True)
+    want = 2 * BIG_GRAD_STEPS  # two passes a step
+    check(len(curve) == BIG_GRAD_STEPS and curve[-1] < curve[0],
+          f"run_grad big: the loss did not fall ({curve[0]} -> {curve[-1]})")
+    check(tuple(res["final"].shape) == (BIG_SIDE, BIG_SIDE, 3)
+          and bool(torch.isfinite(res["final"]).all()), "run_grad big: export render")
+    check(big_grad_launches["K5"] >= want and big_grad_launches["K2"] >= want
+          and big_grad_launches["K6"] == want and big_grad_launches["K2-init"] >= want // 2
+          and big_grad_launches["K6-init"] == want // 2 and big_grad_launches["K7"] == 0,
+          f"run_grad big launches {big_grad_launches}")
+
+    ga_big = ["--image", f"synthetic:{GA_SIDE}x{GA_SIDE}", "--work-max-side", str(GA_SIDE),
+              "--n-splats", str(BIG_N), "--pop-size", str(GA_P)]
+    _, ga_big_launches = ga_path(f"run_ga {GA_SIDE}x{GA_SIDE} N={BIG_N} P={GA_P}", "ga 2048",
+                                 "chip_smoke_ga_2048", BIG_GA_GENS, ga_big)
+    check(ga_big_launches["K5"] >= 2 * BIG_GA_GENS and ga_big_launches["K1-init"] >= BIG_GA_GENS
+          and ga_big_launches["K2"] >= BIG_GA_GENS and ga_big_launches["K5-fallback"] == 0,
+          f"GA 2048 launches {ga_big_launches}")
+    _, ga_big_fast_launches = ga_path(
+        f"run_ga {GA_SIDE}x{GA_SIDE} N={BIG_N} P={GA_P} --precision fast", "ga 2048 fast",
+        "chip_smoke_ga_2048_fast", BIG_GA_GENS, [*ga_big, "--precision", "fast"],
+    )
+    check(ga_big_fast_launches["K5"] >= 2 * BIG_GA_GENS
+          and ga_big_fast_launches["K3-init"] >= BIG_GA_GENS
+          and ga_big_fast_launches["K3-canvas"] >= BIG_GA_GENS and ga_big_fast_launches["K4"] == 0
+          # the fallback launches with each of the fast fitness's two passes
+          # (not with the exact rescore's and the export's K5 calls)
+          and ga_big_fast_launches["K5-fallback"] == 2 * ga_big_fast_launches["K3"],
+          f"fast GA 2048 launches {ga_big_fast_launches}")
+
+    phase(f"main path: canvas-4k render (N={C4K_N}, {C4K_SIDE}x{C4K_SIDE})")
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    g9_4k = codec.genome_to_renderer(
+        genome.new_population(gen, 1, C4K_N, C4K_SIDE, C4K_SIDE, *C4K_SCALES, device="cuda"))
+    c4k_tiers = {"exact": dict(precision="highest"),
+                 "fast": dict(precision="fast", cull_eps=C4K_EPS),
+                 "fast+corner": dict(precision="fast", cull_eps=C4K_EPS, corner_cull=True)}
+    c4k_imgs, c4k_launches = {}, {}
+    n_pass = -(-C4K_N // rc.MAX_SPLATS)
+    for tier, kw in c4k_tiers.items():
+        reset_counts()
+        img = rc.render(g9_4k, C4K_SIDE, C4K_SIDE, **kw)
+        torch.cuda.synchronize()
+        c4k_launches[tier] = counts = read_counts()
+        walk = "K3-canvas" if tier != "exact" else "K2"
+        check(tuple(img.shape) == (1, C4K_SIDE, C4K_SIDE, 3) and bool(torch.isfinite(img).all())
+              and float(img.min()) >= 0.0 and float(img.max()) <= 1.0, f"canvas-4k {tier} render")
+        check(counts["K5"] == n_pass and counts[walk] == n_pass
+              and counts[f"{walk}-init"] == n_pass - 1, f"canvas-4k {tier} launches {counts}")
+        c4k_imgs[tier] = img
+    corner_gap = float((c4k_imgs["fast+corner"] - c4k_imgs["fast"]).abs().max())
+    fast_gap = float((c4k_imgs["fast"] - c4k_imgs["exact"]).abs().max())
+    print("MAIN PATH canvas-4k " + json.dumps({
+        "passes": n_pass, "launches": c4k_launches, "fast_corner_vs_fast_max_abs": corner_gap,
+        "fast_vs_exact_max_abs": fast_gap,
+    }), flush=True)
+    # the JAX suite's bound for the band cull (test_render_pallas.py:679)
+    check(corner_gap <= 1.5 * C4K_EPS, f"canvas-4k: the band cull moved the canvas by {corner_gap}")
+    del c4k_imgs
+
+    phase(f"main path: bf16 fitness, B={BIG_B} N={BIG_N} {BIG_SIDE}x{BIG_SIDE} (big-10k-1024)")
+    reset_counts()
+    f_bf16 = rc.fitness(g9_big, tgt_big, None, BIG_SIDE, BIG_SIDE, precision="bf16")
+    torch.cuda.synchronize()
+    bf16_big_launches = read_counts()
+    f_high = rc.fitness(g9_big, tgt_big, None, BIG_SIDE, BIG_SIDE, precision="highest")
+    bf16_gap = rel_err(f_bf16, f_high)
+    print("MAIN PATH bf16 10k " + json.dumps({
+        "fitness_bf16": f_bf16.tolist(), "fitness_highest": f_high.tolist(), "max_rel": bf16_gap,
+        "launches": bf16_big_launches,
+    }), flush=True)
+    check(bf16_big_launches["K2"] == 1 and bf16_big_launches["K2-init"] == 0
+          and bf16_big_launches["K1-bf16"] == 1 and bf16_big_launches["K1-bf16-init"] == 1,
+          f"bf16 10k launches {bf16_big_launches}")
+    # tests/test_torch_fast.py's bounds: within 2e-2 of "highest", and the
+    # bf16 roundings must show
+    check(BF16_MIN_GAP < bf16_gap <= 2e-2, f"bf16 10k fitness vs highest: {bf16_gap}")
 
     # selection fidelity of fast scoring (benchmarks/eps_sweep.py)
     phase("selection fidelity")
@@ -1020,6 +1507,60 @@ def main() -> int:
     }
     print("TIMES " + json.dumps(times), flush=True)
 
+    phase("times: the large-canvas path")
+    lt, lb = {}, {}
+    for k in ("ga_exact", "ga_fast", "c4k_exact"):
+        args, p, corner = (scatter_cases[k][f] for f in ("args", "p", "corner"))
+        geo = (args["n_tx"], args["n_ty"], args["tile_h"], args["tile_w"], args["cap"])
+        lt[f"K5_{k}"] = cuda_ms(lambda: rc.bin_splats_scatter(**args), 20)
+        lt[f"K5_plain_{k}"] = cuda_ms(lambda: rc.bin_splats_scatter_plain(**args), 2, warmup=1)
+        # the whole route (band lists and ranges, then K5) against the dense
+        # sort it replaces from 256 tiles
+        lt[f"scatter_route_{k}"] = cuda_ms(
+            lambda: rc.scatter_binning(p.x0, p.x1, p.y0, p.y1, *geo, corner=corner), 10)
+        lt[f"dense_{k}"] = cuda_ms(
+            lambda: rc.bin_splats_dense(p.x0, p.x1, p.y0, p.y1, *geo, corner=corner), 3, warmup=1)
+        gl_entries = 0 if args["gcnt"] is None else int(args["gcnt"].sum())
+        lb[f"K5_{k}"] = scatter_bound(args, gl_entries, scatter_errs[k]["overflow"])
+    obj_big = {pr: objective.Objective(H=BIG_SIDE, W=BIG_SIDE, precision=pr)
+               for pr in ("highest", "exact-tight")}
+    big_renders_per_s = {
+        pr: BIG_B / (cuda_ms(lambda: objective.evaluate(o, g_big, tgt_big, None), 5) / 1e3)
+        for pr, o in obj_big.items()
+    }
+    c4k_renders_per_s = {
+        tier: 1e3 / cuda_ms(lambda: rc.render(g9_4k, C4K_SIDE, C4K_SIDE, **kw), 3, warmup=1)
+        for tier, kw in c4k_tiers.items()
+    }
+    prof_c4k = {
+        tier: profile_split(lambda: rc.render(g9_4k, C4K_SIDE, C4K_SIDE, **c4k_tiers[tier]), 1,
+                            walk="render_kernel")
+        for tier in ("exact", "fast+corner")
+    }
+    del g9_4k
+    big_adam, big_adam_rates, big_st, big_step = adam_steps_per_s(obj_big["highest"], tgt_big,
+                                                                  None, BIG_N, 36)
+    check_no_sync(lambda: gradient.run_block(big_st, big_step, tgt_big, None, 1),
+                  f"one chained Adam step at grad-10k-1024 (N={BIG_N}, two passes)")
+    prof_big_adam = profile_split(
+        lambda: gradient.run_block(big_st, big_step, tgt_big, None, 5)[1].cpu(), 5,
+        walk="grad_kernel")
+    times_large = {
+        "card": card,
+        "ms": lt,
+        "bound_ms": {k: v[0] for k, v in lb.items()},
+        "bound_by": {k: v[1] for k, v in lb.items()},
+        "scatter_pairs": {k: e["pairs"] for k, e in scatter_errs.items()},
+        "renders_per_s_big_10k_1024_B4": big_renders_per_s,
+        "full_canvas_renders_per_s_canvas_4k": c4k_renders_per_s,
+        "adam_steps_per_s_grad_10k_1024": big_adam,
+        "adam_steps_per_s_grad_10k_1024_blocks": big_adam_rates,
+    }
+    print("TIMES LARGE " + json.dumps(times_large), flush=True)
+    for tier, prof in prof_c4k.items():
+        print(f"PROFILE canvas-4k {tier} " + json.dumps(prof), flush=True)
+    print("PROFILE ADAM grad-10k-1024 " + json.dumps(prof_big_adam), flush=True)
+
     # 6. profile
     phase("profile")
     prof = profile_split(lambda: ga.run_block(st, obj, tgt, wm, cfg, gnm, 20)[1].cpu(), 20)
@@ -1047,6 +1588,11 @@ def main() -> int:
             "bound_ms": bounds["K1_B32"][0],
             "bound_by": bounds["K1_B32"][1],
             "library_ms": None,
+            "note": "takes an init canvas on the last pass above 8000 splats "
+                    f"({ga_big_launches['K1-init']} init launches in the 2048x2048 GA; there, "
+                    "on its 2nd pass, fitness max rel "
+                    f"{init_errs['ga_exact']['fitness_rel']} and K2 canvas max abs "
+                    f"{init_errs['ga_exact']['canvas']} against plain)",
         },
         {
             "name": "K2 render_tiles (walk + clamped canvas)",
@@ -1061,7 +1607,9 @@ def main() -> int:
             "bound_by": bounds["K2_B1"][1],
             "library_ms": None,
             "note": "K2' (the custom-VJP forward, render_grad.py:386) is this render_kernel, "
-                    "launched from render_grad.RenderDiff",
+                    "launched from render_grad.RenderDiff; takes an init canvas on every pass "
+                    f"but the first ({big_grad_launches['K2-init']} init launches in "
+                    "run_grad at grad-10k-1024)",
         },
         {
             "name": "K3 fitness_tiles_fast / render_tiles_fast (exp2 fast-tier walk)",
@@ -1076,7 +1624,10 @@ def main() -> int:
             "bound_by": bounds["K3_B32"][1],
             "library_ms": None,
             "note": "turbo=True at both pallas_calls (render_pallas.py:1460 fitness, :118 "
-                    "canvas); times are the fitness epilogue at B=32",
+                    "canvas); times are the fitness epilogue at B=32; init canvas launches in "
+                    f"the fast 2048x2048 GA: {ga_big_fast_launches['K3-init']}; there, on its "
+                    f"2nd pass, fitness max rel {init_errs['ga_fast']['fitness_rel']} and "
+                    f"canvas max abs {init_errs['ga_fast']['canvas']} against plain",
         },
         {
             "name": "K4 prep_fast (genome -> fast table + eps-tight boxes)",
@@ -1103,7 +1654,37 @@ def main() -> int:
             "bound_ms": bounds["K1_bf16_B32"][0],
             "bound_by": bounds["K1_bf16_B32"][1],
             "library_ms": None,
-            "note": "compute_dtype=bfloat16 at render_pallas.py:1460",
+            "note": "compute_dtype=bfloat16 at render_pallas.py:1460; from an init canvas "
+                    f"at big-10k-1024 ({bf16_big_launches['K1-bf16-init']} launch; there, on its "
+                    f"2nd pass, fitness max rel {init_errs['big_bf16']['fitness_rel']} against "
+                    "plain)",
+        },
+        {
+            "name": "K5 bin_splats_scatter (pair-scatter binning, >= 256 tiles)",
+            "route": "cuda",
+            "source": "ggs_tpu_torch/csrc/scatter.cu",
+            "replaces": "ggs_tpu/ops/render_pallas.py:986",
+            "launches": ga_big_launches["K5"],
+            "max_abs_err": max(e["max_abs_err"] for e in scatter_errs.values()),
+            "ms": lt["K5_ga_exact"],
+            "plain_ms": lt["K5_plain_ga_exact"],
+            "bound_ms": lb["K5_ga_exact"][0],
+            "bound_by": lb["K5_ga_exact"][1],
+            "library_ms": None,
+            "note": f"B={GA_P}, a {BIG_N // 2}-splat pass at {GA_SIDE}x{GA_SIDE}, 512 tiles, "
+                    f"exact-tight; the dense sort it replaces there: {lt['dense_ga_exact']} ms; "
+                    "ga_fast: the same pass under the fast GA's corner cull, where the batch "
+                    "overflows cap_s and the fallback rebuilds the lists by the per-tile test",
+            "ga_fast": {
+                "launches": ga_big_fast_launches["K5"],
+                "fallback_launches": ga_big_fast_launches["K5-fallback"],
+                "overflow": scatter_errs["ga_fast"]["overflow"],
+                "ms": lt["K5_ga_fast"],
+                "plain_ms": lt["K5_plain_ga_fast"],
+                "bound_ms": lb["K5_ga_fast"][0],
+                "bound_by": lb["K5_ga_fast"][1],
+                "dense_ms": lt["dense_ga_fast"],
+            },
         },
         {
             "name": "K6 bwd_tiles (backward walk, 9 gradients per splat)",
@@ -1117,6 +1698,11 @@ def main() -> int:
             "bound_ms": bounds["K6_B1_N2000"][0],
             "bound_by": bounds["K6_B1_N2000"][1],
             "library_ms": None,
+            "note": "with an init canvas it also writes d(init) = g * T_total "
+                    f"({big_grad_launches['K6-init']} init launches in run_grad at "
+                    "grad-10k-1024; there, on its 2nd pass, d(init) max rel "
+                    f"{big_grad_init_err['dinit_rel']} and gradient rows max rel "
+                    f"{max(big_grad_init_err['rows'])} against plain)",
         },
         {
             "name": "K7 lossgrad_tiles (forward walk + loss head + backward walk)",

@@ -15,6 +15,13 @@
 //   K4 (ggs_prep_fast) replaces _prep_turbo_kernel (pallas_call in
 //      _prep_turbo_pallas): renderer genome -> fast table + eps-tight boxes.
 //
+// Every walk starts from the background or, where the caller passes one, from
+// an init canvas [B, 3, Hp, Wp] (has_init, render_pallas.py:1149-1158): the
+// previous pass of a render or fitness chained in passes of at most 8000
+// splats. Mode 2 rounds the init to bf16 where it enters, as
+// init_ref[...].astype(bf16) does. The init is a pointer that may be null,
+// not a second copy of the walk.
+//
 // The walks, for k < cnt[b,t] with s = idx[b,t,k], per pixel (x, y):
 //   mode 0 (exact):  qx = x - cx, qy = y - cy
 //     f = exp(nsxx*(qx*qx) + nsxy*(qx*qy) + nsyy*(qy*qy)) * a   (left to right)
@@ -27,7 +34,7 @@
 //     subtraction, the table's entries rounded to bf16 where they enter, and
 //     every product, sum, exp and blend rounded to bf16 (as torch rounds each
 //     bf16 operation; expf of the bf16 value, then rounded); the canvas
-//     starts as the bf16 background and is carried in bf16.
+//     starts as the bf16 background (or init) and is carried in bf16.
 // Finally C is clamped to [0, 1] in f32. A pixel outside the box skips the
 // blend: with f = 0 it is an exact no-op in every mode, so skipping changes
 // no bit (mode 1: exp2f(-inf) = 0 for alpha 0 and the sentinel, which is
@@ -69,6 +76,7 @@ struct WalkParams {
   const int* cnt;      // [B, T]
   const int* idx;      // [B, T, L] ascending splat indices
   const float* feats;  // [B, 13, N1]
+  const float* init;   // [B, 3, Hp, Wp] the canvas to start from, or null: the background
   int T, L, N1;
   int n_tx, tile_h, tile_w, Hp, Wp;
   float bg0, bg1, bg2;
@@ -81,26 +89,65 @@ __device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2b
 template <int kMode>
 __device__ __forceinline__ float R(float x) { return kMode == kBf16 ? bf(x) : x; }
 
+struct TileGeom {
+  int bt, b, col, row0, rstride, nrows, tx0, ty0;
+};
+
+__device__ __forceinline__ TileGeom tile_geom(const WalkParams& p) {
+  TileGeom g;
+  g.bt = blockIdx.x;  // b * T + t
+  g.b = g.bt / p.T;
+  const int t = g.bt - g.b * p.T;
+  g.tx0 = (t % p.n_tx) * p.tile_w;
+  g.ty0 = (t / p.n_tx) * p.tile_h;
+  g.rstride = kThreads / p.tile_w;
+  g.col = threadIdx.x % p.tile_w;
+  g.row0 = threadIdx.x / p.tile_w;
+  g.nrows = p.tile_h / g.rstride;
+  return g;
+}
+
+// canvas offset of this thread's pixel in row j
+__device__ __forceinline__ size_t pixel(const WalkParams& p, const TileGeom& g, int j) {
+  return (size_t)(g.ty0 + g.row0 + j * g.rstride) * p.Wp + g.tx0 + g.col;
+}
+
 // Walks the tile's list; leaves the clamped canvas of this thread's pixels
 // in cr/cg/cb[j] for rows j < nrows.
 template <int kMode>
-__device__ __forceinline__ void walk_tile(const WalkParams& p, int bt, int b, float xf,
-                                          float ybase, int rstride, int nrows,
+__device__ __forceinline__ void walk_tile(const WalkParams& p, const TileGeom& g,
                                           float (&cr)[kMaxRows], float (&cg)[kMaxRows],
                                           float (&cb)[kMaxRows]) {
   __shared__ float sf[kNFeat][kChunk];
 
-  const float bg0 = R<kMode>(p.bg0), bg1 = R<kMode>(p.bg1), bg2 = R<kMode>(p.bg2);
+  const float xf = (float)(g.tx0 + g.col);
+  const float ybase = (float)(g.ty0 + g.row0);
+  const int rstride = g.rstride, nrows = g.nrows;
+  if (p.init) {
+    const size_t plane = (size_t)p.Hp * p.Wp;
+    const float* ib = p.init + (size_t)g.b * 3 * plane;
 #pragma unroll
-  for (int j = 0; j < kMaxRows; ++j) {
-    cr[j] = bg0;
-    cg[j] = bg1;
-    cb[j] = bg2;
+    for (int j = 0; j < kMaxRows; ++j) {
+      if (j < nrows) {
+        const size_t o = pixel(p, g, j);
+        cr[j] = R<kMode>(ib[o]);
+        cg[j] = R<kMode>(ib[plane + o]);
+        cb[j] = R<kMode>(ib[2 * plane + o]);
+      }
+    }
+  } else {
+    const float bg0 = R<kMode>(p.bg0), bg1 = R<kMode>(p.bg1), bg2 = R<kMode>(p.bg2);
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      cr[j] = bg0;
+      cg[j] = bg1;
+      cb[j] = bg2;
+    }
   }
 
-  const int n = p.cnt[bt];
-  const int* list = p.idx + (size_t)bt * p.L;
-  const float* fb = p.feats + (size_t)b * kNFeat * p.N1;
+  const int n = p.cnt[g.bt];
+  const int* list = p.idx + (size_t)g.bt * p.L;
+  const float* fb = p.feats + (size_t)g.b * kNFeat * p.N1;
 
   for (int base = 0; base < n; base += kChunk) {
     const int m = min(kChunk, n - base);
@@ -180,37 +227,17 @@ __device__ __forceinline__ void walk_tile(const WalkParams& p, int bt, int b, fl
   }
 }
 
-struct TileGeom {
-  int bt, b, col, row0, rstride, nrows, tx0, ty0;
-};
-
-__device__ __forceinline__ TileGeom tile_geom(const WalkParams& p) {
-  TileGeom g;
-  g.bt = blockIdx.x;  // b * T + t
-  g.b = g.bt / p.T;
-  const int t = g.bt - g.b * p.T;
-  g.tx0 = (t % p.n_tx) * p.tile_w;
-  g.ty0 = (t / p.n_tx) * p.tile_h;
-  g.rstride = kThreads / p.tile_w;
-  g.col = threadIdx.x % p.tile_w;
-  g.row0 = threadIdx.x / p.tile_w;
-  g.nrows = p.tile_h / g.rstride;
-  return g;
-}
-
 template <int kMode>
 __global__ void __launch_bounds__(kThreads) render_kernel(WalkParams p, float* __restrict__ out) {
   const TileGeom g = tile_geom(p);
   float cr[kMaxRows], cg[kMaxRows], cb[kMaxRows];
-  walk_tile<kMode>(p, g.bt, g.b, (float)(g.tx0 + g.col), (float)(g.ty0 + g.row0), g.rstride,
-                   g.nrows, cr, cg, cb);
+  walk_tile<kMode>(p, g, cr, cg, cb);
   const size_t plane = (size_t)p.Hp * p.Wp;
   float* ob = out + (size_t)g.b * 3 * plane;
-  const int x = g.tx0 + g.col;
 #pragma unroll
   for (int j = 0; j < kMaxRows; ++j) {
     if (j < g.nrows) {
-      const size_t o = (size_t)(g.ty0 + g.row0 + j * g.rstride) * p.Wp + x;
+      const size_t o = pixel(p, g, j);
       ob[o] = cr[j];
       ob[plane + o] = cg[j];
       ob[2 * plane + o] = cb[j];
@@ -226,15 +253,13 @@ __global__ void __launch_bounds__(kThreads) fitness_kernel(WalkParams p,
   __shared__ float red[kThreads / 32];
   const TileGeom g = tile_geom(p);
   float cr[kMaxRows], cg[kMaxRows], cb[kMaxRows];
-  walk_tile<kMode>(p, g.bt, g.b, (float)(g.tx0 + g.col), (float)(g.ty0 + g.row0), g.rstride,
-                   g.nrows, cr, cg, cb);
+  walk_tile<kMode>(p, g, cr, cg, cb);
   const size_t plane = (size_t)p.Hp * p.Wp;
-  const int x = g.tx0 + g.col;
   float acc = 0.0f;
 #pragma unroll
   for (int j = 0; j < kMaxRows; ++j) {
     if (j < g.nrows) {
-      const size_t o = (size_t)(g.ty0 + g.row0 + j * g.rstride) * p.Wp + x;
+      const size_t o = pixel(p, g, j);
       const float dr = cr[j] - target[o];
       const float dg = cg[j] - target[plane + o];
       const float db = cb[j] - target[2 * plane + o];
@@ -338,13 +363,14 @@ int ggs_walk_geometry_ok(int tile_h, int tile_w) { return ggs::geometry_ok(tile_
 
 const char* ggs_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// mode: 0 exact (K2), 1 fast (K3); the canvas has no bf16 mode
-int ggs_walk_render(int mode, const int* cnt, const int* idx, const float* feats, float* canvas,
-                    int B, int T, int L, int N1, int n_tx, int tile_h, int tile_w, int Hp, int Wp,
-                    float bg0, float bg1, float bg2, void* stream) {
+// mode: 0 exact (K2), 1 fast (K3); the canvas has no bf16 mode. init may be
+// null (start from the background); it must not alias canvas.
+int ggs_walk_render(int mode, const int* cnt, const int* idx, const float* feats, const float* init,
+                    float* canvas, int B, int T, int L, int N1, int n_tx, int tile_h, int tile_w,
+                    int Hp, int Wp, float bg0, float bg1, float bg2, void* stream) {
   if (!ggs::geometry_ok(tile_h, tile_w)) return (int)cudaErrorInvalidValue;
   if (B * T == 0) return 0;
-  ggs::WalkParams p{cnt, idx, feats, T, L, N1, n_tx, tile_h, tile_w, Hp, Wp, bg0, bg1, bg2};
+  ggs::WalkParams p{cnt, idx, feats, init, T, L, N1, n_tx, tile_h, tile_w, Hp, Wp, bg0, bg1, bg2};
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case ggs::kExact: ggs::render_kernel<ggs::kExact><<<B * T, ggs::kThreads, 0, s>>>(p, canvas); break;
@@ -354,14 +380,14 @@ int ggs_walk_render(int mode, const int* cnt, const int* idx, const float* feats
   return (int)cudaGetLastError();
 }
 
-// mode: 0 exact (K1), 1 fast (K3), 2 bf16 (K1-bf16)
+// mode: 0 exact (K1), 1 fast (K3), 2 bf16 (K1-bf16); init may be null
 int ggs_walk_fitness(int mode, const int* cnt, const int* idx, const float* feats,
-                     const float* target, const float* w, float* partials, int B, int T, int L,
-                     int N1, int n_tx, int tile_h, int tile_w, int Hp, int Wp, float bg0, float bg1,
-                     float bg2, void* stream) {
+                     const float* init, const float* target, const float* w, float* partials,
+                     int B, int T, int L, int N1, int n_tx, int tile_h, int tile_w, int Hp, int Wp,
+                     float bg0, float bg1, float bg2, void* stream) {
   if (!ggs::geometry_ok(tile_h, tile_w)) return (int)cudaErrorInvalidValue;
   if (B * T == 0) return 0;
-  ggs::WalkParams p{cnt, idx, feats, T, L, N1, n_tx, tile_h, tile_w, Hp, Wp, bg0, bg1, bg2};
+  ggs::WalkParams p{cnt, idx, feats, init, T, L, N1, n_tx, tile_h, tile_w, Hp, Wp, bg0, bg1, bg2};
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case ggs::kExact:

@@ -5,7 +5,11 @@
 //      _bwd_tile_kernel(fused=False) (ggs_tpu/ops/render_grad.py, pallas_call
 //      in _make_screen_render.bwd_grads): takes the image cotangent
 //      g [B, 3, Hp, Wp] and writes the 9 parameter gradients of every listed
-//      splat.
+//      splat. A chained pass (render_cuda.MAX_SPLATS splats at a time) starts
+//      from the previous pass's canvas, init [B, 3, Hp, Wp], and then also
+//      writes that canvas's cotangent dinit = g * T_total, T_total the
+//      transmittance through the pass's whole list at the pixel
+//      (render_grad.py:76-79, 289-292), again with no division.
 //   K7 (ggs_grad_walk, fused = 1) replaces _bwd_tile_kernel(fused=True)
 //      (pallas_call in _make_screen_lossgrad.run): renders the tile, forms
 //      the weighted-SSE partial num = sum_px w * |clip(C) - target|^2 and
@@ -75,6 +79,8 @@ struct GradParams {
   const int* idx;       // [B, T, L] ascending splat indices
   const float* feats;   // [B, 13, N1] raw table
   const float* gimg;    // K6: image cotangent [B, 3, Hp, Wp]
+  const float* init;    // K6: the canvas to start from [B, 3, Hp, Wp], or null: the background
+  float* dinit;         // K6 with init: its cotangent [B, 3, Hp, Wp]
   const float* target;  // K7: [3, Hp, Wp]
   const float* w;       // K7: [Hp, Wp], 0 on the padding
   float scale;          // K7: cotangent scale
@@ -147,13 +153,22 @@ __global__ void __launch_bounds__(kThreads) grad_kernel(GradParams p) {
       return m;
     };
 
-    // ---- pass A: forward from the background, boundary canvas per chunk
+    // ---- pass A: forward from the background or the init canvas,
+    // boundary canvas per chunk
     float cr[kRows], cg[kRows], cb[kRows];
+    const float* ib = p.init ? p.init + (size_t)b * 3 * plane : nullptr;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      cr[r] = p.bg0;
-      cg[r] = p.bg1;
-      cb[r] = p.bg2;
+      if (ib) {
+        const size_t o = (size_t)(ty0 + row0 + r * kRowStride) * p.Wp + tx0 + col;
+        cr[r] = ib[o];
+        cg[r] = ib[plane + o];
+        cb[r] = ib[2 * plane + o];
+      } else {
+        cr[r] = p.bg0;
+        cg[r] = p.bg1;
+        cb[r] = p.bg2;
+      }
     }
     for (int c = 0; c < n_chunks; ++c) {
       float* bc0 = bound + (size_t)c * 3 * kTilePx;
@@ -319,6 +334,16 @@ __global__ void __launch_bounds__(kThreads) grad_kernel(GradParams p) {
         gout[(size_t)i * p.N + ss[j]] = s;
       }
     }
+    if (p.dinit) {  // T now holds T_total
+      float* db = p.dinit + (size_t)b * 3 * plane;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const size_t o = (size_t)(ty0 + row0 + r * kRowStride) * p.Wp + tx0 + col;
+        db[o] = g0[r] * T[r];
+        db[plane + o] = g1[r] * T[r];
+        db[2 * plane + o] = g2[r] * T[r];
+      }
+    }
     __syncthreads();  // nred and red are free for the next item
   }
 }
@@ -361,20 +386,23 @@ int ggs_grad_resident_blocks(int fused) {
   return sms * per_sm;
 }
 
-// K6 (fused = 0: gimg) or K7 (fused = 1: target, w, scale -> num), then the
-// in-order sum over tiles: grads [B, 9, N] = sum_t gpart[:, t].
+// K6 (fused = 0: gimg, and init -> dinit where init is not null) or K7
+// (fused = 1: target, w, scale -> num; no init), then the in-order sum over
+// tiles: grads [B, 9, N] = sum_t gpart[:, t].
 int ggs_grad_walk(int fused, const int* cnt, const int* idx, const float* feats, const float* gimg,
-                  const float* target, const float* w, float scale, float* num, float* gpart,
+                  const float* init, float* dinit, const float* target, const float* w,
+                  float scale, float* num, float* gpart,
                   float* grads, float* scratch, int slots, int max_chunks, int B, int T, int L,
                   int N1, int N, int n_tx, int Hp, int Wp, float bg0, float bg1, float bg2,
                   void* stream) {
   if (B * T == 0) return 0;
-  if (slots <= 0 || N <= 0 || Hp % ggs_grad::kTileH || Wp % ggs_grad::kTileW)
+  if (slots <= 0 || N <= 0 || Hp % ggs_grad::kTileH || Wp % ggs_grad::kTileW ||
+      (fused && init) || (!init != !dinit))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  ggs_grad::GradParams p{cnt,      idx,  feats, gimg, target, w, scale, num,   gpart, scratch,
-                         max_chunks, B,  T,     L,    N1,     N, n_tx,  Hp,    Wp,    bg0,
-                         bg1,      bg2};
+  ggs_grad::GradParams p{cnt,   idx,   feats,   gimg,       init, dinit, target, w,
+                         scale, num,   gpart,   scratch,    max_chunks, B, T, L,
+                         N1,    N,     n_tx,    Hp,         Wp,   bg0,   bg1,    bg2};
   const int grid = B * T < slots ? B * T : slots;
   if (fused)
     ggs_grad::grad_kernel<true><<<grid, ggs_grad::kThreads, 0, st>>>(p);

@@ -102,8 +102,9 @@ def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
     """(g_axes, target, weight_mask) -> ((loss, fits), grads [B, N, 9]).
 
     impl "cuda" with metric "mse" takes the fused path, one K7 launch per
-    step (render_grad.fused_value_and_grad); otherwise autograd through
-    make_loss_fn."""
+    step (render_grad.fused_value_and_grad), up to render_cuda.MAX_SPLATS
+    splats; above that, and for every other case, autograd through
+    make_loss_fn (K2 and K6 once per chained pass; gradient.py:251-257)."""
     loss_fn = make_loss_fn(obj, gnm)
 
     def autograd_vg(g_axes, target, weight_mask):
@@ -117,6 +118,8 @@ def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
         return autograd_vg
 
     def fused_vg(g_axes, target, weight_mask):
+        if g_axes.shape[1] > render_cuda.MAX_SPLATS:
+            return autograd_vg(g_axes, target, weight_mask)
         return render_grad.fused_value_and_grad(
             g_axes, target, weight_mask, obj.H, obj.W,
             boost_only=obj.boost_only, boost_beta=obj.boost_beta, k_sigma=obj.k_sigma,

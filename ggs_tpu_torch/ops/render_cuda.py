@@ -1,8 +1,8 @@
-"""Tiled rasterizer: screen-space tables, boxes and culls, dense binning,
-and the walk kernels (K1/K2 exact, K3 fast, K1-bf16) and the fast table
-builder (K4), each with its plain PyTorch version.
+"""Tiled rasterizer: screen-space tables, boxes and culls, binning, and the
+walk kernels (K1/K2 exact, K3 fast, K1-bf16), the fast tier's table and
+boxes (K4) and the scatter binning (K5), each with its plain PyTorch version.
 
-PyTorch/CUDA counterpart of `ggs_tpu/ops/render_pallas.py`, single pass:
+PyTorch/CUDA counterpart of `ggs_tpu/ops/render_pallas.py`:
 
 * Tables: `_splat_feats_fast` (render_pallas.py:189), the pre-folded exact
   table [B, 13, N+1] with a no-op sentinel column N, and
@@ -11,36 +11,42 @@ PyTorch/CUDA counterpart of `ggs_tpu/ops/render_pallas.py`, single pass:
 * Boxes and culls of the fast tier (plain PyTorch: XLA code in the JAX
   package): `_tighten_boxes` (:377), the eps-tight boxes;
   `_corner_eps`/`_corner_params`/`_corner_keep` (:411-486), the rect-min
-  corner cull; `bin_splats_dense` (:659), per-tile ascending splat lists
-  padded with N, counts capped at `bin_capacity`, with the corner cull
-  ANDed in where `_bin_splats_dense` does.
+  corner cull, and `_corner_band_xranges` (:489), its band-level form.
+* Binning: `bin_splats` (`_bin_splats_xy`, :613) dispatches on the tile
+  count. Below 256 tiles `bin_splats_dense` (:659): per-tile ascending
+  splat lists padded with N, counts capped at `bin_capacity`, with the
+  corner cull ANDed in. From 256 tiles `scatter_binning`
+  (`_bin_splats_scatter`, :892): its static rules, `_band_lists`
+  (`_band_lists_xla`, :698) and the band ranges in plain PyTorch, then K5.
 * Kernel wrappers, each with a launch count and a plain version beside it
   (a CPU tensor takes the plain version; a CUDA tensor launches the kernel
   or raises): `fitness_tiles` (K1), `render_tiles` (K2),
   `fitness_tiles_fast` / `render_tiles_fast` (K3), `fitness_tiles_bf16`
-  (K1-bf16) and `prep_fast` (K4), all in `csrc/walk.cu`.
+  (K1-bf16) and `prep_fast` (K4) in `csrc/walk.cu`; `bin_splats_scatter`
+  (K5) in `csrc/scatter.cu`. Every walk takes an optional init canvas.
 * `render` / `fitness`: the entry points, mirroring `render_pallas` and
-  `fitness_pallas` for the four precision tiers. Fast fitness takes
-  `fitness_pallas`'s single-chunk route (K4 -> dense binning with the
-  corner parameters sliced from K4's table -> K3); fast render takes
-  `preprocess` -> `_tighten_boxes` -> `_corner_params` -> K3. The two
-  routes build their boxes by different rules, as in the JAX package, and
-  may bin a splat differently. "bf16" fitness runs K1-bf16 over the
-  reference box; "bf16" renders the exact walk. One pass: the JAX package
-  chains passes through an init canvas only above 8000 splats, which this
-  port does not do yet (a single pass composites the same splats in the
-  same order; the bf16 fitness, whose chained passes are f32, raises).
+  `fitness_pallas` for the four precision tiers. Above MAX_SPLATS splats
+  they chain passes through the init canvas (`_chunked_passes`, :141),
+  each pass binned on its own with its own capacity. Fast fitness at most
+  MAX_SPLATS splats takes `fitness_pallas`'s single-chunk route (K4 ->
+  binning with the corner parameters sliced from K4's table -> K3); every
+  other case takes `preprocess` -> the tier's boxes -> `_corner_params`.
+  The two routes build their boxes by different rules, as in the JAX
+  package, and may bin a splat differently. "bf16" fitness walks its
+  earlier passes in f32 (K2) and its last in K1-bf16 over the reference
+  box; "bf16" renders the exact walk.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
 import shutil
 import subprocess
 import tempfile
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,16 +61,32 @@ PRECISIONS = ("highest", "exact-tight", "fast", "bf16")
 DEFAULT_CULL_EPS = 2e-3  # the fast tier's cull eps when none is given
 _LOG2E = 1.4426950408889634
 _MODES = {"exact": 0, "fast": 1, "bf16": 2}  # walk.cu's blend modes
-# the JAX package's one-pass limit (render_pallas._MAX_SMEM_SPLATS): above it
-# it chains passes, and fast fitness leaves K4's single-chunk route
+# The pass size (render_pallas._MAX_SMEM_SPLATS). The card has no 1 MiB
+# scalar-memory window to fit, but the chunking decides results: each pass
+# keeps the first bin_capacity splats of its own chunk, and the bf16
+# fitness walks every pass but the last in f32. It also bounds K6's replay
+# scratch, which grows with the list length. Read through the module at
+# call time (render_cuda.MAX_SPLATS), so that lowering it reaches every
+# caller.
 MAX_SPLATS = 8000
+# The scatter binning's rules (render_pallas.py:640, :895, :44, :695). The
+# budget was the TPU's scalar-memory room for one row group's lists; here it
+# stays as a rule of the result, not a limit of the card: it sets the band
+# height rpg and the list length cap_s, and so whether the corner cull is
+# band-level or per tile, as in the JAX package. Read through the module at
+# call time, as MAX_SPLATS is.
+SCATTER_TILES = 256  # bin_splats scatters from this many tiles
+SCATTER_BUDGET = 176 * 1024
+SCATTER_PAD = 8  # the forward walks' pad_slots (render_grad passes 40)
+_N_COARSE = 8  # coarse row bands
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the kernel sources, each built into its own library (walk_grad.cu holds the
-# backward walks K6/K7 of ops/render_grad.py)
+# backward walks K6/K7 of ops/render_grad.py, scatter.cu the binning K5)
 SOURCES = {
     "walk": os.path.join(_PKG_DIR, "csrc", "walk.cu"),
     "walk_grad": os.path.join(_PKG_DIR, "csrc", "walk_grad.cu"),
+    "scatter": os.path.join(_PKG_DIR, "csrc", "scatter.cu"),
 }
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "ggs_tpu_torch")
 NVCC_FLAGS = (
@@ -91,13 +113,18 @@ class _Kernels:
     def __init__(self, libs: dict, paths: dict, logs: dict):
         self.lib = lib = libs["walk"]
         self.grad = grad = libs["walk_grad"]
+        self.scatter = scatter = libs["scatter"]
         self.paths = paths
         self.logs = logs
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ggs_walk_render.argtypes = [i, p, p, p, p] + [i] * 9 + [f, f, f, p]
+        lib.ggs_walk_render.argtypes = [i, p, p, p, p, p] + [i] * 9 + [f, f, f, p]
         lib.ggs_walk_render.restype = i
-        lib.ggs_walk_fitness.argtypes = [i, p, p, p, p, p, p] + [i] * 9 + [f, f, f, p]
+        lib.ggs_walk_fitness.argtypes = [i, p, p, p, p, p, p, p] + [i] * 9 + [f, f, f, p]
         lib.ggs_walk_fitness.restype = i
+        scatter.ggs_scatter_bin.argtypes = [p] * 7 + [i] * 7 + [p]
+        scatter.ggs_scatter_bin.restype = i
+        scatter.ggs_scatter_fallback.argtypes = [p, p, p, f, p, i, p, p] + [i] * 7 + [p]
+        scatter.ggs_scatter_fallback.restype = i
         lib.ggs_prep_fast.argtypes = [p, p, p, i, i] + [f] * 5 + [p]
         lib.ggs_prep_fast.restype = i
         lib.ggs_walk_geometry_ok.argtypes = [i, i]
@@ -105,7 +132,7 @@ class _Kernels:
         lib.ggs_error_string.argtypes = [i]
         lib.ggs_error_string.restype = ctypes.c_char_p
         grad.ggs_grad_walk.argtypes = (
-            [i, p, p, p, p, p, p, f, p, p, p, p] + [i] * 10 + [f, f, f, p]
+            [i, p, p, p, p, p, p, p, p, f, p, p, p, p] + [i] * 10 + [f, f, f, p]
         )
         grad.ggs_grad_walk.restype = i
         grad.ggs_grad_resident_blocks.argtypes = [i]
@@ -317,6 +344,95 @@ def _corner_keep(corner, x0, x1, y0, y1, t_x, t_y, tile_h: int, tile_w: int) -> 
 
 
 @torch.no_grad()
+def _corner_band_xranges(corner, x0, x1, y0, y1, band_px: int, tile_w: int):
+    """The corner cull's band-level form (render_pallas.py:489): per coarse
+    row band and splat, the tile-column interval [txl, txh] [B, 8, N] int32
+    where the splat's peak log2-contribution over (band strip ∩ box) can
+    reach log2(eps); txh = txl - 1 exactly when the interval is empty. With
+    dy clamped to the band, max_dy of the quadratic is a concave piecewise
+    quadratic in dx (pieces dy = dyl, the interior vertex, dy = dyh), whose
+    superlevel set is the union of each piece's root interval within its
+    domain. The same expressions in the same order as JAX."""
+    cx, cy, nsxx, nsxy, nsyy, log2a, log2eps = corner
+    f32 = torch.float32
+    dev = cx.device
+    big = torch.tensor(1e30, dtype=f32, device=dev)
+    ex = lambda a: a[:, None, :]  # noqa: E731  [B, N] -> [B, 1, N]
+    c = torch.arange(_N_COARSE, dtype=f32, device=dev)[None, :, None]
+    dyl = torch.maximum(c * band_px, ex(y0.to(f32))) - ex(cy)
+    dyh = torch.minimum(c * band_px + (band_px - 1), ex(y1.to(f32))) - ex(cy)
+    nxx, nxy, nyy = ex(nsxx), ex(nsxy), ex(nsyy)
+    L = log2eps - ex(log2a)  # need n(dx, dy) >= L
+
+    def quad_interval(dyc):
+        # {dx : nxx dx^2 + (nxy dyc) dx + nyy dyc^2 - L >= 0}, nxx < 0
+        A = -nxx
+        Bq = -nxy * dyc
+        Cq = L - nyy * dyc * dyc
+        D = Bq * Bq - 4.0 * A * Cq
+        sq = torch.sqrt(torch.clamp_min(D, 0.0))
+        inv2A = 0.5 / torch.clamp_min(A, 1e-30)
+        lo = (-Bq - sq) * inv2A
+        hi = (-Bq + sq) * inv2A
+        empty = D < 0.0
+        return torch.where(empty, big, lo), torch.where(empty, -big, hi)
+
+    ry = nxy / (-2.0 * torch.clamp_max(nyy, -1e-30))  # dy*(dx) = ry dx
+
+    def halfplane(cval, ge: bool):
+        # the interval of {dx : ry dx >= cval} (ge) or {ry dx <= cval}
+        rsafe = torch.where(torch.abs(ry) > 1e-20, ry, 1.0)
+        q = torch.clamp(cval / rsafe, -1e30, 1e30)
+        pos = ry > 1e-20
+        neg = ry < -1e-20
+        zero = ~(pos | neg)
+        if ge:
+            lo = torch.where(pos, q, -big)
+            hi = torch.where(neg, q, big)
+            dead = zero & (cval > 0.0)
+        else:
+            lo = torch.where(neg, q, -big)
+            hi = torch.where(pos, q, big)
+            dead = zero & (cval < 0.0)
+        return torch.where(dead, big, lo), torch.where(dead, -big, hi)
+
+    q0l, q0h = quad_interval(dyl)  # piece 0: dy clamped at dyl
+    d0l, d0h = halfplane(dyl, ge=False)
+    q2l, q2h = quad_interval(dyh)  # piece 2: dy clamped at dyh
+    d2l, d2h = halfplane(dyh, ge=True)
+    # piece 1: the interior vertex, m = qi dx^2 with qi = nxx - nxy^2/(4 nyy)
+    qi = nxx - nxy * nxy / (4.0 * torch.clamp_max(nyy, -1e-30))
+    R = torch.sqrt(torch.clamp_min(L / torch.clamp_max(qi, -1e-30), 0.0))
+    q1l = torch.where(L <= 0.0, -R, big)
+    q1h = torch.where(L <= 0.0, R, -big)
+    d1l0, d1h0 = halfplane(dyl, ge=True)
+    d1l1, d1h1 = halfplane(dyh, ge=False)
+    d1l, d1h = torch.maximum(d1l0, d1l1), torch.minimum(d1h0, d1h1)
+
+    ulo, uhi = big, -big
+    for ql, qh, dl, dh in ((q0l, q0h, d0l, d0h), (q1l, q1h, d1l, d1h), (q2l, q2h, d2l, d2h)):
+        plo = torch.maximum(ql, dl)
+        phi = torch.minimum(qh, dh)
+        keep = plo <= phi
+        ulo = torch.minimum(ulo, torch.where(keep, plo, big))
+        uhi = torch.maximum(uhi, torch.where(keep, phi, -big))
+    band_hit = dyl <= dyh  # box ∩ band strip is not empty
+    ulo = torch.where(band_hit, ulo, big)
+    uhi = torch.where(band_hit, uhi, -big)
+
+    x0f, x1f = ex(x0.to(f32)), ex(x1.to(f32))
+    xlo = torch.clamp(torch.maximum(x0f, torch.floor(ex(cx) + ulo)), 0.0, 3.0e7)
+    xhi = torch.clamp(torch.minimum(x1f, torch.ceil(ex(cx) + uhi)), -2.0, 3.0e7)
+    txl = torch.div(xlo.to(torch.int32), tile_w, rounding_mode="floor")
+    # empty => txh = txl - 1 exactly (K5 and the plain version test
+    # txl <= tx <= txh; JAX's walk needs the column count to be 0)
+    txh = torch.where(
+        xhi < xlo, txl - 1, torch.div(xhi.to(torch.int32), tile_w, rounding_mode="floor")
+    )
+    return txl, txh
+
+
+@torch.no_grad()
 def bin_splats_dense(
     x0, x1, y0, y1, n_tx: int, n_ty: int, tile_h: int, tile_w: int, cap: int, corner=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -348,6 +464,220 @@ def bin_splats_dense(
     bin_idx = torch.sort(order, dim=-1).values[..., :cap].contiguous()
     cnt = torch.clamp_max(torch.sum(ov, dim=-1, dtype=torch.int32), cap)
     return bin_idx, cnt
+
+
+@torch.no_grad()
+def _band_lists(ty0t, ty1t, n_ty: int, rpt: int, cap_g: int, keep=None):
+    """Level 1 of the two-level scatter (`_band_lists_xla`,
+    render_pallas.py:698): per coarse band of rpt tile rows, the ascending
+    list of splats whose tile rows reach it (gl [B, 8, cap_g], padded with
+    N) and its length (gcnt [B, 8, 1]). `keep` [B, 8, N] ANDs in the band
+    corner cull's non-empty column ranges."""
+    B, N = ty0t.shape
+    dev = ty0t.device
+    a = torch.div(torch.clamp_min(ty0t, 0), rpt, rounding_mode="floor")
+    b = torch.div(torch.clamp_max(ty1t, n_ty - 1), rpt, rounding_mode="floor")
+    c = torch.arange(_N_COARSE, dtype=torch.int32, device=dev)[None, :, None]
+    ov = (a[:, None, :] <= c) & (b[:, None, :] >= c)  # [B, 8, N]
+    if keep is not None:
+        ov &= keep
+    ar = torch.arange(N, dtype=torch.int32, device=dev)[None, None, :]
+    order = torch.where(ov, ar, torch.full((), N, dtype=torch.int32, device=dev))
+    gl = torch.sort(order, dim=-1).values
+    if cap_g > N:
+        pad = torch.full((B, _N_COARSE, cap_g - N), N, dtype=torch.int32, device=dev)
+        gl = torch.cat([gl, pad], dim=-1)
+    return gl.contiguous(), torch.sum(ov, dim=-1, dtype=torch.int32)[..., None]
+
+
+class _ScatterPlan(NamedTuple):
+    """The static decisions of `_bin_splats_scatter` (render_pallas.py:914-950)."""
+
+    rpg: int  # tile rows a row group, and a coarse band, holds
+    cap_s: int  # the list length the budget allows a tile
+    two_level: bool  # band lists (and band column ranges) are read
+    corner_x: bool  # the band-level corner cull applies
+
+
+def _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner) -> Optional[_ScatterPlan]:
+    """JAX's rules for the scatter binning, or None where it bins densely
+    (the budget leaves a tile fewer than max(16, pad_slots) slots). Reads
+    SCATTER_BUDGET through the module at call time."""
+    rpg = max(1, _cdiv(n_ty, _N_COARSE))
+    # the Mosaic block rule that also decides rpg: tiles per group % 8 == 0
+    while rpg < n_ty and _cdiv(n_ty, rpg) > 1 and (rpg * n_tx) % 8 != 0:
+        rpg += 1
+    rpg = min(rpg, n_ty)
+    cap_s = min(cap, SCATTER_BUDGET // (rpg * n_tx * 4) - 1)  # column 0 held the count
+    if cap_s < max(16, pad_slots):
+        return None
+    two_level = _cdiv(n_ty, rpg) > 1 and _cdiv(N, 128) * 128 <= 8192
+    return _ScatterPlan(rpg, cap_s, two_level, corner is not None and two_level)
+
+
+@torch.no_grad()
+def scatter_args(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=SCATTER_PAD,
+                 corner=None) -> Optional[dict]:
+    """The XLA-side half of `_bin_splats_scatter` in plain PyTorch: K5's
+    keyword arguments (tile bounds, band lists, band column ranges, the
+    overflow fallback's boxes and corner parameters), or None where the
+    rules bin densely."""
+    B, N = x0.shape
+    plan = _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner)
+    if plan is None:
+        return None
+    div = functools.partial(torch.div, rounding_mode="floor")
+    rng = torch.stack([div(x0, tile_w), div(x1, tile_w), div(y0, tile_h), div(y1, tile_h)], 1)
+    rng = rng.to(torch.int32).contiguous()
+    gl = gcnt = cxr = fallback = None
+    if plan.two_level:
+        keep = None
+        if plan.corner_x:
+            txl, txh = _corner_band_xranges(corner, x0, x1, y0, y1, plan.rpg * tile_h, tile_w)
+            keep = txl <= txh  # a splat culled from the whole band is not walked
+            cxr = torch.stack([txl, txh], dim=2).contiguous()  # [B, 8, 2, N]
+            if plan.cap_s < cap:
+                fallback = (x0, x1, y0, y1, corner)
+        gl, gcnt = _band_lists(rng[:, 2], rng[:, 3], n_ty, plan.rpg, _cdiv(N, 128) * 128, keep)
+    return dict(rng=rng, gl=gl, gcnt=gcnt, cxr=cxr, n_tx=n_tx, n_ty=n_ty, tile_h=tile_h,
+                tile_w=tile_w, rpg=plan.rpg, cap=cap, cap_s=plan.cap_s, fallback=fallback)
+
+
+@torch.no_grad()
+def bin_splats_scatter_plain(rng, gl, gcnt, cxr, n_tx, n_ty, tile_h, tile_w, rpg, cap, cap_s,
+                             fallback=None):
+    """Plain version of K5: -> (idx [B, T, cap] int32 padded with N, cnt
+    [B, T], tmax 0-d int32). Tile (row ty, column tx) keeps splat s iff
+    rng's rows cover ty and tx lies in s's column range: the band's
+    [txl, txh] (cxr, band ty // rpg) or the box's; lists ascending, the
+    first cap kept, cnt = min(count, cap), tmax the largest true count over
+    the batch. With `fallback` (the band cull under cap_s < cap) and
+    tmax > cap_s, the lists are bin_splats_dense's with the per-tile corner
+    test (render_pallas.py:1012-1035). The band lists gl/gcnt are not read:
+    a splat missing from its band's list fails the row or the column test."""
+    B, _, N = rng.shape
+    dev = rng.device
+    T = n_tx * n_ty
+    t = torch.arange(T, dtype=torch.int32, device=dev)
+    tx, ty = (t % n_tx)[None, :, None], (t // n_tx)[None, :, None]
+    if cxr is None:
+        lo, hi = rng[:, 0, None, :], rng[:, 1, None, :]
+    else:
+        band = ((t // n_tx) // rpg).long()
+        lo, hi = cxr[:, band, 0, :], cxr[:, band, 1, :]  # [B, T, N]
+    ov = (rng[:, 2, None, :] <= ty) & (rng[:, 3, None, :] >= ty) & (lo <= tx) & (hi >= tx)
+    ar = torch.arange(N, dtype=torch.int32, device=dev)[None, None, :]
+    order = torch.where(ov, ar, torch.full((), N, dtype=torch.int32, device=dev))
+    idx = torch.sort(order, dim=-1).values[..., :cap].contiguous()
+    true = torch.sum(ov, dim=-1, dtype=torch.int32)
+    tmax = torch.amax(true)
+    if fallback is not None and cap_s < cap and int(tmax) > cap_s:
+        x0, x1, y0, y1, corner = fallback
+        idx, cnt = bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner)
+        return idx, cnt, tmax
+    return idx, torch.clamp_max(true, cap), tmax
+
+
+def bin_splats_scatter(rng, gl, gcnt, cxr, n_tx, n_ty, tile_h, tile_w, rpg, cap, cap_s,
+                       fallback=None):
+    """K5: as bin_splats_scatter_plain, on the card.
+
+    Replaces ggs_tpu/ops/render_pallas.py:_scatter_bin_kernel (pallas_call
+    in _bin_splats_scatter). A block per (candidate, tile) walks its band's
+    list (every splat without bands) 256 entries at a time, tests each and
+    compacts the kept ones in ascending order by a warp ballot and a block
+    prefix, so no list slot takes an atomic; it counts past cap for the true
+    count. The overflow decision stays on the card: the walk takes the
+    batch's largest true count by atomicMax, and with `fallback` a second
+    launch rebuilds the lists by the per-tile corner test where it exceeds
+    cap_s, and returns at once elsewhere. `launches` counts calls,
+    `fallback_launches` those that also launched the fallback (whether it
+    rebuilt the lists is known only on the card). Bound by bytes, mostly
+    the padded lists written (csrc/scatter.cu)."""
+    if rng.device.type == "cpu":
+        return bin_splats_scatter_plain(rng, gl, gcnt, cxr, n_tx, n_ty, tile_h, tile_w, rpg, cap,
+                                        cap_s, fallback)
+    B, _, N = rng.shape
+    T = n_tx * n_ty
+    dev = rng.device
+    _require(rng, "rng", torch.int32, (B, 4, N), dev)
+    if gl is not None:
+        _require(gl, "gl", torch.int32, (B, _N_COARSE, gl.shape[2]), dev)
+        _require(gcnt, "gcnt", torch.int32, (B, _N_COARSE, 1), dev)
+        if _cdiv(n_ty, rpg) > _N_COARSE:
+            raise ValueError(f"{_cdiv(n_ty, rpg)} row groups: the band lists hold {_N_COARSE}")
+    if cxr is not None:
+        if gl is None:
+            raise ValueError("band column ranges need the band lists")
+        _require(cxr, "cxr", torch.int32, (B, _N_COARSE, 2, N), dev)
+    idx = torch.empty((B, T, cap), dtype=torch.int32, device=dev)
+    cnt = torch.empty((B, T), dtype=torch.int32, device=dev)
+    tmax = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    k = build()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = k.scatter.ggs_scatter_bin(
+            rng.data_ptr(), ptr(gl), ptr(gcnt), ptr(cxr), idx.data_ptr(), cnt.data_ptr(),
+            tmax.data_ptr(), B, N, n_tx, n_ty, rpg, 0 if gl is None else gl.shape[2], cap, stream,
+        )
+        k.check(rc, "bin_splats_scatter")
+        if fallback is not None and cap_s < cap:
+            x0, x1, y0, y1, corner = fallback
+            box = torch.stack([x0, x1, y0, y1], 1).to(torch.int32).contiguous()
+            cpar = torch.stack([v.to(torch.float32) for v in corner[:6]], 1).contiguous()
+            rc = k.scatter.ggs_scatter_fallback(
+                rng.data_ptr(), box.data_ptr(), cpar.data_ptr(), float(corner[6]),
+                tmax.data_ptr(), cap_s, idx.data_ptr(), cnt.data_ptr(),
+                B, N, n_tx, n_ty, tile_h, tile_w, cap, stream,
+            )
+            k.check(rc, "bin_splats_scatter (overflow fallback)")
+            bin_splats_scatter.fallback_launches += 1
+    bin_splats_scatter.launches += 1
+    return idx, cnt, tmax
+
+
+bin_splats_scatter.launches = bin_splats_scatter.fallback_launches = 0
+
+
+def scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=SCATTER_PAD,
+                    corner=None):
+    """Pair-scatter binning (`_bin_splats_scatter`): -> (idx [B, T, cap],
+    cnt [B, T]). Without the corner cull the lists equal bin_splats_dense's;
+    with it, while two-level, each band culls by its column ranges (weaker
+    than the per-tile test, so the lists are supersets of the dense corner
+    lists), and where a budget cap_s < cap overflows, by the per-tile test."""
+    args = scatter_args(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots, corner)
+    if args is None:
+        return bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=corner)
+    idx, cnt, _ = bin_splats_scatter(**args)
+    return idx, cnt
+
+
+def bin_splats(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=None,
+               pad_slots=SCATTER_PAD):
+    """Boxes [B, N] -> (idx [B, T, cap], cnt [B, T]) (`_bin_splats_xy`,
+    render_pallas.py:613): the scatter binning from SCATTER_TILES tiles,
+    the dense one below."""
+    if n_tx * n_ty >= SCATTER_TILES:
+        return scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots,
+                               corner=corner)
+    return bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=corner)
+
+
+@torch.no_grad()
+def max_bin_count(g9, H: int, W: int, k_sigma: float = 3.0, tile_h: int = 16,
+                  tile_w: int = 128) -> torch.Tensor:
+    """Diagnostic (render_pallas.py:1606): the largest per-tile splat count
+    of these genomes, the least lossless bin_capacity (0-d int32)."""
+    g9 = _genomes(g9)
+    p = codec.preprocess(g9, H, W, k_sigma)
+    _, cnt = bin_splats(p.x0, p.x1, p.y0, p.y1, _cdiv(W, tile_w), _cdiv(H, tile_h), tile_h,
+                        tile_w, g9.shape[1])
+    return torch.amax(cnt)
 
 
 # ------------------------------------------------------ plain versions
@@ -403,17 +733,18 @@ def prep_fast_plain(g9: torch.Tensor, H: int, W: int, k_sigma: float, cull_eps=N
     return ff, fi
 
 
-def _walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, mode="exact"):
+def _walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, mode="exact", init=None):
     """The walk in plain PyTorch over the same lists: slot k of every
-    (candidate, tile) list at once, blended where k < cnt. Returns the
-    clamped (r, g, b) planes, each [B, T, tile_h, tile_w] f32.
+    (candidate, tile) list at once, blended where k < cnt, from the
+    background or from the init canvas [B, 3, Hp, Wp]. Returns the clamped
+    (r, g, b) planes, each [B, T, tile_h, tile_w] f32.
 
     mode "exact": f = exp(sum left to right) * a over the closed box,
     C = (1 - f) C + f c. "fast" (the turbo table): f = exp2(nsxx qx^2 +
     (nsxy qx qy + (nsyy qy^2 + log2a))) over the open thresholds,
     C = C + f (c - C). "bf16": the exact walk with qx, qy cast to bf16
     after the f32 subtraction and every later operation in bf16, on a bf16
-    canvas (render_pallas.py:1123-1165)."""
+    canvas, the init rounded to bf16 (render_pallas.py:1123-1165)."""
     B, T, _ = idx.shape
     dev = feats.device
     t = torch.arange(T, device=dev)
@@ -422,9 +753,13 @@ def _walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, mode="exact")
     xf = xf.to(torch.float32)[None]  # [1, T, 1, tw]
     yf = yf.to(torch.float32)[None]  # [1, T, th, 1]
     dt = torch.bfloat16 if mode == "bf16" else torch.float32
-    canvas = [
-        torch.full((B, T, tile_h, tile_w), float(c), dtype=dt, device=dev) for c in background
-    ]
+    if init is None:
+        canvas = [
+            torch.full((B, T, tile_h, tile_w), float(c), dtype=dt, device=dev) for c in background
+        ]
+    else:
+        it = _tiles_of(init, n_tx, tile_h, tile_w)  # [B, 3, T, th, tw]
+        canvas = [it[:, i].to(dt) for i in range(3)]
     kmax = int(cnt.max()) if cnt.numel() else 0
     zero = torch.zeros((), dtype=dt, device=dev)
     for k in range(kmax):
@@ -463,21 +798,27 @@ def _tiles_of(plane: torch.Tensor, n_tx: int, tile_h: int, tile_w: int) -> torch
     return x.reshape(*lead, n_ty * n_tx, tile_h, tile_w)
 
 
-def render_tiles_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, Hp, Wp, mode="exact"):
+def _untile(tiles: torch.Tensor, n_tx: int) -> torch.Tensor:
+    """[..., T, tile_h, tile_w] -> [..., Hp, Wp], the inverse of _tiles_of."""
+    *lead, T, tile_h, tile_w = tiles.shape
+    n_ty = T // n_tx
+    x = tiles.reshape(*lead, n_ty, n_tx, tile_h, tile_w).transpose(-3, -2)
+    return x.reshape(*lead, n_ty * tile_h, n_tx * tile_w)
+
+
+def render_tiles_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, mode="exact",
+                       init=None):
     """Plain version of K2 (mode "exact") and K3's canvas (mode "fast"):
     the clamped canvas [B, 3, Hp, Wp]."""
-    B, T, _ = idx.shape
-    n_ty = T // n_tx
-    planes = torch.stack(_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, mode), 1)
-    planes = planes.reshape(B, 3, n_ty, n_tx, tile_h, tile_w).transpose(3, 4)
-    return planes.reshape(B, 3, Hp, Wp)
+    planes = _walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, mode, init)
+    return _untile(torch.stack(planes, 1), n_tx)
 
 
 def fitness_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background,
-                        mode="exact"):
+                        mode="exact", init=None):
     """Plain version of K1 (mode "exact"), K3's fitness ("fast") and K1-bf16
     ("bf16"): partials [B, T] = sum_px w * sum_ch (C - target)^2, in f32."""
-    cr, cg, cb = _walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, mode)
+    cr, cg, cb = _walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, mode, init)
     tt = _tiles_of(target_p, n_tx, tile_h, tile_w)  # [3, T, th, tw]
     wt = _tiles_of(w_p, n_tx, tile_h, tile_w)  # [T, th, tw]
     dr = cr - tt[0]
@@ -515,15 +856,28 @@ def _check_lists(cnt, idx, feats, n_tx, tile_h, tile_w):
     return B, T, L, dev
 
 
-def _render_launch(mode, what, cnt, idx, feats, n_tx, tile_h, tile_w, background):
+def _check_init(init, B, Hp, Wp, dev):
+    if init is not None:
+        _require(init, "init", torch.float32, (B, 3, Hp, Wp), dev)
+
+
+def _counted(fn, init) -> None:
+    """One launch of fn's kernel: its count, and its count with an init canvas."""
+    fn.launches += 1
+    fn.init_launches += init is not None
+
+
+def _render_launch(mode, what, cnt, idx, feats, n_tx, tile_h, tile_w, background, init):
     """One launch of walk.cu's canvas epilogue in blend mode `mode`."""
     B, T, L, dev = _check_lists(cnt, idx, feats, n_tx, tile_h, tile_w)
     Hp, Wp = (T // n_tx) * tile_h, n_tx * tile_w
+    _check_init(init, B, Hp, Wp, dev)
     out = torch.empty((B, 3, Hp, Wp), dtype=torch.float32, device=dev)
     k = build()
     with torch.cuda.device(dev):
         rc = k.lib.ggs_walk_render(
-            _MODES[mode], cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(), out.data_ptr(),
+            _MODES[mode], cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(),
+            None if init is None else init.data_ptr(), out.data_ptr(),
             B, T, L, feats.shape[2], n_tx, tile_h, tile_w, Hp, Wp,
             *(float(c) for c in background), torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -531,118 +885,120 @@ def _render_launch(mode, what, cnt, idx, feats, n_tx, tile_h, tile_w, background
     return out
 
 
-def _fitness_launch(mode, what, cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background):
+def _fitness_launch(mode, what, cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background,
+                    init):
     """One launch of walk.cu's fitness epilogue in blend mode `mode`."""
     B, T, L, dev = _check_lists(cnt, idx, feats, n_tx, tile_h, tile_w)
     Hp, Wp = (T // n_tx) * tile_h, n_tx * tile_w
     _require(target_p, "target_p", torch.float32, (3, Hp, Wp), dev)
     _require(w_p, "w_p", torch.float32, (Hp, Wp), dev)
+    _check_init(init, B, Hp, Wp, dev)
     out = torch.empty((B, T), dtype=torch.float32, device=dev)
     k = build()
     with torch.cuda.device(dev):
         rc = k.lib.ggs_walk_fitness(
-            _MODES[mode], cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(), target_p.data_ptr(),
-            w_p.data_ptr(), out.data_ptr(),
-            B, T, L, feats.shape[2], n_tx, tile_h, tile_w, Hp, Wp,
+            _MODES[mode], cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(),
+            None if init is None else init.data_ptr(), target_p.data_ptr(), w_p.data_ptr(),
+            out.data_ptr(), B, T, L, feats.shape[2], n_tx, tile_h, tile_w, Hp, Wp,
             *(float(c) for c in background), torch.cuda.current_stream(dev).cuda_stream,
         )
     k.check(rc, what)
     return out
 
 
-def _padded_hw(idx, n_tx, tile_h, tile_w):
-    T = idx.shape[1]
-    return (T // n_tx) * tile_h, n_tx * tile_w
-
-
-def render_tiles(cnt, idx, feats, n_tx, tile_h, tile_w, background):
-    """K2: lists + table -> clamped canvas [B, 3, Hp, Wp].
+def render_tiles(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=None):
+    """K2: lists + table -> clamped canvas [B, 3, Hp, Wp], from the
+    background or from `init` [B, 3, Hp, Wp] (a chained pass).
 
     Replaces ggs_tpu/ops/render_pallas.py:_render_tile_kernel (pallas_call
     in _render_padded). Bound by the walk's f32 arithmetic, about 30
     operations and one exp per (splat, pixel) pair; the canvas stays in
     registers for the whole walk and is written once (csrc/walk.cu)."""
     if feats.device.type == "cpu":
-        Hp, Wp = _padded_hw(idx, n_tx, tile_h, tile_w)
-        return render_tiles_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, Hp, Wp)
-    out = _render_launch("exact", "render_tiles", cnt, idx, feats, n_tx, tile_h, tile_w, background)
-    render_tiles.launches += 1
+        return render_tiles_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=init)
+    out = _render_launch("exact", "render_tiles", cnt, idx, feats, n_tx, tile_h, tile_w, background,
+                         init)
+    _counted(render_tiles, init)
     return out
 
 
-render_tiles.launches = 0
+render_tiles.launches = render_tiles.init_launches = 0
 
 
-def render_tiles_fast(cnt, idx, feats, n_tx, tile_h, tile_w, background):
+def render_tiles_fast(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=None):
     """K3, canvas epilogue: lists + the fast table (_splat_feats_turbo) ->
-    clamped canvas [B, 3, Hp, Wp].
+    clamped canvas [B, 3, Hp, Wp], from the background or `init`.
 
     Replaces _render_tile_kernel with turbo=True (the walk
     _composite_tile.blend_one_turbo, render_pallas.py:1077). Bound as K2,
     with exp2f for expf and no alpha multiply (csrc/walk.cu, mode 1)."""
     if feats.device.type == "cpu":
-        Hp, Wp = _padded_hw(idx, n_tx, tile_h, tile_w)
-        return render_tiles_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, Hp, Wp,
-                                  mode="fast")
+        return render_tiles_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, mode="fast",
+                                  init=init)
     out = _render_launch("fast", "render_tiles_fast", cnt, idx, feats, n_tx, tile_h, tile_w,
-                         background)
-    render_tiles_fast.launches += 1
+                         background, init)
+    _counted(render_tiles_fast, init)
     return out
 
 
-render_tiles_fast.launches = 0
+render_tiles_fast.launches = render_tiles_fast.init_launches = 0
 
 
-def fitness_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background):
+def fitness_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background, init=None):
     """K1: lists + table + padded target [3, Hp, Wp] and weights [Hp, Wp]
-    (0 on the padding) -> partials [B, T] of sum_px w * sum_ch (C - target)^2.
+    (0 on the padding) -> partials [B, T] of sum_px w * sum_ch (C - target)^2,
+    the walk starting from the background or from `init` [B, 3, Hp, Wp].
 
     Replaces ggs_tpu/ops/render_pallas.py:_fitness_tile_kernel (pallas_call
     in _fitness_partials). Bound by the walk's f32 arithmetic; the canvas
     never leaves registers, and the per-tile sum is fixed-order (no atomics),
     so the partials are the same bits on every run (csrc/walk.cu)."""
     if feats.device.type == "cpu":
-        return fitness_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background)
+        return fitness_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background,
+                                   init=init)
     out = _fitness_launch("exact", "fitness_tiles", cnt, idx, feats, target_p, w_p, n_tx, tile_h,
-                          tile_w, background)
-    fitness_tiles.launches += 1
+                          tile_w, background, init)
+    _counted(fitness_tiles, init)
     return out
 
 
-fitness_tiles.launches = 0
+fitness_tiles.launches = fitness_tiles.init_launches = 0
 
 
-def fitness_tiles_fast(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background):
+def fitness_tiles_fast(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background,
+                       init=None):
     """K3, fitness epilogue: as K1 over the fast table (K4's ff or
     _splat_feats_turbo). Replaces _fitness_tile_kernel with turbo=True
     (render_pallas.py:1460); csrc/walk.cu, mode 1."""
     if feats.device.type == "cpu":
         return fitness_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w,
-                                   background, mode="fast")
+                                   background, mode="fast", init=init)
     out = _fitness_launch("fast", "fitness_tiles_fast", cnt, idx, feats, target_p, w_p, n_tx,
-                          tile_h, tile_w, background)
-    fitness_tiles_fast.launches += 1
+                          tile_h, tile_w, background, init)
+    _counted(fitness_tiles_fast, init)
     return out
 
 
-fitness_tiles_fast.launches = 0
+fitness_tiles_fast.launches = fitness_tiles_fast.init_launches = 0
 
 
-def fitness_tiles_bf16(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background):
-    """K1-bf16: as K1 over the exact table with the walk and canvas in bf16,
-    each operation rounded to bf16 as torch rounds it, the loss epilogue in
-    f32. Replaces _fitness_tile_kernel with compute_dtype=bfloat16
-    (render_pallas.py:1367); csrc/walk.cu, mode 2."""
+def fitness_tiles_bf16(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background,
+                       init=None):
+    """K1-bf16: as K1 over the exact table with the walk and canvas in bf16
+    (an init rounded to bf16 where it enters), each operation rounded to
+    bf16 as torch rounds it, the loss epilogue in f32. Replaces
+    _fitness_tile_kernel with compute_dtype=bfloat16 (render_pallas.py:1367);
+    csrc/walk.cu, mode 2."""
     if feats.device.type == "cpu":
         return fitness_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w,
-                                   background, mode="bf16")
+                                   background, mode="bf16", init=init)
     out = _fitness_launch("bf16", "fitness_tiles_bf16", cnt, idx, feats, target_p, w_p, n_tx,
-                          tile_h, tile_w, background)
-    fitness_tiles_bf16.launches += 1
+                          tile_h, tile_w, background, init)
+    _counted(fitness_tiles_bf16, init)
     return out
 
 
-fitness_tiles_bf16.launches = 0
+fitness_tiles_bf16.launches = fitness_tiles_bf16.init_launches = 0
 
 
 def prep_fast(g9: torch.Tensor, H: int, W: int, k_sigma: float, cull_eps=None):
@@ -677,43 +1033,86 @@ prep_fast.launches = 0
 # -------------------------------------------------------- entry points
 
 
-def _prepare(g9, H, W, k_sigma, precision, bin_capacity, tile_h, tile_w,
-             cull_eps=None, corner_cull=False, fitness_route=False):
-    """Renderer genomes -> (cnt, idx, feats, n_tx, n_ty) for one pass: the
-    tier's boxes, lists and the table its walk reads. `fitness_route`: fast
-    fitness at N <= MAX_SPLATS takes K4's table and boxes, with the corner
-    parameters sliced from K4's rows 0-4 and 8 (fitness_pallas,
-    render_pallas.py:1345-1355, 1411-1417); every other case builds the
-    boxes from preprocess (`_tighten_boxes` in the fast tier)."""
-    _check_precision(precision)
+def _genomes(g9: torch.Tensor) -> torch.Tensor:
+    """Renderer genomes [B, N, >= 9] (or [N, >= 9]) -> [B, N, 9] f32."""
     if g9.dim() == 2:
         g9 = g9[None]
-    B, N, C = g9.shape
-    if C < codec.GENE_DIM:
-        raise ValueError(f"expected >= 9 genome cols, got {C}")
-    g9 = g9[..., : codec.GENE_DIM].to(torch.float32)
-    n_tx = _cdiv(W, tile_w)
-    n_ty = _cdiv(H, tile_h)
-    cap = N if bin_capacity is None else min(bin_capacity, N)
-    corner_eps = _corner_eps(precision, corner_cull, cull_eps)
-    if fitness_route and precision == "fast" and N <= MAX_SPLATS:
-        ff, fi = prep_fast(g9.contiguous(), H, W, k_sigma, cull_eps)
-        corner = None
-        if corner_eps is not None:
-            corner = tuple(ff[:, r, :N] for r in (0, 1, 2, 3, 4, _F_A)) + (math.log2(corner_eps),)
-        idx, cnt = bin_splats_dense(
-            fi[:, 0], fi[:, 1], fi[:, 2], fi[:, 3], n_tx, n_ty, tile_h, tile_w, cap, corner=corner
-        )
-        return cnt, idx, ff, n_tx, n_ty
+    if g9.shape[2] < codec.GENE_DIM:
+        raise ValueError(f"expected >= 9 genome cols, got {g9.shape[2]}")
+    return g9[..., : codec.GENE_DIM].to(torch.float32)
+
+
+def _screen(g9, H, W, k_sigma, precision, cull_eps) -> codec.SplatScreen:
+    """Screen-space splats with the tier's boxes: the eps-tight ones under
+    "fast", the tight k-sigma box under "exact-tight", else preprocess'."""
+    _check_precision(precision)
     p = codec.preprocess(g9, H, W, k_sigma)
     if precision == "fast":
-        p = _tighten_boxes(p, k_sigma, cull_eps)
-    elif precision == "exact-tight":
-        p = codec.tighten_boxes_exact(p, k_sigma)
+        return _tighten_boxes(p, k_sigma, cull_eps)
+    if precision == "exact-tight":
+        return codec.tighten_boxes_exact(p, k_sigma)
+    return p
+
+
+def _split_screen(p: codec.SplatScreen, lo: int, hi: int) -> codec.SplatScreen:
+    return codec.SplatScreen(*(f[:, lo:hi] for f in p))
+
+
+def _chunk_bounds(N: int) -> list:
+    """Pass bounds i*N//n of the n = ceil(N / MAX_SPLATS) passes (at least one)."""
+    n = max(1, _cdiv(N, MAX_SPLATS))
+    return [i * N // n for i in range(n + 1)]
+
+
+def _pass_lists(p, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision, corner_eps):
+    """One pass's (cnt, idx, feats): its own lists with cap = min(bin_capacity,
+    its N), and the table its walk reads (`_render_padded`, :84-100)."""
+    N = p.cx.shape[1]
+    cap = N if bin_capacity is None else min(bin_capacity, N)
     corner = None if corner_eps is None else _corner_params(p, corner_eps)
-    idx, cnt = bin_splats_dense(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, tile_h, tile_w, cap, corner)
+    idx, cnt = bin_splats(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, tile_h, tile_w, cap, corner)
     feats = _splat_feats_turbo(p) if precision == "fast" else _splat_feats_fast(p)
-    return cnt, idx, feats, n_tx, n_ty
+    return cnt, idx, feats
+
+
+def _chunked_passes(p, H, W, tile_h, tile_w, background, bin_capacity, keep_last, precision,
+                    corner_eps):
+    """Splats in passes of at most MAX_SPLATS, each walked from the previous
+    pass's clamped canvas (`_chunked_passes`, render_pallas.py:141): "over"
+    composites in painter order, so the chain equals one pass while no list
+    is cut. Returns (the canvas before the last pass, the last pass's
+    splats) when keep_last (a fitness epilogue walks those), else (the
+    canvas, None). The passes walk K3's canvas under "fast", else K2's (f32
+    also under "bf16")."""
+    n_tx, n_ty = _cdiv(W, tile_w), _cdiv(H, tile_h)
+    bounds = _chunk_bounds(p.cx.shape[1])
+    walk = render_tiles_fast if precision == "fast" else render_tiles
+    canvas = None
+    for i in range(len(bounds) - 1):
+        pc = _split_screen(p, bounds[i], bounds[i + 1]) if len(bounds) > 2 else p
+        if keep_last and i == len(bounds) - 2:
+            return canvas, pc
+        cnt, idx, feats = _pass_lists(pc, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
+                                      corner_eps)
+        canvas = walk(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=canvas)
+    return canvas, None
+
+
+def _k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, cull_eps, corner_cull):
+    """Fast fitness's single-pass route (fitness_pallas, render_pallas.py:
+    1345-1355, 1411-1421): renderer genomes [B, N <= MAX_SPLATS, 9] ->
+    (cnt, idx, ff), K4's table and eps-tight boxes, binned with the corner
+    parameters sliced from K4's rows 0-4 and 8."""
+    N = g9.shape[1]
+    ff, fi = prep_fast(g9.contiguous(), H, W, k_sigma, cull_eps)
+    corner_eps = _corner_eps("fast", corner_cull, cull_eps)
+    corner = None
+    if corner_eps is not None:
+        corner = tuple(ff[:, r, :N] for r in (0, 1, 2, 3, 4, _F_A)) + (math.log2(corner_eps),)
+    cap = N if bin_capacity is None else min(bin_capacity, N)
+    idx, cnt = bin_splats(fi[:, 0], fi[:, 1], fi[:, 2], fi[:, 3], _cdiv(W, tile_w),
+                          _cdiv(H, tile_h), tile_h, tile_w, cap, corner=corner)
+    return cnt, idx, ff
 
 
 def pad_planes(target: torch.Tensor, w_eff: Optional[torch.Tensor], Hp: int, Wp: int):
@@ -743,14 +1142,14 @@ def render(
 ) -> torch.Tensor:
     """Renderer genomes [B, N, 9] (or [N, 9]) -> [B, H, W, 3] (render_pallas).
     "fast" walks K3 over the eps-tight boxes (and the corner cull when
-    corner_cull); "bf16" renders the exact walk over the reference box."""
+    corner_cull); "bf16" renders the exact walk over the reference box.
+    Above MAX_SPLATS splats the passes chain through the init canvas."""
     squeeze = g9.dim() == 2
-    cnt, idx, feats, n_tx, _ = _prepare(
-        g9, H, W, k_sigma, precision, bin_capacity, tile_h, tile_w, cull_eps, corner_cull
+    p = _screen(_genomes(g9), H, W, k_sigma, precision, cull_eps)
+    out, _ = _chunked_passes(
+        p, H, W, tile_h, tile_w, tuple(float(c) for c in background), bin_capacity, False,
+        precision, _corner_eps(precision, corner_cull, cull_eps),
     )
-    bg = tuple(float(c) for c in background)
-    walk = render_tiles_fast if precision == "fast" else render_tiles
-    out = walk(cnt, idx, feats, n_tx, tile_h, tile_w, bg)
     img = out[:, :, :H, :W].permute(0, 2, 3, 1).contiguous()
     return img[0] if squeeze else img
 
@@ -773,22 +1172,27 @@ def fitness(
     corner_cull: bool = False,
 ) -> torch.Tensor:
     """Fused render + fitness: renderer genomes [B, N, 9] -> fitness [B]
-    (fitness_pallas). Candidate canvases never reach device memory. The
-    walk: K1 for the exact tiers, K3 for "fast", K1-bf16 for "bf16"."""
-    if precision == "bf16" and g9.shape[-2] > MAX_SPLATS:
-        raise NotImplementedError(
-            f"bf16 fitness above {MAX_SPLATS} splats chains f32 passes through an init "
-            "canvas, which is not ported yet"
-        )
-    cnt, idx, feats, n_tx, n_ty = _prepare(
-        g9, H, W, k_sigma, precision, bin_capacity, tile_h, tile_w, cull_eps, corner_cull,
-        fitness_route=True,
-    )
+    (fitness_pallas). Candidate canvases never reach device memory in one
+    pass. The last (or only) pass walks K1 for the exact tiers, K3 for
+    "fast", K1-bf16 for "bf16", from the canvas of the passes before it."""
+    _check_precision(precision)
+    g9 = _genomes(g9)
+    N = g9.shape[1]
+    n_tx, n_ty = _cdiv(W, tile_w), _cdiv(H, tile_h)
+    bg = tuple(float(c) for c in background)
     w_eff, denom = fitness_mod.weff_denom(weight_mask, boost_only, boost_beta, H, W)
     target_p, w_p = pad_planes(target, w_eff, n_ty * tile_h, n_tx * tile_w)
+    if precision == "fast" and N <= MAX_SPLATS:
+        cnt, idx, feats = _k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, cull_eps,
+                                   corner_cull)
+        init = None
+    else:
+        corner_eps = _corner_eps(precision, corner_cull, cull_eps)
+        p = _screen(g9, H, W, k_sigma, precision, cull_eps)
+        init, p_last = _chunked_passes(p, H, W, tile_h, tile_w, bg, bin_capacity, True, precision,
+                                       corner_eps)
+        cnt, idx, feats = _pass_lists(p_last, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
+                                      corner_eps)
     walk = {"fast": fitness_tiles_fast, "bf16": fitness_tiles_bf16}.get(precision, fitness_tiles)
-    partials = walk(
-        cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w,
-        tuple(float(c) for c in background),
-    )
+    partials = walk(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg, init=init)
     return torch.sum(partials, dim=1) / denom  # a 0-d CPU denom is a scalar: no sync

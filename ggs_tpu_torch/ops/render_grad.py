@@ -1,7 +1,6 @@
 """Differentiable tiled renderer: the exact analytic backward of the walk.
 
-PyTorch/CUDA counterpart of `ggs_tpu/ops/render_grad.py` (exact tiers,
-single pass):
+PyTorch/CUDA counterpart of `ggs_tpu/ops/render_grad.py` (exact tiers):
 
 * `_splat_feats` (render_pallas.py:175): the raw table [B, 13, N+1] that the
   backward differentiates (unscaled sxx, sxy, syy), sentinel column N zero.
@@ -9,12 +8,18 @@ single pass):
   `csrc/walk_grad.cu`, each with a launch count and a plain version beside
   it. A CPU tensor takes the plain version; a CUDA tensor launches the
   kernel or raises.
-* `RenderDiff`: the autograd Function whose forward is K2 (`render_cuda.
-  render_tiles` on the folded table, as `fwd_only` reuses
-  `_render_tile_kernel`) and whose backward is K6.
+* `RenderDiff`: the autograd Function of one pass, whose forward is K2
+  (`render_cuda.render_tiles` on the folded table, as `fwd_only` reuses
+  `_render_tile_kernel`) and whose backward is K6. A chained pass takes the
+  previous pass's canvas as a differentiable input and K6 returns its
+  cotangent d(init) = g * T_total.
 * `render_diff` (`render_pallas_diff`) and `fused_value_and_grad`: the
-  entry points. Gradients chain through `codec.preprocess` and
-  `genome_to_renderer` by ordinary autograd, as `jax.vjp(chain)` does.
+  entry points. `render_diff` chains passes of at most
+  `render_cuda.MAX_SPLATS` splats, each binned with its own capacity;
+  `fused_value_and_grad` (K7, no init canvas) takes one pass and refuses
+  more splats, as in the JAX package. Gradients chain through
+  `codec.preprocess` and `genome_to_renderer` by ordinary autograd, as
+  `jax.vjp(chain)` does.
 
 Both walks use the two-level replay of `_bwd_tile_kernel` (boundary canvas
 every CHUNK splats, then each chunk replayed and walked backward): there is
@@ -25,9 +30,11 @@ need no kernel of their own: with `cull_eps` the boxes are the eps-tight
 ones (`render_cuda._tighten_boxes`) and with `corner_cull` the lists drop
 the corner-culled pairs, and the exact walks (K2', K6, K7) run over them,
 giving the exact gradients of the culled render (render_grad.py:687-701,
-791-814). Not ported yet: the init canvas that chains passes above 8000
-splats (`has_init`) and row slabs (`y_origin`, `out_rows`); each raises
-NotImplementedError.
+791-814). Under the corner cull the lists, and so these gradients, depend
+on the tile shape: the port's walks use 16x128 tiles where JAX picks
+tile_h by its VMEM budget (render_grad.py:670-678), and from 256 tiles the
+cull is band-level (render_cuda.scatter_binning). Not ported yet: row
+slabs (`y_origin`, `out_rows`), which raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -37,11 +44,14 @@ from typing import Optional, Sequence
 import torch
 
 from . import codec, fitness as fitness_mod, render_cuda
-from .render_cuda import MAX_SPLATS, _NFEAT, _cdiv, _require, bin_splats_dense, pad_planes
+from .render_cuda import _NFEAT, _cdiv, _require, pad_planes
 
 NGRAD = 9  # dcx, dcy, dsxx, dsxy, dsyy, drc, dgc, dbc, da
 CHUNK = 32  # the plain walks' splats per boundary canvas, as walk_grad.cu's kChunk
 GRAD_TILE_H, GRAD_TILE_W = 16, 128  # the kernels' tile (walk_grad.cu kTileH, kTileW)
+# the gradient walks' pad_slots in the scatter binning's dense-route rule
+# (render_grad.py:346, 540; the forward walks pass render_cuda.SCATTER_PAD)
+GRAD_SCATTER_PAD = 40
 
 
 def _splat_feats(p: codec.SplatScreen) -> torch.Tensor:
@@ -61,13 +71,15 @@ def _splat_feats(p: codec.SplatScreen) -> torch.Tensor:
 # ------------------------------------------------------ plain versions
 
 
-def _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head):
+def _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head, init=None):
     """The backward walk in plain PyTorch over the same lists, slot k of
-    every (image, tile) at once, with the kernels' two-level replay.
+    every (image, tile) at once, with the kernels' two-level replay, from
+    the background or the init canvas [B, 3, Hp, Wp].
 
     head(canvas planes) -> (g0, g1, g2, num) gives the image cotangent
     planes [B, T, th, tw] and K7's partials (None for K6). Returns
-    (grads [B, 9, N], num)."""
+    (grads [B, 9, N], num, dinit [B, 3, Hp, Wp] = g * T_total, or None
+    without init)."""
     B, T, _ = idx.shape
     N = feats.shape[2] - 1
     dev = feats.device
@@ -99,10 +111,14 @@ def _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head):
         return [omf * ch + f * col for ch, col in zip(canvas, prm[5:8])]
 
     # pass A: boundary canvases
-    canvas = [
-        torch.full((B, T, tile_h, tile_w), float(c), dtype=torch.float32, device=dev)
-        for c in background
-    ]
+    if init is None:
+        canvas = [
+            torch.full((B, T, tile_h, tile_w), float(c), dtype=torch.float32, device=dev)
+            for c in background
+        ]
+    else:
+        it = render_cuda._tiles_of(init, n_tx, tile_h, tile_w)  # [B, 3, T, th, tw]
+        canvas = [it[:, i] for i in range(3)]
     chunks = [range(c, min(c + CHUNK, kmax)) for c in range(0, kmax, CHUNK)]
     bounds = []
     for ks in chunks:
@@ -145,17 +161,21 @@ def _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head):
             # a tile lists a splat once, so each (image, tile, splat) is set once
             part.scatter_(3, s[:, :, None, None].expand(B, T, NGRAD, 1), d[..., None])
             Tr = Tr * (1.0 - f)
-    return part.sum(dim=1)[:, :, :N], num
+    dinit = None
+    if init is not None:  # Tr is now the transmittance through the whole list
+        dinit = render_cuda._untile(torch.stack([g0 * Tr, g1 * Tr, g2 * Tr], 1), n_tx)
+    return part.sum(dim=1)[:, :, :N], num, dinit
 
 
-def bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background):
-    """Plain version of K6: image cotangent [B, 3, Hp, Wp] -> grads [B, 9, N]."""
+def bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background, init=None):
+    """Plain version of K6: image cotangent [B, 3, Hp, Wp] -> (grads
+    [B, 9, N], dinit [B, 3, Hp, Wp] or None without init)."""
     gt = render_cuda._tiles_of(g_img, n_tx, tile_h, tile_w)  # [B, 3, T, th, tw]
-    grads, _ = _grad_walk_plain(
+    grads, _, dinit = _grad_walk_plain(
         cnt, idx, feats, n_tx, tile_h, tile_w, background,
-        lambda canvas: (gt[:, 0], gt[:, 1], gt[:, 2], None),
+        lambda canvas: (gt[:, 0], gt[:, 1], gt[:, 2], None), init,
     )
-    return grads
+    return grads, dinit
 
 
 def lossgrad_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background, scale):
@@ -170,7 +190,7 @@ def lossgrad_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, b
         sw = scale * wt
         return sw * dr, sw * dg, sw * db, num
 
-    grads, num = _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head)
+    grads, num, _ = _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head)
     return num, grads
 
 
@@ -189,7 +209,7 @@ def _resident_blocks(fused: bool, device_index: int) -> int:
 
 
 def _launch_grad(fused, cnt, idx, feats, n_tx, tile_h, tile_w, background,
-                 gimg=None, target_p=None, w_p=None, scale=0.0):
+                 gimg=None, target_p=None, w_p=None, scale=0.0, init=None):
     B, T, L, dev = render_cuda._check_lists(cnt, idx, feats, n_tx, tile_h, tile_w)
     k = render_cuda.build()
     if (tile_h, tile_w) != (k.grad.ggs_grad_tile_h(), k.grad.ggs_grad_tile_w()):
@@ -205,6 +225,10 @@ def _launch_grad(fused, cnt, idx, feats, n_tx, tile_h, tile_w, background,
         _require(w_p, "w_p", torch.float32, (Hp, Wp), dev)
     else:
         _require(gimg, "g_img", torch.float32, (B, 3, Hp, Wp), dev)
+    dinit = None
+    if init is not None:
+        _require(init, "init", torch.float32, (B, 3, Hp, Wp), dev)
+        dinit = torch.empty((B, 3, Hp, Wp), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         slots = min(_resident_blocks(bool(fused), dev.index), B * T)
         # scratch per resident block: the boundary canvases of a list as
@@ -223,32 +247,35 @@ def _launch_grad(fused, cnt, idx, feats, n_tx, tile_h, tile_w, background,
             return None if x is None else x.data_ptr()
 
         rc = k.grad.ggs_grad_walk(
-            int(fused), cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(), ptr(gimg),
-            ptr(target_p), ptr(w_p), float(scale), ptr(num), gpart.data_ptr(),
+            int(fused), cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(), ptr(gimg), ptr(init),
+            ptr(dinit), ptr(target_p), ptr(w_p), float(scale), ptr(num), gpart.data_ptr(),
             grads.data_ptr(), scratch.data_ptr(), slots, max_chunks, B, T, L, N1, N, n_tx,
             Hp, Wp, *(float(c) for c in background),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     k.check(rc, "lossgrad_tiles" if fused else "bwd_tiles")
-    return num, grads
+    return num, grads, dinit
 
 
-def bwd_tiles(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background):
-    """K6: lists + raw table + image cotangent [B, 3, Hp, Wp] -> grads
-    [B, 9, N] of sum_px g . canvas, straight through the final clamp.
+def bwd_tiles(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background, init=None):
+    """K6: lists + raw table + image cotangent [B, 3, Hp, Wp] -> (grads
+    [B, 9, N] of sum_px g . canvas, straight through the final clamp; dinit
+    [B, 3, Hp, Wp] = g * T_total, the cotangent of the init canvas a chained
+    pass starts from, or None without init).
 
     Replaces ggs_tpu/ops/render_grad.py:_bwd_tile_kernel(fused=False)
     (pallas_call in _make_screen_render.bwd_grads). Bound by the
     arithmetic of its three walks and the prefix canvases' round trip
     through device memory (csrc/walk_grad.cu)."""
     if feats.device.type == "cpu":
-        return bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background)
-    _, grads = _launch_grad(False, cnt, idx, feats, n_tx, tile_h, tile_w, background, gimg=g_img)
-    bwd_tiles.launches += 1
-    return grads
+        return bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background, init)
+    _, grads, dinit = _launch_grad(False, cnt, idx, feats, n_tx, tile_h, tile_w, background,
+                                   gimg=g_img, init=init)
+    render_cuda._counted(bwd_tiles, init)
+    return grads, dinit
 
 
-bwd_tiles.launches = 0
+bwd_tiles.launches = bwd_tiles.init_launches = 0
 
 
 def lossgrad_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background, scale):
@@ -264,7 +291,7 @@ def lossgrad_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, backgro
         return lossgrad_tiles_plain(
             cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background, scale
         )
-    num, grads = _launch_grad(
+    num, grads, _ = _launch_grad(
         True, cnt, idx, feats, n_tx, tile_h, tile_w, background,
         target_p=target_p, w_p=w_p, scale=scale,
     )
@@ -279,27 +306,30 @@ lossgrad_tiles.launches = 0
 
 
 class RenderDiff(torch.autograd.Function):
-    """SplatScreen fields -> padded canvas [B, 3, Hp, Wp]: forward K2 on the
-    folded table, backward K6 on the raw table and the same lists."""
+    """(init canvas or None, SplatScreen fields) -> padded canvas
+    [B, 3, Hp, Wp] of one pass: forward K2 on the folded table from the
+    background or init, backward K6 on the raw table and the same lists,
+    with d(init) = g * T_total for a chained pass (screen_render with
+    has_init, render_grad.py:456-475)."""
 
     @staticmethod
-    def forward(ctx, cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1, geom):
+    def forward(ctx, init, cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1, geom):
         p = codec.SplatScreen(cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1)
         n_tx, _, tile_h, tile_w, _, bg, _ = geom
         idx, cnt = _bin(p, geom)
         canvas = render_cuda.render_tiles(
-            cnt, idx, render_cuda._splat_feats_fast(p), n_tx, tile_h, tile_w, bg
+            cnt, idx, render_cuda._splat_feats_fast(p), n_tx, tile_h, tile_w, bg, init=init
         )
-        ctx.save_for_backward(_splat_feats(p), cnt, idx)
+        ctx.save_for_backward(_splat_feats(p), cnt, idx, init)
         ctx.geom = geom
         return canvas
 
     @staticmethod
     def backward(ctx, g_img):
-        feats, cnt, idx = ctx.saved_tensors
+        feats, cnt, idx, init = ctx.saved_tensors
         n_tx, _, tile_h, tile_w, _, bg, _ = ctx.geom
-        g = bwd_tiles(cnt, idx, feats, g_img.contiguous(), n_tx, tile_h, tile_w, bg)
-        return tuple(g[:, i] for i in range(NGRAD)) + (None,) * 5
+        g, dinit = bwd_tiles(cnt, idx, feats, g_img.contiguous(), n_tx, tile_h, tile_w, bg, init)
+        return (dinit,) + tuple(g[:, i] for i in range(NGRAD)) + (None,) * 5
 
 
 class _FusedNum(torch.autograd.Function):
@@ -326,13 +356,6 @@ class _FusedNum(torch.autograd.Function):
         return tuple(g[:, i] for i in range(NGRAD)) + (None,) * 7
 
 
-def _check_single_pass(N: int) -> None:
-    if N > MAX_SPLATS:
-        raise NotImplementedError(
-            f"N={N} > {MAX_SPLATS}: chaining passes through an init canvas is not ported yet"
-        )
-
-
 def _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull):
     """The walks' geometry (n_tx, n_ty, tile_h, tile_w, cap, background,
     corner_eps): the corner cull runs at cull_eps, and only with it."""
@@ -346,7 +369,8 @@ def _bin(p: codec.SplatScreen, geom):
     """The walks' lists of p's boxes, corner-culled when geom says so."""
     n_tx, n_ty, tile_h, tile_w, cap, _, corner_eps = geom
     corner = None if corner_eps is None else render_cuda._corner_params(p, corner_eps)
-    return bin_splats_dense(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, tile_h, tile_w, cap, corner)
+    return render_cuda.bin_splats(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, tile_h, tile_w, cap, corner,
+                                  pad_slots=GRAD_SCATTER_PAD)
 
 
 def _screen_params(g9, H, W, k_sigma, box, cull_eps=None):
@@ -374,7 +398,9 @@ def render_diff(
     box: str = "reference",  # "reference" | "tight" (exact-tight tier)
 ) -> torch.Tensor:
     """Differentiable render: renderer genomes [B, N, 9] (or [N, 9]) ->
-    [B, H, W, 3] (render_pallas_diff, one pass). Forward K2, backward K6.
+    [B, H, W, 3] (render_pallas_diff). Forward K2, backward K6, in passes
+    of at most render_cuda.MAX_SPLATS splats chained through the canvas,
+    each binned with cap = min(bin_capacity, its N) (render_grad.py:808-826).
     cull_eps: the fast tier's eps-tight boxes; corner_cull (with cull_eps):
     its corner cull at binning. The gradients are the exact gradients of
     that culled render; a splat with alpha <= eps gets exactly zero."""
@@ -383,11 +409,13 @@ def render_diff(
     squeeze = g9.dim() == 2
     if squeeze:
         g9 = g9[None]
-    B, N, _ = g9.shape
-    _check_single_pass(N)
     p = _screen_params(g9, H, W, k_sigma, box, cull_eps)
-    geom = _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull)
-    canvas = RenderDiff.apply(*p, geom)
+    bounds = render_cuda._chunk_bounds(g9.shape[1])
+    canvas = None
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        pc = render_cuda._split_screen(p, lo, hi) if len(bounds) > 2 else p
+        geom = _geometry(H, W, hi - lo, bin_capacity, background, cull_eps, corner_cull)
+        canvas = RenderDiff.apply(canvas, *pc, geom)
     img = canvas[:, :, :H, :W].permute(0, 2, 3, 1)
     return img[0] if squeeze else img
 
@@ -409,14 +437,20 @@ def fused_value_and_grad(
     box: str = "reference",  # "reference" | "tight" (exact-tight tier)
 ):
     """((loss, fits), grads) for loss = mean(fitness(render(g), target)),
-    one K7 launch for the whole batch (fused_value_and_grad, :603).
+    one K7 launch for the whole batch (fused_value_and_grad, :603). One
+    pass: above render_cuda.MAX_SPLATS splats it raises ValueError, as in
+    the JAX package (gradient.make_value_and_grad then takes render_diff).
 
     g_axes [B, N, 9] axes-angle genomes; target [H, W, 3]; weight_mask
     [H, W] or None (the scoring modes of fitness.weff_denom). The grads
     [B, N, 9] chain through the codec by autograd. cull_eps and
     corner_cull as in render_diff: K7 walks the culled lists."""
     B, N = int(g_axes.shape[0]), int(g_axes.shape[1])
-    _check_single_pass(N)
+    if N > render_cuda.MAX_SPLATS:
+        raise ValueError(
+            f"fused_value_and_grad takes N <= {render_cuda.MAX_SPLATS} (got {N}); "
+            "render_diff chains passes"
+        )
     geom = _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull)
     n_tx, n_ty = geom[:2]
     w_eff, denom = fitness_mod.weff_denom(weight_mask, boost_only, boost_beta, H, W)

@@ -1,10 +1,12 @@
 """The port's CUDA kernels (csrc/walk.cu: K1 fitness_tiles, K2 render_tiles,
 K3 fitness_tiles_fast/render_tiles_fast, K4 prep_fast, K1-bf16
-fitness_tiles_bf16; csrc/walk_grad.cu: K6 bwd_tiles, K7 lossgrad_tiles)
-against their plain PyTorch versions on the card, at the GA main path's
-shapes (512x512, N=512, B=32, 64x128 tiles), on an odd canvas, with
-bin_capacity truncating the lists, and at the gradient paths' shapes (16x128
-tiles); plus the wrappers' argument checks.
+fitness_tiles_bf16; csrc/walk_grad.cu: K6 bwd_tiles, K7 lossgrad_tiles;
+csrc/scatter.cu: K5 bin_splats_scatter) against their plain PyTorch versions
+on the card, at the GA main path's shapes (512x512, N=512, B=32, 64x128
+tiles), on an odd canvas, with bin_capacity truncating the lists, at the
+gradient paths' shapes (16x128 tiles), with an init canvas (a chained
+pass), and K5 at 256 tiles and more with and without the corner cull and
+with its overflow fallback; plus the wrappers' argument checks.
 
 Needs an NVIDIA card and nvcc: marked `cuda`, skipped elsewhere. Run on
 the card with `python -m pytest tests/ -m cuda -q`. Tolerances: canvas
@@ -15,9 +17,12 @@ over every image and splat) within 1e-5 of that row's largest plain
 magnitude (sums over a tile's pixels in another order); K4's table within
 2 ulp with equal boxes and -inf entries; K1-bf16's fitness rtol 1e-5 (bf16
 roundings of equal inputs; chip_smoke.py measured 2.2e-7 on an H100), and more than 1e-4
-from K1's on the same lists (the bf16 roundings show)."""
+from K1's on the same lists (the bf16 roundings show); K5's lists, counts
+and largest true count equal to its plain version's."""
 import pytest
 import torch
+
+from torch_inputs import pass_lists
 
 pytestmark = pytest.mark.cuda
 
@@ -47,7 +52,7 @@ def _case(dev, B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, c
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device=dev))
-    cnt, idx, feats, n_tx, n_ty = render_cuda._prepare(
+    cnt, idx, feats, n_tx, n_ty = pass_lists(
         g9, H, W, 3.0, precision, cap, tile_h, tile_w, cull_eps, True, fitness_route=True
     )
     tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
@@ -78,7 +83,7 @@ def test_kernels_match_plain(dev, B, N, H, W, precision, cap):
         assert int(cnt.max()) == cap  # lists were truncated
     bg = (1.0, 1.0, 1.0)
     k2 = rc.render_tiles(cnt, idx, feats, n_tx, 64, 128, bg)
-    p2 = rc.render_tiles_plain(cnt, idx, feats, n_tx, 64, 128, bg, *k2.shape[2:])
+    p2 = rc.render_tiles_plain(cnt, idx, feats, n_tx, 64, 128, bg)
     torch.testing.assert_close(k2, p2, atol=2e-6, rtol=0)
     k1 = rc.fitness_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg)
     p1 = rc.fitness_tiles_plain(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg)
@@ -105,7 +110,7 @@ def test_fast_kernels_match_plain(dev, B, N, H, W, eps):
     bg = (1.0, 1.0, 1.0)
     counts = (rc.fitness_tiles_fast.launches, rc.render_tiles_fast.launches, rc.prep_fast.launches)
     k3c = rc.render_tiles_fast(cnt, idx, ff, n_tx, 64, 128, bg)
-    p3c = rc.render_tiles_plain(cnt, idx, ff, n_tx, 64, 128, bg, *k3c.shape[2:], mode="fast")
+    p3c = rc.render_tiles_plain(cnt, idx, ff, n_tx, 64, 128, bg, mode="fast")
     torch.testing.assert_close(k3c, p3c, atol=2e-6, rtol=0)
     k3 = rc.fitness_tiles_fast(cnt, idx, ff, tgt_p, w_p, n_tx, 64, 128, bg)
     p3 = rc.fitness_tiles_plain(cnt, idx, ff, tgt_p, w_p, n_tx, 64, 128, bg, mode="fast")
@@ -149,7 +154,7 @@ def test_launch_counts_and_small_tiles(dev):
     k1 = rc.fitness_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, 16, 128, bg)
     assert (rc.fitness_tiles.launches, rc.render_tiles.launches) == (n1 + 1, n2 + 1)
     torch.testing.assert_close(
-        k2, rc.render_tiles_plain(cnt, idx, feats, n_tx, 16, 128, bg, *k2.shape[2:]),
+        k2, rc.render_tiles_plain(cnt, idx, feats, n_tx, 16, 128, bg),
         atol=2e-6, rtol=0,
     )
     torch.testing.assert_close(
@@ -193,7 +198,7 @@ def test_grad_kernels_match_plain(dev, B, N, H, W):
     th, tw = rg.GRAD_TILE_H, rg.GRAD_TILE_W
     gen = torch.Generator(device=dev).manual_seed(0)
     g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device=dev))
-    cnt, idx, _, n_tx, n_ty = rc._prepare(g9, H, W, 3.0, "exact-tight", None, th, tw)
+    cnt, idx, _, n_tx, n_ty = pass_lists(g9, H, W, 3.0, "exact-tight", None, th, tw)
     p = codec.tighten_boxes_exact(codec.preprocess(g9, H, W, 3.0), 3.0)
     feats = rg._splat_feats(p)
     tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
@@ -210,12 +215,13 @@ def test_grad_kernels_match_plain(dev, B, N, H, W):
 
     canvas = rc.render_tiles(cnt, idx, rc._splat_feats_fast(p), n_tx, th, tw, bg)
     g_img = (2.0 * w_p * (canvas.clamp(0.0, 1.0) - tgt_p[None])).contiguous()
-    g6 = rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg)
-    g6_p = rg.bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, th, tw, bg)
+    g6, dinit = rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg)
+    g6_p, _ = rg.bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, th, tw, bg)
+    assert dinit is None
     assert float(_row_err(g6, g6_p).max()) <= 1e-5
     assert float(_row_err(g6, g7).max()) <= 2e-6
     # no atomics: the same bits on a second launch
-    assert torch.equal(g6, rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg))
+    assert torch.equal(g6, rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg)[0])
     num2, g7b = rg.lossgrad_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 2.0)
     assert torch.equal(num, num2) and torch.equal(g7, g7b)
     assert (rg.bwd_tiles.launches, rg.lossgrad_tiles.launches) == (n6 + 2, n7 + 2)
@@ -255,3 +261,128 @@ def test_grad_wrappers_reject_bad_arguments(dev):
         rg.bwd_tiles(cnt, idx, feats, g_img.double(), n_tx, 16, 128, bg)
     with pytest.raises(ValueError):
         rg.lossgrad_tiles(cnt, idx, feats, tgt_p[:, :-1], w_p, n_tx, 16, 128, bg, 2.0)
+
+
+def _init(dev, B, Hp, Wp, seed=5):
+    """A canvas a chained pass starts from, inside [0, 1]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand((B, 3, Hp, Wp), generator=gen, device=dev) * 0.9 + 0.05
+
+
+@pytest.mark.parametrize("precision", ["exact-tight", "fast", "bf16"])
+def test_walks_with_init_match_plain(dev, precision):
+    """K1/K2, K3 (both epilogues) and K1-bf16 from an init canvas against
+    their plain versions from the same canvas, the same bits twice, and one
+    init launch counted per launch."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    cnt, idx, feats, tgt_p, w_p, n_tx = _case(dev, 8, 256, 200, 328, precision, seed=6,
+                                              cull_eps=8e-2)
+    bg = (1.0, 1.0, 1.0)
+    init = _init(dev, 8, *w_p.shape)
+    mode = {"exact-tight": "exact"}.get(precision, precision)
+    fit = {"exact": rc.fitness_tiles, "fast": rc.fitness_tiles_fast,
+           "bf16": rc.fitness_tiles_bf16}[mode]
+    n = fit.init_launches
+    k = fit(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg, init=init)
+    p = rc.fitness_tiles_plain(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg, mode=mode,
+                               init=init)
+    torch.testing.assert_close(k.sum(1), p.sum(1), rtol=1e-5 if mode == "bf16" else 5e-5, atol=0)
+    assert torch.equal(k, fit(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg, init=init))
+    assert fit.init_launches == n + 2
+    # the init is read: without it the fitness changes
+    assert not torch.equal(k, fit(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg))
+    if mode == "bf16":
+        return
+    canvas = rc.render_tiles_fast if mode == "fast" else rc.render_tiles
+    kc = canvas(cnt, idx, feats, n_tx, 64, 128, bg, init=init)
+    pc = rc.render_tiles_plain(cnt, idx, feats, n_tx, 64, 128, bg, mode=mode, init=init)
+    torch.testing.assert_close(kc, pc, atol=2e-6, rtol=0)
+
+
+def test_grad_kernel_with_init_matches_plain(dev):
+    """K6 from an init canvas: grads per row within 1e-5 of the plain
+    version's, d(init) = g * T_total within 1e-5 of its largest value."""
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec, render_cuda as rc, render_grad as rg
+
+    B, N, H, W = 2, 600, 256, 256
+    th, tw = rg.GRAD_TILE_H, rg.GRAD_TILE_W
+    g9 = codec.genome_to_renderer(
+        genome.new_population(torch.Generator(device=dev).manual_seed(7), B, N, H, W, device=dev))
+    cnt, idx, _, n_tx, n_ty = pass_lists(g9, H, W, 3.0, "exact-tight", None, th, tw)
+    p = codec.tighten_boxes_exact(codec.preprocess(g9, H, W, 3.0), 3.0)
+    feats = rg._splat_feats(p)
+    init = _init(dev, B, n_ty * th, n_tx * tw)
+    g_img = (_init(dev, B, n_ty * th, n_tx * tw, seed=8) - 0.5).contiguous()
+    bg = (1.0, 1.0, 1.0)
+    g6, d6 = rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg, init=init)
+    g6_p, d6_p = rg.bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, th, tw, bg, init=init)
+    assert float(_row_err(g6, g6_p).max()) <= 1e-5
+    assert float((d6 - d6_p).abs().max() / d6_p.abs().max()) <= 1e-5
+    g6b, d6b = rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg, init=init)
+    assert torch.equal(g6, g6b) and torch.equal(d6, d6b)
+
+
+def _scatter_case(dev, B, N, H, W, tile_h, precision, eps=None, coincident=0, seed=9):
+    """K5's arguments at this shape: the tier's boxes (and the corner
+    parameters under "fast"), `coincident` splats of candidate 0 on one spot
+    (sigma 4 px at the canvas centre). At 4096 wide the splats are the
+    canvas-4k configuration's (min_scale 1, max_scale 0.02)."""
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec, render_cuda as rc
+
+    scales = (1.0, 0.02) if W >= 4096 else (3.0, 0.1)
+    g = genome.new_population(torch.Generator(device=dev).manual_seed(seed), B, N, H, W, *scales,
+                              device=dev)
+    if coincident:
+        g[0, :coincident] = torch.tensor([0.5, 0.5, 1.4, 1.4, 0.0, 128.0, 128.0, 128.0, 200.0],
+                                         device=dev)
+    p = rc._screen(codec.genome_to_renderer(g), H, W, 3.0, precision, eps)
+    corner = rc._corner_params(p, eps) if eps is not None else None
+    n_tx, n_ty = -(-W // 128), -(-H // tile_h)
+    return rc.scatter_args(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, tile_h, 128, N, corner=corner), p
+
+
+@pytest.mark.parametrize(
+    "B,N,H,W,tile_h,precision,eps,coincident",
+    [
+        (4, 2000, 2048, 2048, 64, "exact-tight", None, 0),  # 512 tiles, no cull
+        (4, 2000, 2048, 2048, 64, "fast", 2e-3, 0),  # the band cull, no overflow
+        (1, 3000, 4096, 4096, 64, "fast", 8e-2, 0),  # 2,048 tiles
+        (1, 2000, 1024, 1024, 16, "exact-tight", None, 0),  # the gradient tile
+        (1, 1000, 4096, 4096, 64, "fast", 8e-2, 300),  # cap_s = 175 overflows
+    ],
+)
+def test_scatter_kernel_matches_plain(dev, B, N, H, W, tile_h, precision, eps, coincident):
+    """K5 against bin_splats_scatter_plain: idx over its whole width, cnt and
+    the largest true count equal; without the cull also equal to
+    bin_splats_dense; the same bits twice; one count per call."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    args, p = _scatter_case(dev, B, N, H, W, tile_h, precision, eps, coincident)
+    n = rc.bin_splats_scatter.launches
+    idx, cnt, tmax = rc.bin_splats_scatter(**args)
+    idx_p, cnt_p, tmax_p = rc.bin_splats_scatter_plain(**args)
+    assert torch.equal(idx, idx_p) and torch.equal(cnt, cnt_p) and int(tmax) == int(tmax_p)
+    assert rc.bin_splats_scatter.launches == n + 1
+    again = rc.bin_splats_scatter(**args)
+    assert torch.equal(again[0], idx) and torch.equal(again[1], cnt)
+    overflow = args["fallback"] is not None and int(tmax) > args["cap_s"]
+    assert overflow == bool(coincident)
+    if eps is None:
+        di, dc = rc.bin_splats_dense(p.x0, p.x1, p.y0, p.y1, args["n_tx"], args["n_ty"], tile_h,
+                                     128, N)
+        assert torch.equal(idx, di) and torch.equal(cnt, dc)
+
+
+def test_scatter_wrapper_rejects_bad_arguments(dev):
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    args, _ = _scatter_case(dev, 1, 200, 1024, 1024, 16, "fast", 8e-2)
+    with pytest.raises(TypeError):
+        rc.bin_splats_scatter(**dict(args, rng=args["rng"].long()))
+    with pytest.raises(ValueError):
+        rc.bin_splats_scatter(**dict(args, gl=None))  # band ranges need the band lists
+    with pytest.raises(ValueError):
+        rc.bin_splats_scatter(**dict(args, cxr=args["cxr"][:, :, :, :-1]))

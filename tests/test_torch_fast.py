@@ -40,7 +40,7 @@ from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render as trender
 from ggs_tpu_torch.ops import render_cuda as rc
-from torch_inputs import axes_genomes, image, weights
+from torch_inputs import axes_genomes, image, pass_lists, weights
 
 H, W, TH, TW = 40, 200, 16, 128
 CANVAS_ATOL = 4e-6
@@ -120,7 +120,7 @@ def test_prep_fast_matches_prep_turbo(Hc, Wc, seed, eps):
     cj = tuple(jnp.asarray(ffj[:, r, :24]) for r in (0, 1, 2, 3, 4, 8)) + (np.log2(e),)
     ij, cntj = rp._bin_splats_dense(*(jnp.asarray(fij[:, i]) for i in range(4)), n_tx, n_ty, TH,
                                     TW, 24, corner=cj)
-    cnt, idx, ff, _, _ = rc._prepare(torch.from_numpy(g9), Hc, Wc, 3.0, "fast", None, TH, TW,
+    cnt, idx, ff, _, _ = pass_lists(torch.from_numpy(g9), Hc, Wc, 3.0, "fast", None, TH, TW,
                                      eps, True, fitness_route=True)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ij))
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(cntj))
@@ -280,7 +280,7 @@ def test_alpha_zero_and_sub_eps_splats():
     # sub-eps splats: in no list of the render route nor of K4's
     g9 = torch.from_numpy(_g9(6, B=2, N=12, alphas=EDGE_ALPHAS))
     for route in (False, True):
-        cnt, idx, _, _, _ = rc._prepare(g9, H, W, 3.0, "fast", None, TH, TW, 8e-2, True,
+        cnt, idx, _, _, _ = pass_lists(g9, H, W, 3.0, "fast", None, TH, TW, 8e-2, True,
                                         fitness_route=route)
         listed = idx[0][torch.arange(12)[None, :] < cnt[0][:, None]]
         assert not {0, 1, 2, 3} & set(listed.tolist())
@@ -315,7 +315,7 @@ def test_fast_epilogues_agree_and_cpu_takes_plain():
     g9 = torch.from_numpy(_g9(4, B=2, N=20))
     counters = (rc.fitness_tiles_fast, rc.render_tiles_fast, rc.fitness_tiles_bf16, rc.prep_fast)
     before = [fn.launches for fn in counters]
-    cnt, idx, ff, n_tx, n_ty = rc._prepare(g9, H, W, 3.0, "fast", None, TH, TW, None, True,
+    cnt, idx, ff, n_tx, n_ty = pass_lists(g9, H, W, 3.0, "fast", None, TH, TW, None, True,
                                            fitness_route=True)
     Hp, Wp = n_ty * TH, n_tx * TW
     tgt_p, w_p = rc.pad_planes(torch.from_numpy(image(4, H, W)), torch.from_numpy(weights(4, H, W)),
@@ -329,7 +329,7 @@ def test_fast_epilogues_agree_and_cpu_takes_plain():
     canvas = rc.render_tiles_fast(cnt, idx, ff, n_tx, TH, TW, bg)
     partials = rc.fitness_tiles_fast(cnt, idx, ff, tgt_p, w_p, n_tx, TH, TW, bg)
     np.testing.assert_allclose(partials.numpy(), per_tile(canvas).numpy(), rtol=1e-5)
-    cnt, idx, feats, _, _ = rc._prepare(g9, H, W, 3.0, "bf16", None, TH, TW)
+    cnt, idx, feats, _, _ = pass_lists(g9, H, W, 3.0, "bf16", None, TH, TW)
     canvas = torch.stack(rc._walk_plain(cnt, idx, feats, n_tx, TH, TW, bg, "bf16"), 1)
     canvas = canvas.reshape(2, 3, n_ty, n_tx, TH, TW).transpose(3, 4).reshape(2, 3, Hp, Wp)
     partials = rc.fitness_tiles_bf16(cnt, idx, feats, tgt_p, w_p, n_tx, TH, TW, bg)

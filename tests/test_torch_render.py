@@ -24,7 +24,7 @@ from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render as trender
 from ggs_tpu_torch.ops import render_cuda as rc
-from torch_inputs import axes_genomes, image, weights
+from torch_inputs import axes_genomes, image, pass_lists, weights
 
 H, W, TH, TW = 40, 200, 16, 128
 CANVAS_ATOL = 4e-6
@@ -130,7 +130,7 @@ def test_epilogues_agree_and_cpu_takes_plain():
     """K1's partials equal the weighted SSE of K2's canvas over each tile;
     on CPU tensors neither wrapper counts a launch."""
     g9 = torch.from_numpy(_g9(4, B=2, N=20))
-    cnt, idx, feats, n_tx, n_ty = rc._prepare(g9, H, W, 3.0, "exact-tight", None, TH, TW)
+    cnt, idx, feats, n_tx, n_ty = pass_lists(g9, H, W, 3.0, "exact-tight", None, TH, TW)
     Hp, Wp = n_ty * TH, n_tx * TW
     tgt = torch.zeros((3, Hp, Wp))
     tgt[:, :H, :W] = torch.from_numpy(image(4, H, W)).permute(2, 0, 1)

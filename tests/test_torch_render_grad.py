@@ -38,7 +38,7 @@ from ggs_tpu_torch.ops import fitness as tfitness
 from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
-from torch_inputs import axes_genomes, image, weights
+from torch_inputs import axes_genomes, image, pass_lists, weights
 
 H, W = 48, 160
 CANVAS_ATOL = 4e-6
@@ -240,7 +240,7 @@ def test_plain_walks_agree_and_cpu_takes_plain():
     wrapper counts a launch."""
     g9 = tcodec.genome_to_renderer(torch.from_numpy(axes_genomes(5, 2, 40, H, W)))
     th, tw = trg.GRAD_TILE_H, trg.GRAD_TILE_W
-    cnt, idx, feats_fast, n_tx, n_ty = rc._prepare(g9, H, W, 3.0, "exact-tight", None, th, tw)
+    cnt, idx, feats_fast, n_tx, n_ty = pass_lists(g9, H, W, 3.0, "exact-tight", None, th, tw)
     p = tcodec.tighten_boxes_exact(tcodec.preprocess(g9, H, W, 3.0), 3.0)
     feats = trg._splat_feats(p)
     assert feats.shape == (2, 13, 41) and bool((feats[:, :, 40] == 0).all())
@@ -253,14 +253,15 @@ def test_plain_walks_agree_and_cpu_takes_plain():
     np.testing.assert_array_equal(num.numpy(), k1.numpy())
     canvas = rc.render_tiles(cnt, idx, feats_fast, n_tx, th, tw, bg)
     g_img = 0.5 * w_p * (torch.clamp(canvas, 0.0, 1.0) - tgt_p[None])
-    g6 = trg.bwd_tiles(cnt, idx, feats, g_img.contiguous(), n_tx, th, tw, bg)
+    g6, dinit = trg.bwd_tiles(cnt, idx, feats, g_img.contiguous(), n_tx, th, tw, bg)
+    assert dinit is None  # no init canvas: no d(init)
     assert g6.shape == g7.shape == (2, 9, 40)
     row_scale = g7.abs().amax(dim=(0, 2), keepdim=True).numpy()  # each of the 9 fields
     np.testing.assert_allclose(g6.numpy() / row_scale, g7.numpy() / row_scale, atol=2e-6)
     assert (trg.bwd_tiles.launches, trg.lossgrad_tiles.launches) == before
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     g9 = tcodec.genome_to_renderer(torch.from_numpy(axes_genomes(6, 1, 8, H, W)))
     for kw in ({"y_origin": 0, "out_rows": 16}, {"out_rows": 16}):
         with pytest.raises(NotImplementedError):
@@ -271,7 +272,12 @@ def test_unported_options_raise():
         trg.render_diff(g9, H, W, corner_cull=True).detach().numpy(),
         trg.render_diff(g9, H, W).detach().numpy(),
     )
-    with pytest.raises(NotImplementedError):  # passes chained through an init canvas
-        trg.render_diff(torch.zeros((1, trg.MAX_SPLATS + 1, 9)), H, W)
+    # passes chained through an init canvas are ported (tests/test_torch_chunked.py):
+    # above the pass size render_diff chains, and equals its one pass bit for bit
+    one = trg.render_diff(g9, H, W).detach()
+    monkeypatch.setattr(rc, "MAX_SPLATS", 3)
+    np.testing.assert_array_equal(trg.render_diff(g9, H, W).detach().numpy(), one.numpy())
+    with pytest.raises(ValueError):  # the fused kernel takes one pass, as in JAX
+        trg.fused_value_and_grad(torch.zeros((1, 4, 9)), torch.zeros((H, W, 3)), None, H, W)
     with pytest.raises(ValueError):
         trg.render_diff(g9, H, W, box="loose")

@@ -1,5 +1,6 @@
 """Seeded numpy inputs shared by the port's cross-check tests
-(tests/test_torch_*.py): both packages receive the same float32 arrays."""
+(tests/test_torch_*.py): both packages receive the same float32 arrays;
+and `pass_lists`, one pass's walk inputs through the port's own steps."""
 import numpy as np
 
 
@@ -28,3 +29,23 @@ def weights(seed: int, H: int, W: int):
     """A positive weight plane [H, W] float32 in [0.15, 1]."""
     rng = np.random.default_rng(seed)
     return rng.uniform(0.15, 1.0, (H, W)).astype(np.float32)
+
+
+def pass_lists(g9, H, W, k_sigma, precision, bin_capacity, tile_h, tile_w, cull_eps=None,
+               corner_cull=False, fitness_route=False):
+    """Renderer genomes (torch) -> (cnt, idx, feats, n_tx, n_ty) of one pass
+    over all of them, as render_cuda's entry points build it: with
+    fitness_route under "fast", fast fitness's K4 route (`_k4_pass`); else
+    the tier's boxes (`_screen`) binned by `_pass_lists`."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    g9 = rc._genomes(g9)
+    n_tx, n_ty = -(-W // tile_w), -(-H // tile_h)
+    if fitness_route and precision == "fast":
+        cnt, idx, feats = rc._k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, cull_eps,
+                                      corner_cull)
+    else:
+        p = rc._screen(g9, H, W, k_sigma, precision, cull_eps)
+        cnt, idx, feats = rc._pass_lists(p, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
+                                         rc._corner_eps(precision, corner_cull, cull_eps))
+    return cnt, idx, feats, n_tx, n_ty
