@@ -12,12 +12,12 @@ Phases, each fatal on failure (no exception is caught):
    (512x512, N=512, B=32, 64x128 tiles, exact-tight and highest), on an odd
    canvas, and with bin_capacity truncating the lists; K6 (bwd_tiles) and
    K7 (lossgrad_tiles) against theirs at run_grad's shape (B=1, N=2000,
-   512x512, 16x128 tiles) and the memetic elite batch (B=8, N=512), with K7's
-   num against K1 on the same lists, K6 against K7 and a second launch of
-   each for the same bits (each of the 9 gradient rows against its own
-   largest value); plus the entry points (fitness, canvas, fused and
-   unfused genome gradients) on a small input against the dense oracle on
-   the CPU.
+   512x512, 16x128 tiles, and the same genomes on 8-, 32- and 64-row list
+   tiles) and the memetic elite batch (B=8, N=512), with K7's num against
+   K1 on the same lists, K6 against K7 and a second launch of each for the
+   same bits (each of the 9 gradient rows against its own largest value);
+   plus the entry points (fitness, canvas, fused and unfused genome
+   gradients) on a small input against the dense oracle on the CPU.
 4. main paths, each with every launch count set to 0 before and read after:
    `python -m ggs_tpu_torch.run_ga` at its defaults (synthetic 512x512
    target, N=512, P=32, exact-tight) for GENERATIONS generations: the best
@@ -26,11 +26,17 @@ Phases, each fatal on failure (no exception is caught):
    512x512, exact-tight, mask 0.7) for GRAD_STEPS Adam steps: the loss must
    fall, K7 launch once a step, K2 for the rescore and export; the unfused
    gradient (autograd through gradient.make_loss_fn: K2 forward, K6
-   backward) for UNFUSED_STEPS Adam steps at the same shape; and run_ga with
+   backward) for UNFUSED_STEPS Adam steps at the same shape; under the fast
+   tier's corner cull (eps 8e-2) fused_value_and_grad (K7 once) and
+   autograd through render_diff (K2 and K6 once) on JAX's list tile (64
+   rows at N=2000), the two within FITNESS_RTOL (loss) and GRAD_SCALED_ATOL
+   (gradients over their largest); and run_ga with
    --memetic-every 10 --memetic-steps 5 for 50 generations: the best must
    fall and stay monotone, K7 launch 25 times.
 5. times: K1 at B=32 and B=512, K2 at B=1 and B=32 and on run_grad's lists
-   (K2', RenderDiff's forward), K6 and K7 at both gradient shapes, with CUDA events over many launches after a warm-up,
+   (K2', RenderDiff's forward), K6 and K7 at both gradient shapes and on
+   each list tile height, K6 with d(init) on grad-10k-1024's last chained
+   pass, with CUDA events over many launches after a warm-up,
    their plain versions, the port's evaluate in renders/s at B=512, the GA
    in generations/s over several blocks, and Adam steps/s at run_grad's
    defaults and at bench.py's gradient configuration, one Adam block under
@@ -76,7 +82,9 @@ dense sort it replaces (also at the fast GA's pass, where its overflow
 fallback rebuilds the lists; the fallback's launches are counted apart),
 renders/s at big-10k-1024 and canvas-4k, Adam
 steps/s at grad-10k-1024, and one chained Adam step with no host sync.
-Prints one `kernels` JSON line, the card line, and last the device line.
+Prints a `GRAD KERNELS` line (K6/K7 times, bounds and launches, blocks a
+SM, Adam steps/s at both gradient configurations, beside the card), one
+`kernels` JSON line, the card line, and last the device line.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -273,6 +281,9 @@ def bound(c, kernel: str):
             nbytes += 4 * (4 * Hp * Wp) + 4 * B * T  # target, weights; num
         else:
             nbytes += 4 * 3 * pixels  # the image cotangent
+            if c.get("init") is not None:  # init read, d(init) = g * T_total written
+                ops += 3 * pixels
+                nbytes += 2 * 4 * 3 * pixels
     elif kernel in ("K1", "K1-bf16"):
         ops = walk_ops + pixels * OPS_PER_PIXEL_K1
         nbytes = in_bytes + 4 * (4 * Hp * Wp) + 4 * B * T
@@ -506,15 +517,16 @@ def compare(c, label: str) -> dict:
     return {"canvas": canvas_err, "fitness_rel": fit_rel, "partials": part_err}
 
 
-def make_grad_case(B, N, H, W, seed=0, device="cuda"):
+def make_grad_case(B, N, H, W, seed=0, device="cuda", tile_h=None):
     """Random genomes (seeded) -> the gradient walks' inputs: exact-tight
-    lists on the kernels' 16x128 tiles, the raw and folded tables, the
-    padded target and mask, and K6's image cotangent (K7's own head)."""
+    lists on list tiles tile_h x 128 (default the port's GRAD_TILE_H), the
+    raw and folded tables, the padded target and mask, and K6's image
+    cotangent (K7's own head)."""
     import torch
 
     from ggs_tpu_torch.ops import codec, render_grad as rg
 
-    th, tw = rg.GRAD_TILE_H, rg.GRAD_TILE_W
+    th, tw = tile_h or rg.GRAD_TILE_H, rg.GRAD_TILE_W
     c = make_case(B, N, H, W, "exact-tight", tile_h=th, tile_w=tw, seed=seed, device=device)
     p = codec.tighten_boxes_exact(codec.preprocess(c["g9"], H, W, 3.0), 3.0)
     c["feats_fast"], c["feats"] = c["feats"], rg._splat_feats(p)
@@ -857,6 +869,51 @@ def check_grad_entry_points() -> None:
     check(worst <= 1.0, "gradient entry points disagree with the oracle's autograd")
 
 
+def check_corner_grad_entry_points(tgt, wm, reset_counts, read_counts) -> dict:
+    """fused_value_and_grad (K7) and autograd through render_diff (K2 + K6)
+    under the fast tier's corner cull at run_grad's shape (B=1, N=2000,
+    512x512, eps 8e-2), on JAX's list tile (64x128 there): each launch
+    counted, and the two paths' losses within FITNESS_RTOL and gradients
+    (divided by their largest magnitude) within GRAD_SCALED_ATOL."""
+    import torch
+
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec, fitness, render_grad as rg
+
+    H, W = tgt.shape[0], tgt.shape[1]
+    N, eps = 2000, 8e-2
+    tile_h = rg._geometry(H, W, N, None, BG, eps, True)[2]
+    check(tile_h == rg.list_tile_h(N) == 64, f"the corner-culled tile is {tile_h} rows, not JAX's")
+    g = genome.new_population(torch.Generator(device="cuda").manual_seed(15), 1, N, H, W,
+                              device="cuda")
+    reset_counts()
+    (loss_f, _), grads_f = rg.fused_value_and_grad(g, tgt, wm, H, W, cull_eps=eps, corner_cull=True)
+    torch.cuda.synchronize()
+    fused_counts = read_counts()
+    reset_counts()
+    gd = g.clone().requires_grad_(True)
+    img = rg.render_diff(codec.genome_to_renderer(gd), H, W, cull_eps=eps, corner_cull=True)
+    loss_u = fitness.fitness_from_images(img, tgt, wm).mean()
+    (grads_u,) = torch.autograd.grad(loss_u, gd)
+    torch.cuda.synchronize()
+    unfused_counts = read_counts()
+    loss_rel = abs(float(loss_f) - float(loss_u)) / float(loss_u)
+    scale = float(grads_u.abs().max())
+    grad_err = float((grads_f - grads_u).abs().max()) / scale
+    print(f"CHECK corner-culled entry points (B=1 N={N} {H}x{W} eps {eps}, {tile_h}x128 lists): "
+          f"fused vs unfused loss rel {loss_rel:.3e} (<= {FITNESS_RTOL}), gradients max abs / max "
+          f"{grad_err:.3e} (<= {GRAD_SCALED_ATOL}); launches fused K7 {fused_counts['K7']}, "
+          f"unfused K2 {unfused_counts['K2']} K6 {unfused_counts['K6']}", flush=True)
+    check(fused_counts["K7"] == 1 and fused_counts["K6"] == 0, f"fused launches {fused_counts}")
+    check(unfused_counts["K2"] == 1 and unfused_counts["K6"] == 1 and unfused_counts["K7"] == 0,
+          f"unfused launches {unfused_counts}")
+    check(loss_rel <= FITNESS_RTOL, f"corner-culled fused and unfused losses differ by {loss_rel}")
+    check(grad_err <= GRAD_SCALED_ATOL, f"corner-culled gradients differ by {grad_err}")
+    return {"tile_h": tile_h, "loss_rel": loss_rel, "grad_scaled_err": grad_err,
+            "launches_fused": fused_counts["K7"],
+            "launches_unfused": {"K2": unfused_counts["K2"], "K6": unfused_counts["K6"]}}
+
+
 def adam_steps_per_s(obj, tgt, wm, n_splats: int, seed: int) -> tuple:
     """Host-timed Adam blocks at B=1 (each ending in a synchronize) after a
     warm-up block -> (median steps/s, per-block rates)."""
@@ -968,7 +1025,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kern = rc.build()
     built = ", ".join(os.path.relpath(path, HERE) for path in kern.paths.values())
-    print(f"built {built} in {time.perf_counter() - t0:.2f} s")
+    print(f"built {built} in {time.perf_counter() - t0:.2f} s; K6/K7 blocks a SM "
+          f"{kern.grad.ggs_grad_blocks_per_sm(0)}/{kern.grad.ggs_grad_blocks_per_sm(1)}")
     for name, log in kern.logs.items():
         print(f"  {name}:")
         for line in log.splitlines():
@@ -1014,6 +1072,14 @@ def main() -> int:
     }
     grad_errs = {k: compare_grad(c, f"K6/K7 {k} 512x512 exact-tight 16x128 tiles")
                  for k, c in grad_cases.items()}
+    # the same genomes on every list tile height the kernels walk
+    tile_cases = {th: make_grad_case(1, 2000, 512, 512, seed=10, tile_h=th)
+                  for th in rg.GRAD_TILE_HS if th != rg.GRAD_TILE_H}
+    tile_cases[rg.GRAD_TILE_H] = grad_cases["B1_N2000"]
+    for th, c in tile_cases.items():
+        if th != rg.GRAD_TILE_H:
+            grad_errs[f"B1_N2000_th{th}"] = compare_grad(
+                c, f"K6/K7 B1_N2000 512x512 exact-tight {th}x128 tiles")
     check_grad_entry_points()
 
     # K3 (both epilogues) and K4 at the fast GA's shapes, at both eps with the
@@ -1077,6 +1143,7 @@ def main() -> int:
     fnt = compare_grad_init(faint(cg), grad_label + ", alphas / 32")
     big_grad_init_err = {"dinit_rel": max(own["dinit_rel"], fnt["dinit_rel"]),
                          "rows": [max(a, b) for a, b in zip(own["rows"], fnt["rows"])]}
+    big_grad_case = cg  # timed with the kernels
     del g9_b, g9_g, tgt_b, wm_b, cg
     chunk = BIG_N // 2  # the first of two passes
     scatter_cases = {
@@ -1205,6 +1272,8 @@ def main() -> int:
     check(fused_rel <= FITNESS_RTOL, f"fused and unfused losses differ by {fused_rel}")
     check(unfused_launches["K6"] == UNFUSED_STEPS and unfused_launches["K2"] >= UNFUSED_STEPS,
           f"unfused launches {unfused_launches}")
+
+    corner_grad = check_corner_grad_entry_points(tgt, wm, reset_counts, read_counts)
 
     memetic = ["--memetic-every", str(MEMETIC_EVERY), "--memetic-steps", str(MEMETIC_STEPS)]
     _, memetic_launches = ga_path("memetic run_ga", "memetic", "chip_smoke_memetic",
@@ -1408,7 +1477,17 @@ def main() -> int:
     for k, c in grad_cases.items():
         bounds[f"K7_{k}"] = bound(c, "K7")
         bounds[f"K6_{k}"] = bound(c, "K6")
-    del c512
+    # K6/K7 on each list tile height (the same genomes), and K6 with d(init)
+    # at grad-10k-1024's last chained pass
+    for th, c in tile_cases.items():
+        t[f"K7_B1_N2000_th{th}"] = cuda_ms(lambda: run_k7(c), 20)
+        t[f"K6_B1_N2000_th{th}"] = cuda_ms(lambda: run_k6(c), 20)
+    bg_args = tuple(big_grad_case[f] for f in ("cnt", "idx", "feats", "g_img", "n_tx", "tile_h",
+                                                "tile_w"))
+    t["K6_grad_10k_1024_init"] = cuda_ms(
+        lambda: rg.bwd_tiles(*bg_args, BG, init=big_grad_case["init"]), 10)
+    bounds["K6_grad_10k_1024_init"] = bound(big_grad_case, "K6")
+    del c512, tile_cases
 
     # the fast tier's kernels at the fast GA's shapes (eps 2e-3, corner cull)
     f32c = fast_cases[2e-3]
@@ -1560,6 +1639,22 @@ def main() -> int:
     for tier, prof in prof_c4k.items():
         print(f"PROFILE canvas-4k {tier} " + json.dumps(prof), flush=True)
     print("PROFILE ADAM grad-10k-1024 " + json.dumps(prof_big_adam), flush=True)
+    grad_keys = ["K7_B1_N2000", "K6_B1_N2000", "K7_B8_N512", "K6_B8_N512",
+                 "K6_grad_10k_1024_init"]
+    grad_keys += [f"K{k}_B1_N2000_th{th}" for th in rg.GRAD_TILE_HS for k in (7, 6)]
+    print("GRAD KERNELS " + json.dumps({
+        "card": card,
+        "blocks_per_sm": {"K6": kern.grad.ggs_grad_blocks_per_sm(0),
+                          "K7": kern.grad.ggs_grad_blocks_per_sm(1)},
+        "ms": {k: t[k] for k in grad_keys},
+        "bound_ms": {k: bounds[k][0] for k in grad_keys if k in bounds},
+        "launches": {"K7_run_grad": grad_launches["K7"],
+                     "K6_grad_10k_1024": big_grad_launches["K6"],
+                     "K6_grad_10k_1024_init": big_grad_launches["K6-init"]},
+        "adam_steps_per_s_run_grad_defaults": adam_rate,
+        "adam_steps_per_s_grad_10k_1024": big_adam,
+        "corner_culled_entry_points": corner_grad,
+    }), flush=True)
 
     # 6. profile
     phase("profile")
@@ -1703,6 +1798,13 @@ def main() -> int:
                     "grad-10k-1024; there, on its 2nd pass, d(init) max rel "
                     f"{big_grad_init_err['dinit_rel']} and gradient rows max rel "
                     f"{max(big_grad_init_err['rows'])} against plain)",
+            "grad_10k_1024": {
+                "launches": big_grad_launches["K6"],
+                "init_launches": big_grad_launches["K6-init"],
+                "ms": t["K6_grad_10k_1024_init"],
+                "bound_ms": bounds["K6_grad_10k_1024_init"][0],
+                "bound_by": bounds["K6_grad_10k_1024_init"][1],
+            },
         },
         {
             "name": "K7 lossgrad_tiles (forward walk + loss head + backward walk)",

@@ -132,12 +132,13 @@ class _Kernels:
         lib.ggs_error_string.argtypes = [i]
         lib.ggs_error_string.restype = ctypes.c_char_p
         grad.ggs_grad_walk.argtypes = (
-            [i, p, p, p, p, p, p, p, p, f, p, p, p, p] + [i] * 10 + [f, f, f, p]
+            [i, p, p, p, p, p, p, p, p, f, p, p, p, p, p, p] + [i] * 11 + [f, f, f, p]
         )
         grad.ggs_grad_walk.restype = i
-        grad.ggs_grad_resident_blocks.argtypes = [i]
-        grad.ggs_grad_resident_blocks.restype = i
-        for fn in ("ggs_grad_tile_h", "ggs_grad_tile_w", "ggs_grad_chunk"):
+        for fn in ("ggs_grad_resident_blocks", "ggs_grad_blocks_per_sm"):
+            getattr(grad, fn).argtypes = [i]
+            getattr(grad, fn).restype = i
+        for fn in ("ggs_grad_sub_rows", "ggs_grad_chunk"):
             getattr(grad, fn).argtypes = []
             getattr(grad, fn).restype = i
 

@@ -21,20 +21,23 @@ PyTorch/CUDA counterpart of `ggs_tpu/ops/render_grad.py` (exact tiers):
   `codec.preprocess` and `genome_to_renderer` by ordinary autograd, as
   `jax.vjp(chain)` does.
 
-Both walks use the two-level replay of `_bwd_tile_kernel` (boundary canvas
-every CHUNK splats, then each chunk replayed and walked backward): there is
-no division by (1 - f), which is 0 for alpha 255 at a splat's centre. The
-kernels and the walks' lists use one tile shape, GRAD_TILE_H x GRAD_TILE_W;
-tiling changes nothing but the order of the sums. The fast tier's culls
-need no kernel of their own: with `cull_eps` the boxes are the eps-tight
-ones (`render_cuda._tighten_boxes`) and with `corner_cull` the lists drop
-the corner-culled pairs, and the exact walks (K2', K6, K7) run over them,
+The plain walks use the two-level replay of `_bwd_tile_kernel` (boundary
+canvas every CHUNK splats, then each chunk replayed and walked backward);
+the kernels checkpoint the transmittance instead and walk the gradients
+forward (csrc/walk_grad.cu). Neither divides by (1 - f), which is 0 for
+alpha 255 at a splat's centre, and both give every pixel the same values.
+The kernels walk list tiles GRAD_TILE_W wide and any of GRAD_TILE_HS rows
+high. Tiling changes nothing but the order of the sums, except under the
+fast tier's corner cull, whose lists depend on the tile: there `_geometry`
+takes JAX's tile height (`list_tile_h`, render_grad.py:670-678 and
+:766-780), and elsewhere the port's GRAD_TILE_H. The fast tier's culls need
+no kernel of their own: with `cull_eps` the boxes are the eps-tight ones
+(`render_cuda._tighten_boxes`) and with `corner_cull` the lists drop the
+corner-culled pairs, and the exact walks (K2', K6, K7) run over them,
 giving the exact gradients of the culled render (render_grad.py:687-701,
-791-814). Under the corner cull the lists, and so these gradients, depend
-on the tile shape: the port's walks use 16x128 tiles where JAX picks
-tile_h by its VMEM budget (render_grad.py:670-678), and from 256 tiles the
-cull is band-level (render_cuda.scatter_binning). Not ported yet: row
-slabs (`y_origin`, `out_rows`), which raise NotImplementedError.
+791-814); from 256 tiles the cull is band-level
+(render_cuda.scatter_binning). Not ported yet: row slabs (`y_origin`,
+`out_rows`), which raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -47,8 +50,13 @@ from . import codec, fitness as fitness_mod, render_cuda
 from .render_cuda import _NFEAT, _cdiv, _require, pad_planes
 
 NGRAD = 9  # dcx, dcy, dsxx, dsxy, dsyy, drc, dgc, dbc, da
-CHUNK = 32  # the plain walks' splats per boundary canvas, as walk_grad.cu's kChunk
-GRAD_TILE_H, GRAD_TILE_W = 16, 128  # the kernels' tile (walk_grad.cu kTileH, kTileW)
+# the plain walks' splats per boundary canvas, and JAX's _CHUNK in its
+# VMEM rule for the tile height (render_grad.py:56)
+CHUNK = 32
+GRAD_TILE_W = 128  # the kernels' list tile width (walk_grad.cu kTileW)
+GRAD_TILE_HS = (8, 16, 32, 64)  # the list tile heights the kernels walk
+GRAD_TILE_H = 16  # the port's list tile height where the tile changes no result
+JAX_VMEM_BUDGET = 10 * 1024 * 1024  # JAX's scratch budget for the tile height
 # the gradient walks' pad_slots in the scatter binning's dense-route rule
 # (render_grad.py:346, 540; the forward walks pass render_cuda.SCATTER_PAD)
 GRAD_SCATTER_PAD = 40
@@ -199,7 +207,7 @@ def lossgrad_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, b
 
 @functools.lru_cache(maxsize=None)
 def _resident_blocks(fused: bool, device_index: int) -> int:
-    """Blocks of the walk kernel the card holds at once: its scratch slots."""
+    """Blocks of the walk kernel the card holds at once: its checkpoint slots."""
     k = render_cuda.build()
     with torch.cuda.device(device_index):
         slots = k.grad.ggs_grad_resident_blocks(int(fused))
@@ -211,12 +219,12 @@ def _resident_blocks(fused: bool, device_index: int) -> int:
 def _launch_grad(fused, cnt, idx, feats, n_tx, tile_h, tile_w, background,
                  gimg=None, target_p=None, w_p=None, scale=0.0, init=None):
     B, T, L, dev = render_cuda._check_lists(cnt, idx, feats, n_tx, tile_h, tile_w)
-    k = render_cuda.build()
-    if (tile_h, tile_w) != (k.grad.ggs_grad_tile_h(), k.grad.ggs_grad_tile_w()):
+    if tile_w != GRAD_TILE_W or tile_h not in GRAD_TILE_HS:
         raise ValueError(
-            f"tile {tile_h}x{tile_w}: the gradient kernels walk "
-            f"{k.grad.ggs_grad_tile_h()}x{k.grad.ggs_grad_tile_w()} tiles"
+            f"tile {tile_h}x{tile_w}: the gradient kernels walk tiles {GRAD_TILE_W} wide "
+            f"and {GRAD_TILE_HS} high"
         )
+    k = render_cuda.build()
     N1 = feats.shape[2]
     N = N1 - 1
     Hp, Wp = (T // n_tx) * tile_h, n_tx * tile_w
@@ -229,28 +237,30 @@ def _launch_grad(fused, cnt, idx, feats, n_tx, tile_h, tile_w, background,
     if init is not None:
         _require(init, "init", torch.float32, (B, 3, Hp, Wp), dev)
         dinit = torch.empty((B, 3, Hp, Wp), dtype=torch.float32, device=dev)
+    rows = k.grad.ggs_grad_sub_rows()
+    S = tile_h // rows  # sub-tiles a list tile, a block each
     with torch.cuda.device(dev):
-        slots = min(_resident_blocks(bool(fused), dev.index), B * T)
-        # scratch per resident block: the boundary canvases of a list as
-        # long as L (>= every cnt; reading cnt.max() would sync the host on
-        # every launch) and one chunk's prefix canvases
-        chunk = k.grad.ggs_grad_chunk()
-        max_chunks = max(1, _cdiv(L, chunk))
-        scratch = torch.empty(
-            (slots, max_chunks + chunk, 3, tile_h * tile_w), dtype=torch.float32, device=dev
-        )
+        slots = min(_resident_blocks(bool(fused), dev.index), B * T * S)
+        # transmittance checkpoints per resident block, for a list as long as
+        # L (>= every cnt; reading cnt.max() would sync the host every launch)
+        max_chunks = max(1, _cdiv(L, k.grad.ggs_grad_chunk()))
+        bound = torch.empty((slots, max_chunks, rows * tile_w), dtype=torch.float32, device=dev)
+        spart = torch.empty((B, T, S, L, NGRAD), dtype=torch.float32, device=dev)
         gpart = torch.zeros((B, T, NGRAD, N), dtype=torch.float32, device=dev)
         grads = torch.empty((B, NGRAD, N), dtype=torch.float32, device=dev)
-        num = torch.empty((B, T), dtype=torch.float32, device=dev) if fused else None
+        num = nsub = None
+        if fused:
+            num = torch.empty((B, T), dtype=torch.float32, device=dev)
+            nsub = torch.empty((B, T, S), dtype=torch.float32, device=dev)
 
         def ptr(x):
             return None if x is None else x.data_ptr()
 
         rc = k.grad.ggs_grad_walk(
             int(fused), cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(), ptr(gimg), ptr(init),
-            ptr(dinit), ptr(target_p), ptr(w_p), float(scale), ptr(num), gpart.data_ptr(),
-            grads.data_ptr(), scratch.data_ptr(), slots, max_chunks, B, T, L, N1, N, n_tx,
-            Hp, Wp, *(float(c) for c in background),
+            ptr(dinit), ptr(target_p), ptr(w_p), float(scale), ptr(num), ptr(nsub),
+            spart.data_ptr(), gpart.data_ptr(), grads.data_ptr(), bound.data_ptr(), slots,
+            max_chunks, B, T, L, N1, N, n_tx, tile_h, Hp, Wp, *(float(c) for c in background),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     k.check(rc, "lossgrad_tiles" if fused else "bwd_tiles")
@@ -265,8 +275,8 @@ def bwd_tiles(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background, init=Non
 
     Replaces ggs_tpu/ops/render_grad.py:_bwd_tile_kernel(fused=False)
     (pallas_call in _make_screen_render.bwd_grads). Bound by the
-    arithmetic of its three walks and the prefix canvases' round trip
-    through device memory (csrc/walk_grad.cu)."""
+    arithmetic of its walks: transmittance checkpoints, then each chunk
+    replayed and walked forward (csrc/walk_grad.cu)."""
     if feats.device.type == "cpu":
         return bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background, init)
     _, grads, dinit = _launch_grad(False, cnt, idx, feats, n_tx, tile_h, tile_w, background,
@@ -356,12 +366,29 @@ class _FusedNum(torch.autograd.Function):
         return tuple(g[:, i] for i in range(NGRAD)) + (None,) * 7
 
 
-def _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull):
+def list_tile_h(cap: int) -> int:
+    """JAX's gradient list tile height for a list capacity cap: the tallest
+    of 64, 32, 16 rows whose backward scratch fits its VMEM budget, else 8
+    (render_grad.py:670-678 in fused_value_and_grad, :766-780 in
+    render_pallas_diff on the full canvas, there from the whole cap)."""
+    mc = _cdiv(cap, CHUNK)
+    for th in (64, 32, 16):
+        if th * GRAD_TILE_W * 4 * ((mc + 1) * 3 + 3 * CHUNK + CHUNK) <= JAX_VMEM_BUDGET:
+            return th
+    return 8
+
+
+def _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull, n_total=None):
     """The walks' geometry (n_tx, n_ty, tile_h, tile_w, cap, background,
-    corner_eps): the corner cull runs at cull_eps, and only with it."""
-    cap = N if bin_capacity is None else min(bin_capacity, N)
+    corner_eps) of a pass of N splats out of n_total (default N): the
+    corner cull runs at cull_eps, and only with it. Under the corner cull
+    the lists depend on the tile, so its height is JAX's (list_tile_h of
+    the whole cap); otherwise the port's GRAD_TILE_H."""
+    n_total = N if n_total is None else n_total
+    cap, whole = (n if bin_capacity is None else min(bin_capacity, n) for n in (N, n_total))
     corner_eps = float(cull_eps) if (corner_cull and cull_eps is not None) else None
-    return (_cdiv(W, GRAD_TILE_W), _cdiv(H, GRAD_TILE_H), GRAD_TILE_H, GRAD_TILE_W, cap,
+    tile_h = GRAD_TILE_H if corner_eps is None else list_tile_h(whole)
+    return (_cdiv(W, GRAD_TILE_W), _cdiv(H, tile_h), tile_h, GRAD_TILE_W, cap,
             tuple(float(c) for c in background), corner_eps)
 
 
@@ -414,7 +441,8 @@ def render_diff(
     canvas = None
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         pc = render_cuda._split_screen(p, lo, hi) if len(bounds) > 2 else p
-        geom = _geometry(H, W, hi - lo, bin_capacity, background, cull_eps, corner_cull)
+        geom = _geometry(H, W, hi - lo, bin_capacity, background, cull_eps, corner_cull,
+                         n_total=g9.shape[1])
         canvas = RenderDiff.apply(canvas, *pc, geom)
     img = canvas[:, :, :H, :W].permute(0, 2, 3, 1)
     return img[0] if squeeze else img
@@ -452,9 +480,9 @@ def fused_value_and_grad(
             "render_diff chains passes"
         )
     geom = _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull)
-    n_tx, n_ty = geom[:2]
+    n_tx, n_ty, tile_h, tile_w = geom[:4]
     w_eff, denom = fitness_mod.weff_denom(weight_mask, boost_only, boost_beta, H, W)
-    target_p, w_p = pad_planes(target, w_eff, n_ty * GRAD_TILE_H, n_tx * GRAD_TILE_W)
+    target_p, w_p = pad_planes(target, w_eff, n_ty * tile_h, n_tx * tile_w)
     g = g_axes.detach().to(torch.float32).requires_grad_(True)
     with torch.enable_grad():
         p = _screen_params(codec.genome_to_renderer(g), H, W, k_sigma, box, cull_eps)

@@ -4,8 +4,9 @@ fitness_tiles_bf16; csrc/walk_grad.cu: K6 bwd_tiles, K7 lossgrad_tiles;
 csrc/scatter.cu: K5 bin_splats_scatter) against their plain PyTorch versions
 on the card, at the GA main path's shapes (512x512, N=512, B=32, 64x128
 tiles), on an odd canvas, with bin_capacity truncating the lists, at the
-gradient paths' shapes (16x128 tiles), with an init canvas (a chained
-pass), and K5 at 256 tiles and more with and without the corner cull and
+gradient paths' shapes (16x128 tiles) and at every list tile height the
+gradient kernels walk (8, 16, 32 and 64 rows), with an init canvas (a
+chained pass), and K5 at 256 tiles and more with and without the corner cull and
 with its overflow fallback; plus the wrappers' argument checks.
 
 Needs an NVIDIA card and nvcc: marked `cuda`, skipped elsewhere. Run on
@@ -255,12 +256,55 @@ def test_grad_wrappers_reject_bad_arguments(dev):
     feats = torch.zeros((2, 13, 17), device=dev)
     bg = (1.0, 1.0, 1.0)
     g_img = torch.zeros((2, 3, 64, 128), device=dev)
-    with pytest.raises(ValueError):  # only the kernels' 16x128 tile
-        rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, 64, 128, bg)
+    for th, tw in ((24, 128), (16, 64)):  # list tiles the kernels do not walk
+        with pytest.raises(ValueError):
+            rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg)
     with pytest.raises(TypeError):
         rg.bwd_tiles(cnt, idx, feats, g_img.double(), n_tx, 16, 128, bg)
     with pytest.raises(ValueError):
         rg.lossgrad_tiles(cnt, idx, feats, tgt_p[:, :-1], w_p, n_tx, 16, 128, bg, 2.0)
+
+
+@pytest.mark.parametrize("tile_h", [8, 16, 32, 64])
+def test_grad_kernels_at_list_tile_heights(dev, tile_h):
+    """K6 (from the background and from an init canvas, with d(init)) and K7
+    on list tiles of each height the kernels walk, against their plain
+    versions: gradient rows within 1e-5, d(init) within 1e-5 of its largest
+    value, K7's num within 5e-5 of K1's, the same bits twice."""
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec, mask, render_cuda as rc, render_grad as rg
+    from ggs_tpu_torch.utils import io
+
+    B, N, H, W, tw = 2, 300, 200, 328, rg.GRAD_TILE_W
+    gen = torch.Generator(device=dev).manual_seed(tile_h)
+    g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device=dev))
+    cnt, idx, _, n_tx, n_ty = pass_lists(g9, H, W, 3.0, "exact-tight", None, tile_h, tw)
+    p = codec.tighten_boxes_exact(codec.preprocess(g9, H, W, 3.0), 3.0)
+    feats = rg._splat_feats(p)
+    tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
+    wm = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
+    tgt_p, w_p = rc.pad_planes(tgt, wm, n_ty * tile_h, n_tx * tw)
+    bg = (1.0, 1.0, 1.0)
+    args = (cnt, idx, feats, tgt_p, w_p, n_tx, tile_h, tw, bg, 2.0)
+    num, g7 = rg.lossgrad_tiles(*args)
+    num_p, g7_p = rg.lossgrad_tiles_plain(*args)
+    k1 = rc.fitness_tiles(cnt, idx, rc._splat_feats_fast(p), tgt_p, w_p, n_tx, tile_h, tw, bg)
+    torch.testing.assert_close(num.sum(1), num_p.sum(1), rtol=5e-5, atol=0)
+    torch.testing.assert_close(num.sum(1), k1.sum(1), rtol=5e-5, atol=0)
+    assert float(_row_err(g7, g7_p).max()) <= 1e-5
+    num2, g7b = rg.lossgrad_tiles(*args)
+    assert torch.equal(num, num2) and torch.equal(g7, g7b)
+    g_img = (_init(dev, B, *w_p.shape, seed=9) - 0.5).contiguous()
+    for init in (None, _init(dev, B, *w_p.shape)):
+        six = (cnt, idx, feats, g_img, n_tx, tile_h, tw, bg, init)
+        g6, d6 = rg.bwd_tiles(*six)
+        g6_p, d6_p = rg.bwd_tiles_plain(*six)
+        assert float(_row_err(g6, g6_p).max()) <= 1e-5
+        g6b, d6b = rg.bwd_tiles(*six)
+        assert torch.equal(g6, g6b)
+        if init is not None:
+            assert float((d6 - d6_p).abs().max() / d6_p.abs().max()) <= 1e-5
+            assert torch.equal(d6, d6b)
 
 
 def _init(dev, B, Hp, Wp, seed=5):

@@ -11,7 +11,13 @@ divided by their largest magnitude atol 2e-6; splats culled dead (alpha <=
 eps) get exactly zero gradient. The kernels' screen-space gradients on the
 same eps-culled, corner-culled lists against JAX's _make_screen_lossgrad:
 num rtol 1e-5 and scaled gradients atol 2e-6, as
-tests/test_torch_render_grad.py holds the exact tiers."""
+tests/test_torch_render_grad.py holds the exact tiers. Under the corner
+cull the lists depend on the tile, so the port takes JAX's tile height
+there: the entry points fused_value_and_grad and render_diff against JAX's
+at its default tile (loss rtol 1e-5, fits rtol 1e-5 / atol 1e-7, scaled
+gradients atol 2e-6), and the tile each entry point bins on against the
+one JAX's picks."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +32,7 @@ from ggs_tpu_torch.config import GAConfig, GenomeConfig, GradConfig
 from ggs_tpu_torch.models import ga as tga
 from ggs_tpu_torch.models import gradient as tgradient
 from ggs_tpu_torch.ops import codec as tcodec
+from ggs_tpu_torch.ops import fitness as tfitness
 from ggs_tpu_torch.ops import objective as tobjective
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
@@ -77,12 +84,15 @@ def _screen(g):
 
 def test_culled_kernel_grads_match_jax():
     """K7's plain version on the eps- and corner-culled lists against JAX's
-    fused kernel (_make_screen_lossgrad with corner_eps, interpret mode, the
-    port's 16x128 tiles: the corner cull is decided per tile) on the same
-    screen-space parameters, cotangent scale 2."""
+    fused kernel (_make_screen_lossgrad with corner_eps, interpret mode) on
+    the same screen-space parameters, cotangent scale 2, both on the list
+    tile the port's geometry takes under the corner cull (JAX's own,
+    64x128 here: the corner cull is decided per tile)."""
     g = _genomes(41)
     B, N = g.shape[:2]
-    th, tw = trg.GRAD_TILE_H, trg.GRAD_TILE_W
+    geom = trg._geometry(H, W, N, None, (1.0, 1.0, 1.0), EPS, True)
+    th, tw = geom[2:4]
+    assert (th, tw) == (64, 128)
     pj = _screen(g)
     w_eff, _ = jfitness.weff_denom(jnp.asarray(WM), False, 1.0, H, W)
     run = jrg._make_screen_lossgrad(B, N, H, W, th, tw, N, (1.0, 1.0, 1.0), True, corner_eps=EPS)
@@ -90,7 +100,6 @@ def test_culled_kernel_grads_match_jax():
     num_j, grads_j = (np.asarray(x) for x in run(arrs, jnp.asarray(TGT), w_eff, 2.0))
 
     p = tcodec.SplatScreen(*(torch.from_numpy(np.array(x)) for x in pj))
-    geom = trg._geometry(H, W, N, None, (1.0, 1.0, 1.0), EPS, True)
     idx, cnt = trg._bin(p, geom)
     _, cnt_box = rc.bin_splats_dense(p.x0, p.x1, p.y0, p.y1, geom[0], geom[1], th, tw, N)
     assert int(cnt.sum()) < int(cnt_box.sum())  # the corner cull engaged
@@ -102,6 +111,89 @@ def test_culled_kernel_grads_match_jax():
     scale = float(np.abs(grads_j).max()) + 1e-12
     np.testing.assert_allclose(grads.numpy() / scale, grads_j / scale, atol=2e-6)
     np.testing.assert_array_equal(grads[:, :, :2].numpy(), np.zeros((B, 9, 2), np.float32))
+
+
+@pytest.mark.parametrize("entry", ["fused", "render_diff"])
+def test_corner_culled_entry_points_match_jax(entry):
+    """fused_value_and_grad and render_diff with cull_eps and the corner cull
+    against JAX's fused_value_and_grad and render_pallas_diff (interpret
+    mode) at JAX's default tile_h, on the same genomes: the fused path from
+    the axes genome, the unfused one from the renderer genome (JAX's codec),
+    each with the mean weighted fitness as its loss. Loss rtol 1e-5, fits
+    rtol 1e-5 / atol 1e-7, gradients divided by their largest magnitude
+    atol 2e-6 (tests/test_render_grad.py:163-167)."""
+    g = _genomes(43)
+    tgt, wm = torch.from_numpy(TGT), torch.from_numpy(WM)
+    cull = dict(cull_eps=EPS, corner_cull=True)
+    if entry == "fused":
+        (loss_j, fits_j), grads_j = jrg.fused_value_and_grad(
+            jnp.asarray(g), jnp.asarray(TGT), jnp.asarray(WM), H, W, interpret=True, **cull)
+        (loss, fits), grads = trg.fused_value_and_grad(torch.from_numpy(g), tgt, wm, H, W, **cull)
+    else:
+        g9 = np.array(jcodec.genome_to_renderer(jnp.asarray(g)))
+
+        def jax_loss(x):
+            img = jrg.render_pallas_diff(x, H, W, interpret=True, **cull)
+            fits = jfitness.fitness_from_images(img, jnp.asarray(TGT), jnp.asarray(WM))
+            return jnp.mean(fits), fits
+
+        (loss_j, fits_j), grads_j = jax.value_and_grad(jax_loss, has_aux=True)(jnp.asarray(g9))
+        gt = torch.from_numpy(g9).requires_grad_(True)
+        fits = tfitness.fitness_from_images(trg.render_diff(gt, H, W, **cull), tgt, wm)
+        loss = torch.mean(fits)
+        (grads,) = torch.autograd.grad(loss, gt)
+        loss, fits = loss.detach(), fits.detach()
+    grads_j = np.asarray(grads_j)
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-5)
+    np.testing.assert_allclose(fits.numpy(), np.asarray(fits_j), rtol=1e-5, atol=1e-7)
+    scale = float(np.abs(grads_j).max()) + 1e-12
+    np.testing.assert_allclose(grads.numpy() / scale, grads_j / scale, atol=2e-6)
+
+
+class _Stop(Exception):
+    """Raised where a tile height has been read, to skip the walk."""
+
+
+@pytest.mark.parametrize("entry", ["fused", "render_diff"])
+@pytest.mark.parametrize("N", [24, 2000, 10_000])
+def test_corner_cull_list_tile_is_jax(monkeypatch, entry, N):
+    """Under the corner cull each entry point bins on the tile height JAX's
+    picks by its VMEM rule (render_grad.py:670-678, :766-780): JAX's read
+    where it builds its kernel, the port's where it bins (the first pass of
+    render_diff, from the whole cap). Above 8000 splats the fused path is
+    refused by both packages."""
+    g = axes_genomes(44, 1, N, H, W)
+    seen = {}
+
+    def record(key, tile_h):
+        seen[key] = tile_h
+        raise _Stop
+
+    monkeypatch.setattr(trg, "_bin", lambda p, geom: record("port", geom[2]))
+    factory = "_make_screen_lossgrad" if entry == "fused" else "_make_screen_render"
+    monkeypatch.setattr(jrg, factory, lambda *a, **kw: record("jax", a[4]))
+    cull = dict(cull_eps=EPS, corner_cull=True)
+    if entry == "fused":
+        if N > rc.MAX_SPLATS:
+            with pytest.raises(ValueError):
+                jrg.fused_value_and_grad(jnp.asarray(g), jnp.asarray(TGT), None, H, W, **cull)
+            with pytest.raises(ValueError):
+                trg.fused_value_and_grad(torch.from_numpy(g), torch.from_numpy(TGT), None, H, W,
+                                         **cull)
+            return
+        with pytest.raises(_Stop):
+            jrg.fused_value_and_grad(jnp.asarray(g), jnp.asarray(TGT), None, H, W, **cull)
+        with pytest.raises(_Stop):
+            trg.fused_value_and_grad(torch.from_numpy(g), torch.from_numpy(TGT), None, H, W,
+                                     **cull)
+    else:
+        g9 = np.array(jcodec.genome_to_renderer(jnp.asarray(g)))
+        with pytest.raises(_Stop):
+            jrg.render_pallas_diff(jnp.asarray(g9), H, W, **cull)
+        with pytest.raises(_Stop):
+            trg.render_diff(torch.from_numpy(g9), H, W, **cull)
+    assert seen["port"] == seen["jax"] == trg.list_tile_h(N)
+    assert seen["port"] == {24: 64, 2000: 64, 10_000: 16}[N]
 
 
 def test_fast_objective_in_the_gradient_paths():
