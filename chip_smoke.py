@@ -5,8 +5,10 @@
 
 Phases, each fatal on failure (no exception is caught):
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit.
-2. build: compiles csrc/walk.cu and csrc/walk_grad.cu with nvcc for sm_90a
-   (two nvcc processes at once); prints ptxas' report.
+2. build: compiles csrc/walk.cu, csrc/walk_grad.cu and csrc/scatter.cu with
+   nvcc for sm_90a (one nvcc each, all at once); prints ptxas' report and a
+   WALK line: each forward walk kernel's registers, static shared memory,
+   spill bytes and resident blocks a SM.
 3. kernels: K1 (fitness_tiles) and K2 (render_tiles) against their plain
    PyTorch versions on bit-identical lists, at the GA main path's shapes
    (512x512, N=512, B=32, 64x128 tiles, exact-tight and highest), on an odd
@@ -16,6 +18,8 @@ Phases, each fatal on failure (no exception is caught):
    tiles) and the memetic elite batch (B=8, N=512), with K7's num against
    K1 on the same lists, K6 against K7 and a second launch of each for the
    same bits (each of the 9 gradient rows against its own largest value);
+   the walk's bf16x2 add, subtract and multiply on the card against the f32
+   result rounded to bf16 (random, tie and subnormal pairs, bit for bit);
    plus the entry points (fitness, canvas, fused and unfused genome
    gradients) on a small input against the dense oracle on the CPU.
 4. main paths, each with every launch count set to 0 before and read after:
@@ -35,8 +39,9 @@ Phases, each fatal on failure (no exception is caught):
    fall and stay monotone, K7 launch 25 times.
 5. times: K1 at B=32 and B=512, K2 at B=1 and B=32 and on run_grad's lists
    (K2', RenderDiff's forward), K6 and K7 at both gradient shapes and on
-   each list tile height, K6 with d(init) on grad-10k-1024's last chained
-   pass, with CUDA events over many launches after a warm-up,
+   each list tile height, K6 with d(init) and K2' from the init canvas on
+   grad-10k-1024's last chained pass, with CUDA events over many launches
+   after a warm-up,
    their plain versions, the port's evaluate in renders/s at B=512, the GA
    in generations/s over several blocks, and Adam steps/s at run_grad's
    defaults and at bench.py's gradient configuration, one Adam block under
@@ -44,7 +49,9 @@ Phases, each fatal on failure (no exception is caught):
    is computed from this run's lists.
 6. profile: one GA block and one Adam block under torch.profiler, with the
    device time split between the walk kernel, sorting (the dense binning)
-   and the other kernels; and one fast GA block (walk, K4, sort, other).
+   and the other kernels; and one fast GA block (walk, K4, sort, other);
+   the device launches a GA generation (exact-tight, fast) and an Adam step
+   may not exceed LAUNCH_LIMITS.
 The fast tier adds, in the same phases: K3 (fitness_tiles_fast,
 render_tiles_fast) and K4 (prep_fast) against their plain versions at the
 fast GA's shapes (B=32, N=512, 512x512, eps 2e-3 and 8e-2, corner cull) and
@@ -163,6 +170,10 @@ BF16_MIN_GAP = 10 * BF16_RTOL
 K4_ULPS = 2  # K4's table vs its plain version, finite entries
 FIDELITY_MAX_GAP = 1.5e-2  # tests/test_tpu_exactness.py:175-178
 FIDELITY_POPS, FIDELITY_B = 20, 64  # benchmarks/eps_sweep.py's rank rounds
+# device launches a GA generation (exact-tight, fast) and an Adam step at
+# run_grad's defaults, under torch.profiler, at the commit before the walk
+# redesign (PERF.md section 5): no change to the walk may add one
+LAUNCH_LIMITS = {"ga_exact_tight": 312.1, "ga_fast": 268.1, "adam": 442.1}
 FAST_GENS, FAST_MEMETIC_GENS, BF16_GENS = 200, 50, 50
 # kernel vs plain gradients: each of the 9 rows (a field over every image
 # and splat) within GRAD_ROW_REL of that row's largest plain magnitude
@@ -685,9 +696,9 @@ def chained_case(g9, tgt, wm, precision, cull_eps=None, corner_cull=False, tile_
 def chained_grad_case(g9, tgt, wm):
     """The second of two passes of render_diff at run_grad's exact-tight
     boxes, built as render_grad.RenderDiff builds it: the pass's lists on
-    the gradient tiles (K5 from 256 tiles), its raw table, `init` the first
-    pass's K2 canvas, and the image cotangent of the weighted SSE of the
-    chained canvas."""
+    the gradient tiles (K5 from 256 tiles), its raw table (and the folded
+    one K2' walks, `feats_fast`), `init` the first pass's K2 canvas, and the
+    image cotangent of the weighted SSE of the chained canvas."""
     import torch
 
     from ggs_tpu_torch.ops import render_cuda as rc, render_grad as rg
@@ -710,7 +721,7 @@ def chained_grad_case(g9, tgt, wm):
     tgt_p, w_p = rc.pad_planes(tgt, wm, n_ty * th, n_tx * tw)
     g_img = (2.0 * w_p * (torch.clamp(canvas, 0.0, 1.0) - tgt_p[None])).contiguous()
     return dict(cnt=cnt, idx=idx, feats=rg._splat_feats(pc), g_img=g_img, n_tx=n_tx, tile_h=th,
-                tile_w=tw, w_p=w_p, init=first)
+                tile_w=tw, w_p=w_p, init=first, feats_fast=rc._splat_feats_fast(pc))
 
 
 def compare_grad_init(c, label: str, init_must_show: bool = True) -> dict:
@@ -833,6 +844,98 @@ def scatter_bound(args, cnt_sum_gl, overflow=False):
             words += B * 8 * 2 * N
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, 4 * words / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def walk_report(kern) -> dict:
+    """csrc/walk.cu's walk kernels as ptxas built them (registers, static
+    shared memory, spill bytes) and the blocks of each that one SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import re
+
+    # mangled name -> (label, fitness epilogue, blend mode)
+    names = {"fitness_kernelILi0E": ("fitness_kernel<0> (K1)", 1, 0),
+             "fitness_kernelILi1E": ("fitness_kernel<1> (K3)", 1, 1),
+             "fitness_kernelILi2E": ("fitness_kernel<2> (K1-bf16)", 1, 2),
+             "render_kernelILi0E": ("render_kernel<0> (K2, K2')", 0, 0),
+             "render_kernelILi1E": ("render_kernel<1> (K3 canvas)", 0, 1)}
+    out, cur = {}, None
+    for line in kern.logs["walk"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            hit = next((v for k, v in names.items() if k in m.group(1)), None)
+            cur = hit[0] if hit else None
+            if hit:
+                out[cur] = {"blocks_per_sm": kern.lib.ggs_walk_blocks_per_sm(*hit[1:])}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            out[cur].update(registers=int(m.group(1)), smem_bytes=int(m.group(2)))
+    print("WALK " + json.dumps(out), flush=True)
+    check(len(out) == len(names), f"ptxas reported {sorted(out)}, not every walk kernel")
+    for name, r in out.items():
+        check(r.get("blocks_per_sm", 0) > 0, f"{name}: no block fits a SM ({r})")
+    return out
+
+
+def bf16x2_pairs(n: int, seed: int):
+    """bf16 operand pairs (a, b) [3n + 4] on the CPU: random finite bit
+    patterns; pairs whose exact sum or product lies halfway between two
+    bf16 values (ties); and pairs of subnormals and of normals near the
+    subnormal range (results that are subnormal)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def bits(lo, hi, k):
+        u = torch.randint(lo, hi, (k,), generator=gen, dtype=torch.int32)
+        sign = torch.randint(0, 2, (k,), generator=gen, dtype=torch.int32) << 15
+        return (u | sign).to(torch.int16).view(torch.bfloat16)
+
+    rand = bits(0, 0x7F80, n), bits(0, 0x7F80, n)  # every finite magnitude
+    m = bits(0x3F80, 0x4000, n)  # [1, 2): a + 2^-8 * (odd) ties in the sum
+    half = torch.full((n,), 2.0 ** -8, dtype=torch.bfloat16)
+    tiny = bits(0, 0x0180, n), bits(0, 0x0180, n)  # subnormals and the smallest normals
+    a = torch.cat([rand[0], m, tiny[0], torch.tensor([3.0, 1.0078125, 2.0 ** -126, 1.5],
+                                                       dtype=torch.bfloat16)])
+    b = torch.cat([rand[1], half, tiny[1], torch.tensor([2.0 ** -8, 1.0078125, -(2.0 ** -127),
+                                                         2.0 ** -127], dtype=torch.bfloat16)])
+    return a, b
+
+
+def check_bf16x2(kern) -> dict:
+    """The walk's bf16x2 add, subtract and multiply on the card (walk.cu's
+    own helpers, through ggs_bf16x2_probe) against the f32 result rounded to
+    bf16 on the CPU, bit for bit, on bf16x2_pairs: each half correctly
+    rounded, ties to even, subnormals kept (not flushed to 0)."""
+    import torch
+
+    a, b = bf16x2_pairs(4096, 3)
+    n2 = a.numel() // 2 * 2
+    a, b = a[:n2], b[:n2]
+    ref = {0: a.float() + b.float(), 1: a.float() - b.float(), 2: a.float() * b.float()}
+    out = {}
+    ad, bd = a.cuda(), b.cuda()
+    for op, name in ((0, "add"), (1, "sub"), (2, "mul")):
+        res = torch.empty_like(ad)
+        rc = kern.lib.ggs_bf16x2_probe(op, ad.data_ptr(), bd.data_ptr(), res.data_ptr(), n2 // 2,
+                                       torch.cuda.current_stream().cuda_stream)
+        kern.check(rc, "bf16x2 probe")
+        want = ref[op].to(torch.bfloat16)
+        got = res.cpu()
+        differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        sub = want.float().abs() < 2.0 ** -126
+        out[name] = {"pairs": n2, "differ": differ,
+                     "subnormal_results": int((sub & (want.float() != 0)).sum())}
+    print("CHECK bf16x2 on the card vs f32 rounded to bf16 (random, ties, subnormals): "
+          + json.dumps(out), flush=True)
+    for name, r in out.items():
+        check(r["differ"] == 0 and r["subnormal_results"] > 0, f"bf16x2 {name}: {r}")
+    return out
 
 
 def fmt(xs) -> str:
@@ -1032,6 +1135,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("    " + line.strip())
+    walk_build = walk_report(kern)
 
     # 3. kernels against their plain versions
     phase("kernels vs plain")
@@ -1080,6 +1184,13 @@ def main() -> int:
         if th != rg.GRAD_TILE_H:
             grad_errs[f"B1_N2000_th{th}"] = compare_grad(
                 c, f"K6/K7 B1_N2000 512x512 exact-tight {th}x128 tiles")
+    # K1/K2 against plain on every list tile height the walks take (the
+    # gradient paths' 8-64 x 128 lists: 2-16 sub-tiles a tile), from the
+    # background and from a seeded canvas
+    for th, c in sorted(tile_cases.items()):
+        cf = dict(c, feats=c["feats_fast"])
+        errs[f"tiles_{th}"] = compare(cf, f"B=1 N=2000 512x512 exact-tight {th}x128 tiles")
+        compare_init(cf, "exact", f"seeded canvas, B=1 N=2000 {th}x128 tiles")
     check_grad_entry_points()
 
     # K3 (both epilogues) and K4 at the fast GA's shapes, at both eps with the
@@ -1090,8 +1201,13 @@ def main() -> int:
         fast_errs[eps] = compare_fast(c, f"B=32 N=512 512x512 fast eps={eps} corner cull")
     compare_fast(make_case(4, 256, 200, 328, "fast", seed=21, cull_eps=8e-2),
                  "B=4 N=256 200x328 fast eps=0.08 (odd canvas)")
+    compare_fast(make_case(4, 256, 200, 328, "fast", tile_h=16, seed=21, cull_eps=8e-2),
+                 "B=4 N=256 200x328 fast eps=0.08, 16x128 tiles")
+    compare_bf16(make_case(4, 256, 200, 328, "bf16", tile_h=16, seed=23),
+                 "B=4 N=256 200x328 bf16, 16x128 tiles")
     bf16_case = make_case(32, 512, 512, 512, "bf16", seed=22)
     bf16_err = compare_bf16(bf16_case, "B=32 N=512 512x512 bf16")
+    bf16x2 = check_bf16x2(kern)
     check_fast_entry_points()
 
     # the large-canvas path: every walk from an init canvas (a chained
@@ -1487,6 +1603,12 @@ def main() -> int:
     t["K6_grad_10k_1024_init"] = cuda_ms(
         lambda: rg.bwd_tiles(*bg_args, BG, init=big_grad_case["init"]), 10)
     bounds["K6_grad_10k_1024_init"] = bound(big_grad_case, "K6")
+    # K2' (RenderDiff's forward) on the same pass, from the first pass's canvas
+    k2p_big = dict(big_grad_case, feats=big_grad_case["feats_fast"])
+    k2p_args = tuple(k2p_big[f] for f in ("cnt", "idx", "feats", "n_tx", "tile_h", "tile_w"))
+    t["K2p_grad_10k_1024_init"] = cuda_ms(
+        lambda: rc.render_tiles(*k2p_args, BG, init=k2p_big["init"]), 10)
+    bounds["K2p_grad_10k_1024_init"] = bound(k2p_big, "K2")
     del c512, tile_cases
 
     # the fast tier's kernels at the fast GA's shapes (eps 2e-3, corner cull)
@@ -1565,6 +1687,7 @@ def main() -> int:
 
     times = {
         "card": card,
+        "walk_build": walk_build,
         "ms": t,
         "bound_ms": {k: v[0] for k, v in bounds.items()},
         "bound_by": {k: v[1] for k, v in bounds.items()},
@@ -1669,6 +1792,16 @@ def main() -> int:
         walk="grad_kernel",
     )
     print("PROFILE ADAM " + json.dumps(prof_adam), flush=True)
+    # device launches a generation and a step may not rise above the
+    # parent's counts for the same code path
+    launch_rates = {}
+    for key, p in (("ga_exact_tight", prof), ("ga_fast", prof_fast), ("adam", prof_adam)):
+        launch_rates[key] = p["kernels_per_step"]
+        limit = LAUNCH_LIMITS[key]
+        check(round(p["kernels_per_step"] * p["steps"]) <= round(limit * p["steps"]),
+              f"{key}: {p['kernels_per_step']} launches a step, above {limit}")
+    print("LAUNCHES per GA generation / Adam step " + json.dumps(
+        {"measured": launch_rates, "limit": LAUNCH_LIMITS}), flush=True)
 
     kernels = [
         {
@@ -1705,6 +1838,20 @@ def main() -> int:
                     "launched from render_grad.RenderDiff; takes an init canvas on every pass "
                     f"but the first ({big_grad_launches['K2-init']} init launches in "
                     "run_grad at grad-10k-1024)",
+            "K2p_run_grad": {
+                "launches": unfused_launches["K2"],
+                "ms": t["K2p_B1_N2000"],
+                "plain_ms": t["K2p_plain_B1_N2000"],
+                "bound_ms": bounds["K2p_B1_N2000"][0],
+                "bound_by": bounds["K2p_B1_N2000"][1],
+            },
+            "K2p_grad_10k_1024": {
+                "launches": big_grad_launches["K2"],
+                "init_launches": big_grad_launches["K2-init"],
+                "ms": t["K2p_grad_10k_1024_init"],
+                "bound_ms": bounds["K2p_grad_10k_1024_init"][0],
+                "bound_by": bounds["K2p_grad_10k_1024_init"][1],
+            },
         },
         {
             "name": "K3 fitness_tiles_fast / render_tiles_fast (exp2 fast-tier walk)",
@@ -1752,7 +1899,9 @@ def main() -> int:
             "note": "compute_dtype=bfloat16 at render_pallas.py:1460; from an init canvas "
                     f"at big-10k-1024 ({bf16_big_launches['K1-bf16-init']} launch; there, on its "
                     f"2nd pass, fitness max rel {init_errs['big_bf16']['fitness_rel']} against "
-                    "plain)",
+                    "plain); packed bf16x2, the card's add/sub/mul equal to the f32 result "
+                    f"rounded on {bf16x2['mul']['pairs']} pairs each; K1 (f32) on the same "
+                    f"lists: {t['K1_B32_reference_box']} ms",
         },
         {
             "name": "K5 bin_splats_scatter (pair-scatter binning, >= 256 tiles)",

@@ -35,24 +35,57 @@
 //     every product, sum, exp and blend rounded to bf16 (as torch rounds each
 //     bf16 operation; expf of the bf16 value, then rounded); the canvas
 //     starts as the bf16 background (or init) and is carried in bf16.
-// Finally C is clamped to [0, 1] in f32. A pixel outside the box skips the
-// blend: with f = 0 it is an exact no-op in every mode, so skipping changes
-// no bit (mode 1: exp2f(-inf) = 0 for alpha 0 and the sentinel, which is
-// why no ex2.approx). Build with -fmad=false and without fast math: every
-// product and sum is rounded on its own, as in the plain PyTorch versions,
-// and expf/exp2f/logf/log2f are the accurate ones.
+// Finally C is clamped to [0, 1] in f32. With f = 0 the blend is an exact
+// no-op in every mode ((1-0)*C + 0*c == C, C + 0*(c-C) == C), so a pixel
+// outside the box may take it or skip it without changing a bit. f is taken
+// as 0 outside the box by a select, never by a multiply with a 0/1 mask,
+// which would turn an inf from exp of a badly cancelled quadratic into NaN
+// (mode 1: exp2f(-inf) = 0 for alpha 0 and the sentinel, which is why no
+// ex2.approx). Build with -fmad=false and without fast math: every product
+// and sum is rounded on its own, as in the plain PyTorch versions, and
+// expf/exp2f/logf/log2f are the accurate ones.
+//
+// Mode 2 runs on packed bf16x2: a thread's rows (0, 1) and (2, 3) share one
+// register per channel, and every bf16 product, sum and difference is one
+// mul/add/sub.rn.bf16x2 (the _rn intrinsics: never contracted into an fma,
+// so R(R(omf*C) + R(f*c)) keeps its roundings). For bf16 operands the
+// correctly rounded bf16 result of +, - and * equals the f32 result rounded
+// to bf16, since f32's 24 bits are at least 2*8 + 2 (double rounding is
+// innocuous, subnormals included: tests/test_torch_bf16_pairs.py), which is
+// what torch computes for the plain version. qy is formed in f32 and packed
+// with one rounding, and exp stays f32 per pixel on the bf16 value.
 //
 // What bounds the walks on the card: their arithmetic, about 20-30
 // operations and one exp per (splat, pixel) pair inside the box, against a
-// few KB of list and table per tile. The design keeps every pixel's canvas
-// in registers for the whole walk (one block per (candidate, tile), each
-// thread owning one column and tile_h / (256 / tile_w) rows), stages the
-// list's splat parameters through shared memory 256 at a time so each is
-// read from device memory once per tile, and hoists the per-column terms
-// (qx, nsxx*qx*qx, the x test) out of the row loop (in mode 1 that term is
-// the last add of the sum, so hoisting changes no bit). The K1 reduction is
-// fixed-order (rows in order, a warp shuffle tree, then the warps in order),
-// with no atomics, so fitness is the same bits on every run.
+// few KB of list and table per tile. The work unit is a sub-tile, not the
+// list tile: a block of 128 threads walks kRows = 4 rows x 128 columns of one
+// list tile (tile_h a multiple of 4: S = tile_h / 4 sub-tiles, B * T * S
+// blocks), each thread one column and four rows, carrying their canvas (12
+// floats, 6 bf16x2 registers in mode 2) in registers for the whole walk, so
+// many blocks are resident on a SM. Every sub-tile of a tile walks the
+// tile's whole list, but a splat whose rows miss the sub-tile's four is
+// dropped while it is staged (a ballot compaction that keeps ascending
+// order: measured faster than a block-uniform test per splat, PERF.md), and
+// one whose columns miss a warp's 32 costs that warp a warp-uniform test;
+// the four rows then run without a branch, each pixel outside the box
+// taking f = 0 by a select, so their dependent chains interleave. The
+// list's splat parameters are staged through shared memory kChunk splats at
+// a time, padded to 16 floats for 16-byte loads (the box first, so the skip
+// test reads one), double-buffered and two deep: each thread loads its
+// share of the next chunk's parameters, and the list entry of the one
+// after, while the block walks the current one.
+//
+// K1's sum is fixed-order, with no atomics on values: each thread sums its
+// rows in order, then a warp shuffle tree, then the 4 warps in order give the
+// sub-tile's partial; the S sub-tiles of a tile are summed in index order in
+// the same launch by the block that finishes last, which a per-tile ticket
+// counter names (an atomic on the counter, which that block resets to 0 for
+// the next launch). So fitness is the same bits on every launch.
+//
+// ptxas (sm_90a, -O3 -fmad=false) on the H100 run recorded in PERF.md:
+// fitness_kernel<0/1/2> 63/64/60 registers and render_kernel<0/1> 63/62 (the
+// launch bound caps them at 64 for 8 blocks a SM), ~4 KB of static shared
+// memory, no spills.
 //
 // K4 is elementwise, one thread per (candidate, splat), reading the
 // [B, N, 9] genome in place (no transpose copy): a few dozen operations
@@ -63,218 +96,348 @@
 
 namespace ggs {
 
-constexpr int kThreads = 256;  // threads per block (one block per tile)
-constexpr int kMaxRows = 32;   // tile rows one thread owns, at most
-constexpr int kChunk = 256;    // list entries staged per pass
-constexpr int kNFeat = 13;     // rows of the parameter table
+constexpr int kTileW = 128;        // list tile width: one column per thread
+constexpr int kThreads = kTileW;   // threads per block
+constexpr int kRows = 4;           // rows a thread owns: the sub-tile's height
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 32;         // list entries staged per pass
+constexpr int kNFeat = 13;         // rows of the parameter table
+constexpr int kPer = (kNFeat + kWarps - 1) / kWarps;  // table rows a thread stages
+constexpr int kMinBlocks = 8;      // resident blocks a SM the registers must allow
 
 // rows of the parameter table (render_pallas._splat_feats_fast / _turbo)
 enum { F_CX, F_CY, F_SXX, F_SXY, F_SYY, F_R, F_G, F_B, F_A, F_X0, F_X1, F_Y0, F_Y1 };
 enum { kExact = 0, kFast = 1, kBf16 = 2 };
+
+static_assert(kChunk == 32 && kThreads % kChunk == 0, "a warp stages one chunk's entries");
 
 struct WalkParams {
   const int* cnt;      // [B, T]
   const int* idx;      // [B, T, L] ascending splat indices
   const float* feats;  // [B, 13, N1]
   const float* init;   // [B, 3, Hp, Wp] the canvas to start from, or null: the background
-  int T, L, N1;
-  int n_tx, tile_h, tile_w, Hp, Wp;
+  int T, S, L, N1;
+  int n_tx, tile_h, Hp, Wp;
   float bg0, bg1, bg2;
 };
 
-// f32 -> bf16 (round to nearest even) -> f32: one bf16 rounding
-__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+// A table row's slot in the padded shared-memory record: the box first
+// (x0 x1 y0 y1 | cx cy nsxx nsxy | nsyy r g b | a), so one 16-byte load
+// serves the warp test.
+__host__ __device__ constexpr int slot(int r) { return r >= F_X0 ? r - F_X0 : r + 4; }
 
-// one bf16 rounding in mode 2, the identity in the f32 modes
-template <int kMode>
-__device__ __forceinline__ float R(float x) { return kMode == kBf16 ? bf(x) : x; }
-
-struct TileGeom {
-  int bt, b, col, row0, rstride, nrows, tx0, ty0;
+struct Splat {
+  float x0, x1, y0, y1, cx, cy, sxx, sxy, syy, rc, gc, bc, a;
 };
 
-__device__ __forceinline__ TileGeom tile_geom(const WalkParams& p) {
-  TileGeom g;
-  g.bt = blockIdx.x;  // b * T + t
+// This block's sub-tile: list tile bt = b * T + t, sub-tile `sub` of its S,
+// rows ry0 .. ry0 + 3; the thread's column col, its pixel in row 0 at px.
+struct SubTile {
+  int bt, b, sub, col, lane, warp, tx0, ry0;
+  size_t px;
+};
+
+__device__ __forceinline__ SubTile sub_tile(const WalkParams& p) {
+  SubTile g;
+  g.bt = blockIdx.x / p.S;
+  g.sub = blockIdx.x - g.bt * p.S;
   g.b = g.bt / p.T;
   const int t = g.bt - g.b * p.T;
-  g.tx0 = (t % p.n_tx) * p.tile_w;
-  g.ty0 = (t / p.n_tx) * p.tile_h;
-  g.rstride = kThreads / p.tile_w;
-  g.col = threadIdx.x % p.tile_w;
-  g.row0 = threadIdx.x / p.tile_w;
-  g.nrows = p.tile_h / g.rstride;
+  g.col = threadIdx.x;
+  g.lane = g.col & 31;
+  g.warp = g.col >> 5;
+  g.tx0 = (t % p.n_tx) * kTileW;
+  g.ry0 = (t / p.n_tx) * p.tile_h + g.sub * kRows;
+  g.px = (size_t)g.ry0 * p.Wp + g.tx0 + g.col;
   return g;
 }
 
-// canvas offset of this thread's pixel in row j
-__device__ __forceinline__ size_t pixel(const WalkParams& p, const TileGeom& g, int j) {
-  return (size_t)(g.ty0 + g.row0 + j * g.rstride) * p.Wp + g.tx0 + g.col;
+using bf2 = __nv_bfloat162;
+
+// bf16x2 arithmetic, each half correctly rounded; never contracted
+__device__ __forceinline__ bf2 bmul(bf2 a, bf2 b) { return __hmul2_rn(a, b); }
+__device__ __forceinline__ bf2 badd(bf2 a, bf2 b) { return __hadd2_rn(a, b); }
+__device__ __forceinline__ bf2 bsub(bf2 a, bf2 b) { return __hsub2_rn(a, b); }
+
+// each half of v where its flag is set, +0 elsewhere: a select of bits
+__device__ __forceinline__ bf2 bsel(bf2 v, bool lo, bool hi) {
+  unsigned u = *reinterpret_cast<const unsigned*>(&v);
+  u &= (lo ? 0x0000ffffu : 0u) | (hi ? 0xffff0000u : 0u);
+  return *reinterpret_cast<const bf2*>(&u);
 }
 
-// Walks the tile's list; leaves the clamped canvas of this thread's pixels
-// in cr/cg/cb[j] for rows j < nrows.
-template <int kMode>
-__device__ __forceinline__ void walk_tile(const WalkParams& p, const TileGeom& g,
-                                          float (&cr)[kMaxRows], float (&cg)[kMaxRows],
-                                          float (&cb)[kMaxRows]) {
-  __shared__ float sf[kNFeat][kChunk];
+__device__ __forceinline__ bf2 bsplat(float x) { return __float2bfloat162_rn(x); }
 
-  const float xf = (float)(g.tx0 + g.col);
-  const float ybase = (float)(g.ty0 + g.row0);
-  const int rstride = g.rstride, nrows = g.nrows;
-  if (p.init) {
-    const size_t plane = (size_t)p.Hp * p.Wp;
-    const float* ib = p.init + (size_t)g.b * 3 * plane;
+// The canvas of a thread's four rows: f32 in modes 0 and 1, rows (0, 1) and
+// (2, 3) packed in mode 2.
+template <int kMode>
+struct Canvas {
+  float r[kRows], g[kRows], b[kRows];
+};
+template <>
+struct Canvas<kBf16> {
+  bf2 r[2], g[2], b[2];
+};
+
+// One splat over the thread's four rows (rows yb .. yb + 3 of column xf).
+__device__ __forceinline__ void blend(Canvas<kExact>& C, const Splat& s, float xf, float yb) {
+  const bool inx = xf >= s.x0 && xf <= s.x1;
+  const float qx = xf - s.cx;
+  const float txx = s.sxx * (qx * qx);
 #pragma unroll
-    for (int j = 0; j < kMaxRows; ++j) {
-      if (j < nrows) {
-        const size_t o = pixel(p, g, j);
-        cr[j] = R<kMode>(ib[o]);
-        cg[j] = R<kMode>(ib[plane + o]);
-        cb[j] = R<kMode>(ib[2 * plane + o]);
+  for (int r = 0; r < kRows; ++r) {
+    const float yf = yb + (float)r;
+    const float qy = yf - s.cy;
+    float quad = txx + s.sxy * (qx * qy);
+    quad = quad + s.syy * (qy * qy);
+    const float e = expf(quad) * s.a;
+    const float f = (inx && yf >= s.y0 && yf <= s.y1) ? e : 0.0f;
+    const float omf = 1.0f - f;
+    C.r[r] = omf * C.r[r] + f * s.rc;
+    C.g[r] = omf * C.g[r] + f * s.gc;
+    C.b[r] = omf * C.b[r] + f * s.bc;
+  }
+}
+
+__device__ __forceinline__ void blend(Canvas<kFast>& C, const Splat& s, float xf, float yb) {
+  const bool inx = xf > s.x0 && xf < s.x1;
+  const float qx = xf - s.cx;
+  const float txx = s.sxx * (qx * qx);  // the sum's last add: hoisting changes no bit
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float yf = yb + (float)r;
+    const float qy = yf - s.cy;
+    const float inner = s.sxy * (qx * qy) + (s.syy * (qy * qy) + s.a);
+    const float e = exp2f(txx + inner);
+    const float f = (inx && yf > s.y0 && yf < s.y1) ? e : 0.0f;
+    C.r[r] = C.r[r] + f * (s.rc - C.r[r]);
+    C.g[r] = C.g[r] + f * (s.gc - C.g[r]);
+    C.b[r] = C.b[r] + f * (s.bc - C.b[r]);
+  }
+}
+
+__device__ __forceinline__ void blend(Canvas<kBf16>& C, const Splat& s, float xf, float yb) {
+  const bool inx = xf >= s.x0 && xf <= s.x1;
+  const bf2 qx = bsplat(xf - s.cx);
+  const bf2 txx = bmul(bsplat(s.sxx), bmul(qx, qx));
+  const bf2 bxy = bsplat(s.sxy), byy = bsplat(s.syy), ba = bsplat(s.a);
+  const bf2 brc = bsplat(s.rc), bgc = bsplat(s.gc), bbc = bsplat(s.bc);
+  const bf2 one = bsplat(1.0f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float ylo = yb + (float)(2 * h), yhi = ylo + 1.0f;  // the pair's rows
+    const bf2 qy = __floats2bfloat162_rn(ylo - s.cy, yhi - s.cy);
+    bf2 quad = badd(txx, bmul(bxy, bmul(qx, qy)));
+    quad = badd(quad, bmul(byy, bmul(qy, qy)));
+    const bf2 e = __floats2bfloat162_rn(expf(__low2float(quad)), expf(__high2float(quad)));
+    const bf2 f = bsel(bmul(e, ba), inx && ylo >= s.y0 && ylo <= s.y1,
+                       inx && yhi >= s.y0 && yhi <= s.y1);
+    const bf2 omf = bsub(one, f);
+    C.r[h] = badd(bmul(omf, C.r[h]), bmul(f, brc));
+    C.g[h] = badd(bmul(omf, C.g[h]), bmul(f, bgc));
+    C.b[h] = badd(bmul(omf, C.b[h]), bmul(f, bbc));
+  }
+}
+
+template <int kMode>
+__device__ __forceinline__ void start(Canvas<kMode>& C, const WalkParams& p, const SubTile& g) {
+  const size_t plane = (size_t)p.Hp * p.Wp;
+  const float* ib = p.init ? p.init + (size_t)g.b * 3 * plane + g.px : nullptr;
+  if constexpr (kMode == kBf16) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (ib) {
+        const float* i0 = ib + (size_t)(2 * h) * p.Wp;
+        const float* i1 = i0 + p.Wp;
+        C.r[h] = __floats2bfloat162_rn(i0[0], i1[0]);
+        C.g[h] = __floats2bfloat162_rn(i0[plane], i1[plane]);
+        C.b[h] = __floats2bfloat162_rn(i0[2 * plane], i1[2 * plane]);
+      } else {
+        C.r[h] = bsplat(p.bg0);
+        C.g[h] = bsplat(p.bg1);
+        C.b[h] = bsplat(p.bg2);
       }
     }
   } else {
-    const float bg0 = R<kMode>(p.bg0), bg1 = R<kMode>(p.bg1), bg2 = R<kMode>(p.bg2);
 #pragma unroll
-    for (int j = 0; j < kMaxRows; ++j) {
-      cr[j] = bg0;
-      cg[j] = bg1;
-      cb[j] = bg2;
-    }
-  }
-
-  const int n = p.cnt[g.bt];
-  const int* list = p.idx + (size_t)g.bt * p.L;
-  const float* fb = p.feats + (size_t)g.b * kNFeat * p.N1;
-
-  for (int base = 0; base < n; base += kChunk) {
-    const int m = min(kChunk, n - base);
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = threadIdx.x; e < m; e += blockDim.x) {
-      const int s = list[base + e];
-#pragma unroll
-      for (int r = 0; r < kNFeat; ++r) sf[r][e] = fb[(size_t)r * p.N1 + s];
-    }
-    __syncthreads();
-
-    for (int k = 0; k < m; ++k) {
-      const float x0 = sf[F_X0][k];
-      const float x1 = sf[F_X1][k];
-      // this column is outside the box
-      if (kMode == kFast ? !(xf > x0 && xf < x1) : !(xf >= x0 && xf <= x1)) continue;
-      const float cx = sf[F_CX][k];
-      const float cy = sf[F_CY][k];
-      const float nsxx = sf[F_SXX][k];
-      const float nsxy = sf[F_SXY][k];
-      const float nsyy = sf[F_SYY][k];
-      const float rc = sf[F_R][k];
-      const float gc = sf[F_G][k];
-      const float bc = sf[F_B][k];
-      const float a = sf[F_A][k];  // mode 1: log2(alpha), -inf for alpha 0
-      const float y0 = sf[F_Y0][k];
-      const float y1 = sf[F_Y1][k];
-      if (kMode == kFast) {
-        const float qx = xf - cx;
-        const float txx = nsxx * (qx * qx);
-#pragma unroll
-        for (int j = 0; j < kMaxRows; ++j) {
-          if (j < nrows) {
-            const float yf = ybase + (float)(j * rstride);
-            if (yf > y0 && yf < y1) {
-              const float qy = yf - cy;
-              const float inner = nsxy * (qx * qy) + (nsyy * (qy * qy) + a);
-              const float f = exp2f(txx + inner);
-              cr[j] = cr[j] + f * (rc - cr[j]);
-              cg[j] = cg[j] + f * (gc - cg[j]);
-              cb[j] = cb[j] + f * (bc - cb[j]);
-            }
-          }
-        }
+    for (int r = 0; r < kRows; ++r) {
+      if (ib) {
+        const float* ir = ib + (size_t)r * p.Wp;
+        C.r[r] = ir[0];
+        C.g[r] = ir[plane];
+        C.b[r] = ir[2 * plane];
       } else {
-        // the exact walk; mode 2 rounds to bf16 after each operation, as
-        // the JAX body's bf16 arithmetic does (R<kExact> is the identity)
-        const float qx = R<kMode>(xf - cx);
-        const float txx = R<kMode>(R<kMode>(nsxx) * R<kMode>(qx * qx));
-        const float bxy = R<kMode>(nsxy), byy = R<kMode>(nsyy), ba = R<kMode>(a);
-        const float brc = R<kMode>(rc), bgc = R<kMode>(gc), bbc = R<kMode>(bc);
-#pragma unroll
-        for (int j = 0; j < kMaxRows; ++j) {
-          if (j < nrows) {
-            const float yf = ybase + (float)(j * rstride);
-            if (yf >= y0 && yf <= y1) {
-              const float qy = R<kMode>(yf - cy);
-              float quad = R<kMode>(txx + R<kMode>(bxy * R<kMode>(qx * qy)));
-              quad = R<kMode>(quad + R<kMode>(byy * R<kMode>(qy * qy)));
-              const float f = R<kMode>(R<kMode>(expf(quad)) * ba);
-              const float omf = R<kMode>(1.0f - f);
-              cr[j] = R<kMode>(R<kMode>(omf * cr[j]) + R<kMode>(f * brc));
-              cg[j] = R<kMode>(R<kMode>(omf * cg[j]) + R<kMode>(f * bgc));
-              cb[j] = R<kMode>(R<kMode>(omf * cb[j]) + R<kMode>(f * bbc));
-            }
-          }
-        }
+        C.r[r] = p.bg0;
+        C.g[r] = p.bg1;
+        C.b[r] = p.bg2;
       }
     }
   }
-
-#pragma unroll
-  for (int j = 0; j < kMaxRows; ++j) {
-    cr[j] = fminf(fmaxf(cr[j], 0.0f), 1.0f);
-    cg[j] = fminf(fmaxf(cg[j], 0.0f), 1.0f);
-    cb[j] = fminf(fmaxf(cb[j], 0.0f), 1.0f);
-  }
 }
 
+// the clamped canvas of the thread's row r as f32
 template <int kMode>
-__global__ void __launch_bounds__(kThreads) render_kernel(WalkParams p, float* __restrict__ out) {
-  const TileGeom g = tile_geom(p);
-  float cr[kMaxRows], cg[kMaxRows], cb[kMaxRows];
-  walk_tile<kMode>(p, g, cr, cg, cb);
-  const size_t plane = (size_t)p.Hp * p.Wp;
-  float* ob = out + (size_t)g.b * 3 * plane;
+__device__ __forceinline__ float3 clamped(const Canvas<kMode>& C, int r) {
+  float cr, cg, cb;
+  if constexpr (kMode == kBf16) {
+    const int h = r >> 1;
+    cr = (r & 1) ? __high2float(C.r[h]) : __low2float(C.r[h]);
+    cg = (r & 1) ? __high2float(C.g[h]) : __low2float(C.g[h]);
+    cb = (r & 1) ? __high2float(C.b[h]) : __low2float(C.b[h]);
+  } else {
+    cr = C.r[r];
+    cg = C.g[r];
+    cb = C.b[r];
+  }
+  return make_float3(fminf(fmaxf(cr, 0.0f), 1.0f), fminf(fmaxf(cg, 0.0f), 1.0f),
+                     fminf(fmaxf(cb, 0.0f), 1.0f));
+}
+
+// Walks the tile's list over this block's sub-tile, leaving the canvas of
+// the thread's four rows in C (unclamped).
+template <int kMode>
+__device__ __forceinline__ void walk_sub_tile(const WalkParams& p, const SubTile& g,
+                                              Canvas<kMode>& C) {
+  __shared__ float4 sf[2][kChunk][4];
+
+  start(C, p, g);
+  const float xf = (float)(g.tx0 + g.col);
+  const float yb = (float)g.ry0;
+  const float ye = yb + (float)(kRows - 1);
+  const float wx0 = (float)(g.tx0 + 32 * g.warp), wx1 = wx0 + 31.0f;  // the warp's columns
+  const int n = p.cnt[g.bt];
+  const int nch = (n + kChunk - 1) / kChunk;
+  const int* list = p.idx + (size_t)g.bt * p.L;
+  const float* fb = p.feats + (size_t)g.b * kNFeat * p.N1;
+
+  // Staging, two deep: lane k of warp w stages table rows w, w + 4, ...
+  // of the chunk's splat k, and only if the splat's rows meet the
+  // sub-tile's: a ballot over the chunk's 32 entries gives each kept splat
+  // its slot, in ascending order (every warp computes the same ballot from
+  // the same entries). entry(c) loads splat k's index in chunk c; fetch()
+  // loads the parameters of the chunk whose index is loaded; put(buf)
+  // stores the kept ones to shared memory and returns their count. So
+  // neither load stalls the walk.
+  int next = -1, cur = -1;
+  float pv[kPer], ky0 = 0.0f, ky1 = 0.0f;
+  auto entry = [&](int c) {
+    const int k = c * kChunk + g.lane;
+    next = (c < nch && k < n) ? list[k] : -1;
+  };
+  auto fetch = [&]() {
+    cur = next;
+    if (cur >= 0) {
+      ky0 = fb[(size_t)F_Y0 * p.N1 + cur];
+      ky1 = fb[(size_t)F_Y1 * p.N1 + cur];
+    }
 #pragma unroll
-  for (int j = 0; j < kMaxRows; ++j) {
-    if (j < g.nrows) {
-      const size_t o = pixel(p, g, j);
-      ob[o] = cr[j];
-      ob[plane + o] = cg[j];
-      ob[2 * plane + o] = cb[j];
+    for (int q = 0; q < kPer; ++q) {
+      const int r = g.warp + q * kWarps;
+      if (cur >= 0 && r < kNFeat) pv[q] = fb[(size_t)r * p.N1 + cur];
+    }
+  };
+  auto put = [&](int buf) {
+    const bool keep =
+        cur >= 0 && (kMode == kFast ? ky0 < ye && ky1 > yb : !(ky1 < yb || ky0 > ye));
+    const unsigned bal = __ballot_sync(0xffffffffu, keep);
+    const int pos = __popc(bal & ((1u << g.lane) - 1u));
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int r = g.warp + q * kWarps;
+      if (keep && r < kNFeat) reinterpret_cast<float*>(sf[buf][pos])[slot(r)] = pv[q];
+    }
+    return __popc(bal);
+  };
+
+  entry(0);
+  fetch();
+  entry(1);
+  for (int c = 0; c < nch; ++c) {
+    const int buf = c & 1;
+    const int m = put(buf);
+    __syncthreads();  // chunk c is staged; chunk c - 1's walk is done with buf ^ 1
+    fetch();
+    entry(c + 2);
+    for (int j = 0; j < m; ++j) {
+      const float4 bx = sf[buf][j][0];  // x0 x1 y0 y1
+      // warp-uniform: none of the warp's columns is in the box
+      if (kMode == kFast ? !(bx.x < wx1 && bx.y > wx0) : bx.y < wx0 || bx.x > wx1) continue;
+      const float4 u = sf[buf][j][1], v = sf[buf][j][2], w = sf[buf][j][3];
+      const Splat s{bx.x, bx.y, bx.z, bx.w, u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w, w.x};
+      blend(C, s, xf, yb);
     }
   }
 }
 
 template <int kMode>
-__global__ void __launch_bounds__(kThreads) fitness_kernel(WalkParams p,
-                                                           const float* __restrict__ target,
-                                                           const float* __restrict__ w,
-                                                           float* __restrict__ partials) {
-  __shared__ float red[kThreads / 32];
-  const TileGeom g = tile_geom(p);
-  float cr[kMaxRows], cg[kMaxRows], cb[kMaxRows];
-  walk_tile<kMode>(p, g, cr, cg, cb);
+__global__ void __launch_bounds__(kThreads, kMinBlocks) render_kernel(WalkParams p,
+                                                                      float* __restrict__ out) {
+  const SubTile g = sub_tile(p);
+  Canvas<kMode> C;
+  walk_sub_tile<kMode>(p, g, C);
+  const size_t plane = (size_t)p.Hp * p.Wp;
+  float* ob = out + (size_t)g.b * 3 * plane + g.px;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float3 c = clamped(C, r);
+    float* o = ob + (size_t)r * p.Wp;
+    o[0] = c.x;
+    o[plane] = c.y;
+    o[2 * plane] = c.z;
+  }
+}
+
+// sub [B * T * S]: the sub-tiles' partials; tickets [B * T]: 0 before the
+// launch, and 0 again after it.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    fitness_kernel(WalkParams p, const float* __restrict__ target, const float* __restrict__ w,
+                   float* __restrict__ partials, float* __restrict__ sub,
+                   int* __restrict__ tickets) {
+  __shared__ float red[kWarps];
+  const SubTile g = sub_tile(p);
+  Canvas<kMode> C;
+  walk_sub_tile<kMode>(p, g, C);
   const size_t plane = (size_t)p.Hp * p.Wp;
   float acc = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kMaxRows; ++j) {
-    if (j < g.nrows) {
-      const size_t o = pixel(p, g, j);
-      const float dr = cr[j] - target[o];
-      const float dg = cg[j] - target[plane + o];
-      const float db = cb[j] - target[2 * plane + o];
-      acc = acc + (dr * dr + dg * dg + db * db) * w[o];
-    }
+  for (int r = 0; r < kRows; ++r) {
+    const float3 c = clamped(C, r);
+    const size_t o = g.px + (size_t)r * p.Wp;
+    const float dr = c.x - target[o];
+    const float dg = c.y - target[plane + o];
+    const float db = c.z - target[2 * plane + o];
+    acc = acc + (dr * dr + dg * dg + db * db) * w[o];
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc = acc + __shfl_xor_sync(0xffffffffu, acc, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
+  if (g.lane == 0) red[g.warp] = acc;
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (g.col == 0) {
     float s = 0.0f;
-    for (int i = 0; i < kThreads / 32; ++i) s = s + red[i];
-    partials[g.bt] = s;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) s = s + red[i];
+    float* ts = sub + (size_t)g.bt * p.S;
+    ts[g.sub] = s;
+    __threadfence();  // the partial is visible before the ticket is taken
+    if (atomicAdd(&tickets[g.bt], 1) == p.S - 1) {  // every sub-tile of the tile is in
+      __threadfence();
+      float total = 0.0f;
+      for (int u = 0; u < p.S; ++u) total = total + __ldcg(&ts[u]);
+      partials[g.bt] = total;
+      tickets[g.bt] = 0;
+    }
   }
+}
+
+// bf16x2 add (op 0), subtract (1) or multiply (2) of n pairs, by the
+// walk's own helpers: for checking on the card that each half is the
+// correctly rounded bf16 result, subnormals kept.
+__global__ void bf16x2_probe_kernel(int op, const bf2* __restrict__ a, const bf2* __restrict__ b,
+                                    bf2* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = op == 0 ? badd(a[i], b[i]) : op == 1 ? bsub(a[i], b[i]) : bmul(a[i], b[i]);
 }
 
 // K4: one thread per (candidate, splat n <= N); n == N writes the sentinel
@@ -347,12 +510,21 @@ __global__ void prep_fast_kernel(const float* __restrict__ g9, float* __restrict
   ib[3 * N + n] = (int)y1;
 }
 
-// tile_w must divide the block, and the block's rows must tile tile_h
-// within kMaxRows rows a thread.
+// a list tile is 128 columns, one per thread, and a whole number of sub-tiles
 bool geometry_ok(int tile_h, int tile_w) {
-  if (tile_w <= 0 || tile_h <= 0 || kThreads % tile_w != 0) return false;
-  const int rstride = kThreads / tile_w;
-  return tile_h % rstride == 0 && tile_h / rstride <= kMaxRows;
+  return tile_w == kTileW && tile_h > 0 && tile_h % kRows == 0;
+}
+
+bool frame_ok(int T, int n_tx, int tile_h, int Hp, int Wp) {
+  return n_tx > 0 && T % n_tx == 0 && Hp == (T / n_tx) * tile_h && Wp == n_tx * kTileW;
+}
+
+template <typename K>
+int blocks_per_sm(K kernel) {
+  int per_sm = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return err == cudaSuccess ? per_sm : -(int)err;
 }
 
 }  // namespace ggs
@@ -361,46 +533,87 @@ extern "C" {
 
 int ggs_walk_geometry_ok(int tile_h, int tile_w) { return ggs::geometry_ok(tile_h, tile_w) ? 1 : 0; }
 
+int ggs_walk_sub_rows() { return ggs::kRows; }
+
 const char* ggs_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// Blocks of the walk one SM holds at once: fitness (1) or canvas (0)
+// epilogue in blend mode `mode`; <= 0 is a CUDA error code, negated.
+int ggs_walk_blocks_per_sm(int fitness, int mode) {
+  using namespace ggs;
+  if (fitness) {
+    switch (mode) {
+      case kExact: return blocks_per_sm(fitness_kernel<kExact>);
+      case kFast: return blocks_per_sm(fitness_kernel<kFast>);
+      case kBf16: return blocks_per_sm(fitness_kernel<kBf16>);
+    }
+  } else {
+    switch (mode) {
+      case kExact: return blocks_per_sm(render_kernel<kExact>);
+      case kFast: return blocks_per_sm(render_kernel<kFast>);
+    }
+  }
+  return -(int)cudaErrorInvalidValue;
+}
 
 // mode: 0 exact (K2), 1 fast (K3); the canvas has no bf16 mode. init may be
 // null (start from the background); it must not alias canvas.
 int ggs_walk_render(int mode, const int* cnt, const int* idx, const float* feats, const float* init,
                     float* canvas, int B, int T, int L, int N1, int n_tx, int tile_h, int tile_w,
                     int Hp, int Wp, float bg0, float bg1, float bg2, void* stream) {
-  if (!ggs::geometry_ok(tile_h, tile_w)) return (int)cudaErrorInvalidValue;
+  if (!ggs::geometry_ok(tile_h, tile_w) || !ggs::frame_ok(T, n_tx, tile_h, Hp, Wp))
+    return (int)cudaErrorInvalidValue;
   if (B * T == 0) return 0;
-  ggs::WalkParams p{cnt, idx, feats, init, T, L, N1, n_tx, tile_h, tile_w, Hp, Wp, bg0, bg1, bg2};
+  const int S = tile_h / ggs::kRows;
+  ggs::WalkParams p{cnt, idx, feats, init, T, S, L, N1, n_tx, tile_h, Hp, Wp, bg0, bg1, bg2};
   cudaStream_t s = (cudaStream_t)stream;
+  const int grid = B * T * S;
   switch (mode) {
-    case ggs::kExact: ggs::render_kernel<ggs::kExact><<<B * T, ggs::kThreads, 0, s>>>(p, canvas); break;
-    case ggs::kFast: ggs::render_kernel<ggs::kFast><<<B * T, ggs::kThreads, 0, s>>>(p, canvas); break;
+    case ggs::kExact: ggs::render_kernel<ggs::kExact><<<grid, ggs::kThreads, 0, s>>>(p, canvas); break;
+    case ggs::kFast: ggs::render_kernel<ggs::kFast><<<grid, ggs::kThreads, 0, s>>>(p, canvas); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// mode: 0 exact (K1), 1 fast (K3), 2 bf16 (K1-bf16); init may be null
+// mode: 0 exact (K1), 1 fast (K3), 2 bf16 (K1-bf16); init may be null.
+// sub: scratch of B * T * tile_h / 4 floats; tickets: B * T ints, 0 on
+// entry (the kernel leaves them 0).
 int ggs_walk_fitness(int mode, const int* cnt, const int* idx, const float* feats,
                      const float* init, const float* target, const float* w, float* partials,
-                     int B, int T, int L, int N1, int n_tx, int tile_h, int tile_w, int Hp, int Wp,
-                     float bg0, float bg1, float bg2, void* stream) {
-  if (!ggs::geometry_ok(tile_h, tile_w)) return (int)cudaErrorInvalidValue;
+                     float* sub, int* tickets, int B, int T, int L, int N1, int n_tx, int tile_h,
+                     int tile_w, int Hp, int Wp, float bg0, float bg1, float bg2, void* stream) {
+  if (!ggs::geometry_ok(tile_h, tile_w) || !ggs::frame_ok(T, n_tx, tile_h, Hp, Wp))
+    return (int)cudaErrorInvalidValue;
   if (B * T == 0) return 0;
-  ggs::WalkParams p{cnt, idx, feats, init, T, L, N1, n_tx, tile_h, tile_w, Hp, Wp, bg0, bg1, bg2};
+  const int S = tile_h / ggs::kRows;
+  ggs::WalkParams p{cnt, idx, feats, init, T, S, L, N1, n_tx, tile_h, Hp, Wp, bg0, bg1, bg2};
   cudaStream_t s = (cudaStream_t)stream;
+  const int grid = B * T * S;
   switch (mode) {
     case ggs::kExact:
-      ggs::fitness_kernel<ggs::kExact><<<B * T, ggs::kThreads, 0, s>>>(p, target, w, partials);
+      ggs::fitness_kernel<ggs::kExact><<<grid, ggs::kThreads, 0, s>>>(p, target, w, partials, sub,
+                                                                       tickets);
       break;
     case ggs::kFast:
-      ggs::fitness_kernel<ggs::kFast><<<B * T, ggs::kThreads, 0, s>>>(p, target, w, partials);
+      ggs::fitness_kernel<ggs::kFast><<<grid, ggs::kThreads, 0, s>>>(p, target, w, partials, sub,
+                                                                      tickets);
       break;
     case ggs::kBf16:
-      ggs::fitness_kernel<ggs::kBf16><<<B * T, ggs::kThreads, 0, s>>>(p, target, w, partials);
+      ggs::fitness_kernel<ggs::kBf16><<<grid, ggs::kThreads, 0, s>>>(p, target, w, partials, sub,
+                                                                      tickets);
       break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// n pairs of bf16x2 (4 bytes each) in a and b -> out; op 0 add, 1 sub, 2 mul
+int ggs_bf16x2_probe(int op, const void* a, const void* b, void* out, int n, void* stream) {
+  if (op < 0 || op > 2 || n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  ggs::bf16x2_probe_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      op, (const ggs::bf2*)a, (const ggs::bf2*)b, (ggs::bf2*)out, n);
   return (int)cudaGetLastError();
 }
 

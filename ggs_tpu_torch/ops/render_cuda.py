@@ -119,8 +119,14 @@ class _Kernels:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ggs_walk_render.argtypes = [i, p, p, p, p, p] + [i] * 9 + [f, f, f, p]
         lib.ggs_walk_render.restype = i
-        lib.ggs_walk_fitness.argtypes = [i, p, p, p, p, p, p, p] + [i] * 9 + [f, f, f, p]
+        lib.ggs_walk_fitness.argtypes = [i, p, p, p, p, p, p, p, p, p] + [i] * 9 + [f, f, f, p]
         lib.ggs_walk_fitness.restype = i
+        lib.ggs_walk_blocks_per_sm.argtypes = [i, i]
+        lib.ggs_walk_blocks_per_sm.restype = i
+        lib.ggs_walk_sub_rows.argtypes = []
+        lib.ggs_walk_sub_rows.restype = i
+        lib.ggs_bf16x2_probe.argtypes = [i, p, p, p, i, p]
+        lib.ggs_bf16x2_probe.restype = i
         scatter.ggs_scatter_bin.argtypes = [p] * 7 + [i] * 7 + [p]
         scatter.ggs_scatter_bin.restype = i
         scatter.ggs_scatter_fallback.argtypes = [p, p, p, f, p, i, p, p] + [i] * 7 + [p]
@@ -886,9 +892,25 @@ def _render_launch(mode, what, cnt, idx, feats, n_tx, tile_h, tile_w, background
     return out
 
 
+# Per (device, stream): walk.cu's per-tile ticket counters for the fitness
+# epilogue's sum over sub-tiles, zeroed once where allocated; every launch
+# leaves them 0 again, so a launch on the GA path adds no zeroing launch.
+_TICKETS: dict = {}
+
+
+def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return buf
+
+
 def _fitness_launch(mode, what, cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background,
                     init):
-    """One launch of walk.cu's fitness epilogue in blend mode `mode`."""
+    """One launch of walk.cu's fitness epilogue in blend mode `mode`: a block
+    per 4-row sub-tile, the sub-tiles' partials in `sub` (scratch), summed
+    per tile in order on the card."""
     B, T, L, dev = _check_lists(cnt, idx, feats, n_tx, tile_h, tile_w)
     Hp, Wp = (T // n_tx) * tile_h, n_tx * tile_w
     _require(target_p, "target_p", torch.float32, (3, Hp, Wp), dev)
@@ -896,12 +918,15 @@ def _fitness_launch(mode, what, cnt, idx, feats, target_p, w_p, n_tx, tile_h, ti
     _check_init(init, B, Hp, Wp, dev)
     out = torch.empty((B, T), dtype=torch.float32, device=dev)
     k = build()
+    sub = torch.empty((B, T, tile_h // k.lib.ggs_walk_sub_rows()), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = k.lib.ggs_walk_fitness(
             _MODES[mode], cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(),
             None if init is None else init.data_ptr(), target_p.data_ptr(), w_p.data_ptr(),
-            out.data_ptr(), B, T, L, feats.shape[2], n_tx, tile_h, tile_w, Hp, Wp,
-            *(float(c) for c in background), torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), sub.data_ptr(), _tickets(dev, stream, B * T).data_ptr(),
+            B, T, L, feats.shape[2], n_tx, tile_h, tile_w, Hp, Wp,
+            *(float(c) for c in background), stream,
         )
     k.check(rc, what)
     return out
@@ -913,8 +938,9 @@ def render_tiles(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=None):
 
     Replaces ggs_tpu/ops/render_pallas.py:_render_tile_kernel (pallas_call
     in _render_padded). Bound by the walk's f32 arithmetic, about 30
-    operations and one exp per (splat, pixel) pair; the canvas stays in
-    registers for the whole walk and is written once (csrc/walk.cu)."""
+    operations and one exp per (splat, pixel) pair; a 128-thread block per
+    4x128 sub-tile (tile_w 128, tile_h a multiple of 4) keeps its canvas in
+    registers for the whole walk and writes it once (csrc/walk.cu)."""
     if feats.device.type == "cpu":
         return render_tiles_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=init)
     out = _render_launch("exact", "render_tiles", cnt, idx, feats, n_tx, tile_h, tile_w, background,
@@ -952,8 +978,10 @@ def fitness_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, backgrou
 
     Replaces ggs_tpu/ops/render_pallas.py:_fitness_tile_kernel (pallas_call
     in _fitness_partials). Bound by the walk's f32 arithmetic; the canvas
-    never leaves registers, and the per-tile sum is fixed-order (no atomics),
-    so the partials are the same bits on every run (csrc/walk.cu)."""
+    never leaves registers, and the per-tile sum is fixed-order (rows, warps,
+    then the tile's 4-row sub-tiles in order, in the same launch; no atomics
+    on values), so the partials are the same bits on every run
+    (csrc/walk.cu)."""
     if feats.device.type == "cpu":
         return fitness_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background,
                                    init=init)
@@ -989,7 +1017,8 @@ def fitness_tiles_bf16(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bac
     (an init rounded to bf16 where it enters), each operation rounded to
     bf16 as torch rounds it, the loss epilogue in f32. Replaces
     _fitness_tile_kernel with compute_dtype=bfloat16 (render_pallas.py:1367);
-    csrc/walk.cu, mode 2."""
+    csrc/walk.cu, mode 2: a thread's four rows in two bf16x2 registers a
+    channel, each bf16 operation one packed instruction."""
     if feats.device.type == "cpu":
         return fitness_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w,
                                    background, mode="bf16", init=init)
