@@ -55,7 +55,8 @@ Phases, each fatal on failure (no exception is caught):
 The fast tier adds, in the same phases: K3 (fitness_tiles_fast,
 render_tiles_fast) and K4 (prep_fast) against their plain versions at the
 fast GA's shapes (B=32, N=512, 512x512, eps 2e-3 and 8e-2, corner cull) and
-on the odd canvas, K1-bf16 (fitness_tiles_bf16) at the bf16 GA's, and
+on the odd canvas (K4 also timed at B=512 and by its device time, beside
+an empty kernel's), K1-bf16 (fitness_tiles_bf16) at the bf16 GA's, and
 evaluate/render_genomes on the card against the CPU plain route; the main
 paths `run_ga --precision fast` (FAST_GENS generations: K4 and K3 at least
 once a generation, K1 once for the exact rescore), the fast memetic GA
@@ -77,17 +78,23 @@ K5 (bin_splats_scatter) against bin_splats_scatter_plain (integer-equal idx,
 cnt and largest true count) at the first pass of the 2048x2048 GA (512
 tiles, exact-tight and fast with the corner cull), of canvas-4k (2,048
 tiles), at 1024x1024 on the gradient tiles, and with the overflow fallback
-forced by coincident splats, and against bin_splats_dense without the cull;
+forced by coincident splats, and against bin_splats_dense without the cull
+(K5 is the whole binning of a pass from the boxes: its band stage, also
+held against its plain version, computes the band lists and, under the
+corner cull, the band column ranges on the card);
 chained passes against one pass at N=10,000 (bit for bit, exact tiers); the
 main paths run_grad at grad-10k-1024 (BIG_GRAD_STEPS steps: K5, K2 and K6
 twice a step, once each from an init canvas), run_ga at 2048x2048, N=10,000,
 P=32, exact-tight and fast (BIG_GA_GENS generations: K5 twice and the
 chained fitness walk once a generation), the canvas-4k render in three tiers
-(7 passes, K5 each) and the bf16 fitness at big-10k-1024 (K2, then K1-bf16
-from its canvas); K5's times beside its bound, its plain version and the
-dense sort it replaces (also at the fast GA's pass, where its overflow
-fallback rebuilds the lists; the fallback's launches are counted apart),
-renders/s at big-10k-1024 and canvas-4k, Adam
+(7 passes, K5 and its band stage each) and the bf16 fitness at
+big-10k-1024 (K2, then K1-bf16 from its canvas); K5's times (CUDA events
+and device time) beside its bound, its plain route and the dense sort it
+replaces, at the GA's pass (exact, and fast, where its overflow fallback
+rebuilds the lists; the fallback's launches are counted apart), canvas-4k's
+(exact and fast with the corner cull) and grad-10k-1024's, renders/s at
+big-10k-1024 and canvas-4k (whose fast+corner render may launch at most
+C4K_CORNER_EXTRA_LAUNCHES kernels a pass more than fast's), Adam
 steps/s at grad-10k-1024, and one chained Adam step with no host sync.
 Prints a `GRAD KERNELS` line (K6/K7 times, bounds and launches, blocks a
 SM, Adam steps/s at both gradient configurations, beside the card), one
@@ -160,6 +167,17 @@ OPS_PER_PIXEL_K7 = 20
 # f32 operations (4 clamped edge offsets of 2, rx and ry of 3, the two
 # clamped vertices of 2 + 3, the two quadratics of 7, max, add, compare)
 OPS_CORNER_TEST = 41
+# K5's band column range per (band, splat) of a row list under the band
+# cull: render_cuda._corner_band_xranges' f32 operations, each compare,
+# select, min, max, floor and sqrt counted as 1 (the band's dy limits 7, L
+# 1, two quadratic intervals of 22, ry 3, four half-planes of 15, the vertex
+# piece 15, the union of three pieces 21, the band test 3, xlo and xhi 10,
+# txh's test 2)
+OPS_BAND_RANGE = 166
+# canvas-4k under the corner cull may launch at most this many kernels a
+# pass more than fast without it (the cull's parameters; PR 7: 2,062 a
+# render against fast's ~440, the band ranges in ~230 PyTorch ops a pass)
+C4K_CORNER_EXTRA_LAUNCHES = 10
 
 CANVAS_ATOL = 2e-6
 FITNESS_RTOL = 5e-5
@@ -196,8 +214,11 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -780,26 +801,48 @@ def scatter_case(B, N, side, tile_h, precision, eps=None, chunk=None, scales=(3.
     n_t = -(-side // 128), -(-side // tile_h)
     args = rc.scatter_args(p.x0, p.x1, p.y0, p.y1, *n_t, tile_h, 128, n, pad_slots, corner=corner)
     check(args is not None, "the scatter rules chose the dense route")
-    return {"args": args, "p": p, "corner": corner}
+    return {"args": args, "p": p, "corner": corner, "pad_slots": pad_slots}
+
+
+def run_k5(sc):
+    """K5 on the card: the binning of the pass from its boxes (and corner
+    parameters) -> (idx, cnt, tmax)."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    a, p = sc["args"], sc["p"]
+    return rc.bin_splats_scatter(p.x0, p.x1, p.y0, p.y1, a["n_tx"], a["n_ty"], a["tile_h"],
+                                 a["tile_w"], a["cap"], sc["pad_slots"], sc["corner"])
 
 
 def compare_scatter(sc, label, dense=False) -> dict:
-    """K5 against bin_splats_scatter_plain: idx over its whole width, cnt and
-    the largest true count integer-equal; the same bits twice; with
-    dense=True (no corner cull) also equal to bin_splats_dense."""
+    """K5, its whole route from the boxes on the card, against its plain
+    route (scatter_args, then bin_splats_scatter_plain): idx over its whole
+    width, cnt and the largest true count integer-equal; the same bits
+    twice; with bands, the band stage's entries and counts equal to its
+    plain version's (under the cull its column ranges are
+    _corner_band_xranges'); with dense=True (no corner cull) also equal to
+    bin_splats_dense."""
     import torch
 
     from ggs_tpu_torch.ops import render_cuda as rc
 
     args, p = sc["args"], sc["p"]
-    idx, cnt, tmax = rc.bin_splats_scatter(**args)
+    idx, cnt, tmax = run_k5(sc)
     idx_p, cnt_p, tmax_p = rc.bin_splats_scatter_plain(**args)
     torch.cuda.synchronize()
     diff = int((idx != idx_p).sum()) + int((cnt != cnt_p).sum())
     err = int((idx.long() - idx_p.long()).abs().max())
-    again = rc.bin_splats_scatter(**args)
+    again = run_k5(sc)
     same = torch.equal(again[0], idx) and torch.equal(again[1], cnt)
     overflow = args["fallback"] is not None and int(tmax) > args["cap_s"]
+    band_diff = None
+    if args["gl"] is not None:
+        band = (p.x0, p.x1, p.y0, p.y1, args["n_tx"], args["n_ty"], args["tile_h"],
+                args["tile_w"], args["rpg"], sc["corner"] if args["cxr"] is not None else None)
+        ent, ec = rc.scatter_band_entries(*band)
+        ent_p, ec_p = rc.scatter_band_entries_plain(*band)
+        valid = torch.arange(ent.shape[3], device=ec.device) < ec[..., None]
+        band_diff = int((ec != ec_p).sum()) + int(((ent != ent_p) & valid[..., None]).sum())
     dense_diff = None
     if dense:
         di, dc = rc.bin_splats_dense(p.x0, p.x1, p.y0, p.y1, args["n_tx"], args["n_ty"],
@@ -809,41 +852,63 @@ def compare_scatter(sc, label, dense=False) -> dict:
     print(f"CHECK K5 {label}: B={B} T={T} cap={cap} cap_s={args['cap_s']} rpg={args['rpg']} "
           f"bands {args['gl'] is not None} band cull {args['cxr'] is not None}: entries differing "
           f"from plain {diff}, true max {int(tmax)} (plain {int(tmax_p)}), overflow fallback "
-          f"{overflow}, same bits twice {same}, differing from dense {dense_diff}, pairs "
-          f"{int(cnt.sum())}", flush=True)
+          f"{overflow}, same bits twice {same}, band entries differing from plain {band_diff}, "
+          f"differing from dense {dense_diff}, pairs {int(cnt.sum())}", flush=True)
     check(diff == 0 and int(tmax) == int(tmax_p), f"K5 {label}: differs from its plain version")
     check(same, f"K5 {label}: not the same bits on a second launch")
+    check(band_diff in (None, 0), f"K5 {label}: the band stage differs from its plain version")
     check(dense_diff in (None, 0), f"K5 {label}: differs from the dense binning")
     return {"max_abs_err": err, "overflow": overflow, "tmax": int(tmax), "pairs": int(cnt.sum())}
 
 
-def scatter_bound(args, cnt_sum_gl, overflow=False):
-    """(bound_ms, bound_by) of one K5 call: its inputs read once (tile
-    bounds, the band lists' entries and lengths, the band column ranges) and
-    its outputs written once (the lists padded to cap, the counts); its few
-    integer compares a pair are far below the byte time. Where the overflow
-    fallback takes over (overflow), the lists are the per-tile corner
-    test's: the inputs are the boxes and the six corner parameters, and
-    OPS_CORNER_TEST f32 operations for each (tile, splat) pair inside the
-    box's tile range count too."""
-    rng = args["rng"]
-    B, _, N = rng.shape
-    n_tx, n_ty, cap = args["n_tx"], args["n_ty"], args["cap"]
-    words = B * n_tx * n_ty * (cap + 1) + 1
+def scatter_bound(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, rpg, corner=None,
+                  overflow=False):
+    """(bound_ms, bound_by) of the binning of one pass, from the pixel boxes
+    [B, N] to the lists, whatever implements it: the boxes (4 words a
+    splat) and, under the band cull (`corner`), the six corner parameters
+    read once; the lists padded to cap, the counts and the largest count
+    written once; OPS_BAND_RANGE f32 operations per (band, splat) of the
+    row lists under the cull and, where the overflow fallback takes over
+    (overflow), OPS_CORNER_TEST per (tile, splat) pair inside the box's
+    tile range. Band lists and column ranges are intermediates."""
+    import torch
+
+    B, N = x0.shape
+    words = B * n_tx * n_ty * (cap + 1) + 1 + B * N * (4 + (6 if corner is not None else 0))
+    tx0, tx1, ty0, ty1 = (torch.div(v, d, rounding_mode="floor")
+                          for v, d in ((x0, tile_w), (x1, tile_w), (y0, tile_h), (y1, tile_h)))
     ops = 0
+    if corner is not None:
+        a = torch.div(ty0.clamp(min=0), rpg, rounding_mode="floor")
+        z = torch.div(ty1.clamp(max=n_ty - 1), rpg, rounding_mode="floor")
+        ops += OPS_BAND_RANGE * int((z - a + 1).clamp(min=0).long().sum())
     if overflow:
-        words += B * (4 + 6) * N
-        nx = (rng[:, 1].clamp(max=n_tx - 1) - rng[:, 0].clamp(min=0) + 1).clamp(min=0)
-        ny = (rng[:, 3].clamp(max=n_ty - 1) - rng[:, 2].clamp(min=0) + 1).clamp(min=0)
-        ops = OPS_CORNER_TEST * int((nx.long() * ny.long()).sum())
-    else:
-        words += B * 4 * N
-        if args["gl"] is not None:
-            words += cnt_sum_gl + B * 8
-        if args["cxr"] is not None:
-            words += B * 8 * 2 * N
+        nx = (tx1.clamp(max=n_tx - 1) - tx0.clamp(min=0) + 1).clamp(min=0)
+        ny = (ty1.clamp(max=n_ty - 1) - ty0.clamp(min=0) + 1).clamp(min=0)
+        ops += OPS_CORNER_TEST * int((nx.long() * ny.long()).sum())
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, 4 * words / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def kernel_device_ms(fn, n: int, name: str) -> float:
+    """Device time a call of fn of the kernels whose name holds `name`,
+    under torch.profiler (the wrapper's host time is not in it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and name in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    return us / 1e3 / n
 
 
 def walk_report(kern) -> dict:
@@ -1220,6 +1285,7 @@ def main() -> int:
     # chained case runs on its own data, where the last pass's hundreds of
     # layers may hide the init canvas, and on its faint copy (alphas / 32,
     # the same lists), where the init shows and must move the result
+    phase("kernels vs plain: init canvases and chained passes")
     init_errs = {mode: compare_init(c, mode, "seeded canvas, B=32 N=512 512x512")
                  for mode, c in (("exact", main_case["exact-tight"]), ("fast", fast_cases[2e-3]),
                                  ("bf16", bf16_case))}
@@ -1261,6 +1327,7 @@ def main() -> int:
                          "rows": [max(a, b) for a, b in zip(own["rows"], fnt["rows"])]}
     big_grad_case = cg  # timed with the kernels
     del g9_b, g9_g, tgt_b, wm_b, cg
+    phase("kernels vs plain: K5")
     chunk = BIG_N // 2  # the first of two passes
     scatter_cases = {
         "ga_exact": scatter_case(GA_P, BIG_N, GA_SIDE, 64, "exact-tight", chunk=chunk, seed=30),
@@ -1288,16 +1355,18 @@ def main() -> int:
 
     def reset_counts():
         for fn in counted.values():
-            for attr in ("launches", "init_launches", "fallback_launches"):
+            for attr in ("launches", "init_launches", "band_launches", "fallback_launches"):
                 if hasattr(fn, attr):
                     setattr(fn, attr, 0)
 
     def read_counts():
         """Launches per kernel, as "<kernel>-init" those from an init canvas,
-        and as "K5-fallback" K5's calls that also launched its fallback."""
+        as "K5-band" K5's band stages and as "K5-fallback" K5's calls that
+        also launched its fallback."""
         out = {k: fn.launches for k, fn in counted.items()}
         out.update({f"{k}-init": fn.init_launches for k, fn in counted.items()
                     if hasattr(fn, "init_launches")})
+        out["K5-band"] = rc.bin_splats_scatter.band_launches
         out["K5-fallback"] = rc.bin_splats_scatter.fallback_launches
         return out
 
@@ -1521,7 +1590,7 @@ def main() -> int:
         walk = "K3-canvas" if tier != "exact" else "K2"
         check(tuple(img.shape) == (1, C4K_SIDE, C4K_SIDE, 3) and bool(torch.isfinite(img).all())
               and float(img.min()) >= 0.0 and float(img.max()) <= 1.0, f"canvas-4k {tier} render")
-        check(counts["K5"] == n_pass and counts[walk] == n_pass
+        check(counts["K5"] == n_pass and counts["K5-band"] == n_pass and counts[walk] == n_pass
               and counts[f"{walk}-init"] == n_pass - 1, f"canvas-4k {tier} launches {counts}")
         c4k_imgs[tier] = img
     corner_gap = float((c4k_imgs["fast+corner"] - c4k_imgs["fast"]).abs().max())
@@ -1611,8 +1680,8 @@ def main() -> int:
     bounds["K2p_grad_10k_1024_init"] = bound(k2p_big, "K2")
     del c512, tile_cases
 
-    # the fast tier's kernels at the fast GA's shapes (eps 2e-3, corner cull)
-    f32c = fast_cases[2e-3]
+    phase("times: the fast tier")
+    f32c = fast_cases[2e-3]  # the fast GA's shapes (eps 2e-3, corner cull)
     f512 = make_case(512, 512, 512, 512, "fast", seed=2, cull_eps=2e-3)
     f1 = make_case(1, 512, 512, 512, "fast", seed=3, cull_eps=2e-3)
     t.update({
@@ -1620,6 +1689,13 @@ def main() -> int:
         "K3_B512": cuda_ms(lambda: run_k3(f512), 10),
         "K3_canvas_B1": cuda_ms(lambda: run_k3_canvas(f1), 100),
         "K4_B32": cuda_ms(lambda: run_k4(f32c), 200),
+        "K4_B512": cuda_ms(lambda: run_k4(f512), 200),
+        "K4_device_B32": kernel_device_ms(lambda: run_k4(f32c), 50, "prep_fast_kernel"),
+        "K4_device_B512": kernel_device_ms(lambda: run_k4(f512), 50, "prep_fast_kernel"),
+        # the launch floor K4's device time is read against
+        "empty_kernel_device": kernel_device_ms(
+            lambda: kern.check(kern.lib.ggs_empty_launch(torch.cuda.current_stream().cuda_stream),
+                               "empty kernel"), 200, "empty_kernel"),
         "K1_bf16_B32": cuda_ms(lambda: run_k1_bf16(bf16_case), 20),
         "K3_plain_B32": cuda_ms(lambda: run_k3(f32c, plain=True), 3, warmup=1),
         "K3_plain_B512": cuda_ms(lambda: run_k3(f512, plain=True), 1, warmup=1),
@@ -1632,12 +1708,14 @@ def main() -> int:
     bounds.update({
         "K3_B32": bound(f32c, "K3"), "K3_B512": bound(f512, "K3"),
         "K3_canvas_B1": bound(f1, "K3-canvas"), "K4_B32": k4_bound(32, 512),
+        "K4_B512": k4_bound(512, 512),
         "K1_bf16_B32": bound(bf16_case, "K1-bf16"),
     })
     fast_pairs = {"B32_eps2e-3": pair_counts(f32c), "B32_eps8e-2": pair_counts(fast_cases[8e-2]),
                   "B32_exact_tight": pair_counts(c32), "B32_reference_box": pair_counts(bf16_case)}
     del f512
 
+    phase("times: renders/s, GA generations/s, Adam steps/s")
     # evaluate() end to end (codec, boxes, binning, K1) at bench.py's batch
     obj = objective.Objective(H=H, W=W, precision="exact-tight")
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1711,19 +1789,23 @@ def main() -> int:
 
     phase("times: the large-canvas path")
     lt, lb = {}, {}
-    for k in ("ga_exact", "ga_fast", "c4k_exact"):
-        args, p, corner = (scatter_cases[k][f] for f in ("args", "p", "corner"))
+    for k in ("ga_exact", "ga_fast", "c4k_exact", "c4k_fast", "grad_1024"):
+        sc = scatter_cases[k]
+        args, p, corner = sc["args"], sc["p"], sc["corner"]
         geo = (args["n_tx"], args["n_ty"], args["tile_h"], args["tile_w"], args["cap"])
-        lt[f"K5_{k}"] = cuda_ms(lambda: rc.bin_splats_scatter(**args), 20)
-        lt[f"K5_plain_{k}"] = cuda_ms(lambda: rc.bin_splats_scatter_plain(**args), 2, warmup=1)
-        # the whole route (band lists and ranges, then K5) against the dense
-        # sort it replaces from 256 tiles
-        lt[f"scatter_route_{k}"] = cuda_ms(
-            lambda: rc.scatter_binning(p.x0, p.x1, p.y0, p.y1, *geo, corner=corner), 10)
-        lt[f"dense_{k}"] = cuda_ms(
-            lambda: rc.bin_splats_dense(p.x0, p.x1, p.y0, p.y1, *geo, corner=corner), 3, warmup=1)
-        gl_entries = 0 if args["gcnt"] is None else int(args["gcnt"].sum())
-        lb[f"K5_{k}"] = scatter_bound(args, gl_entries, scatter_errs[k]["overflow"])
+        # K5 is the whole route from the boxes; its plain route is
+        # scatter_args then bin_splats_scatter_plain
+        lt[f"K5_{k}"] = cuda_ms(lambda: run_k5(sc), 20)
+        lt[f"K5_device_{k}"] = kernel_device_ms(lambda: run_k5(sc), 5, "ggs_scatter")
+        lt[f"K5_plain_{k}"] = cuda_ms(lambda: rc.bin_splats_scatter_plain(**rc.scatter_args(
+            p.x0, p.x1, p.y0, p.y1, *geo, sc["pad_slots"], corner=corner)), 2, warmup=1)
+        if k in ("ga_exact", "ga_fast", "c4k_exact"):  # the dense sort K5 replaces
+            lt[f"dense_{k}"] = cuda_ms(
+                lambda: rc.bin_splats_dense(p.x0, p.x1, p.y0, p.y1, *geo, corner=corner), 3,
+                warmup=1)
+        lb[f"K5_{k}"] = scatter_bound(p.x0, p.x1, p.y0, p.y1, *geo, args["rpg"],
+                                      corner if args["cxr"] is not None else None,
+                                      scatter_errs[k]["overflow"])
     obj_big = {pr: objective.Objective(H=BIG_SIDE, W=BIG_SIDE, precision=pr)
                for pr in ("highest", "exact-tight")}
     big_renders_per_s = {
@@ -1737,9 +1819,15 @@ def main() -> int:
     prof_c4k = {
         tier: profile_split(lambda: rc.render(g9_4k, C4K_SIDE, C4K_SIDE, **c4k_tiers[tier]), 1,
                             walk="render_kernel")
-        for tier in ("exact", "fast+corner")
+        for tier in c4k_tiers
     }
     del g9_4k
+    # the band cull's binning stays on the card: a render under it launches
+    # at most C4K_CORNER_EXTRA_LAUNCHES kernels a pass more than fast's
+    c4k_gate = prof_c4k["fast"]["kernels_per_step"] + C4K_CORNER_EXTRA_LAUNCHES * n_pass
+    check(prof_c4k["fast+corner"]["kernels_per_step"] <= c4k_gate,
+          f"canvas-4k fast+corner launches {prof_c4k['fast+corner']['kernels_per_step']} kernels "
+          f"a render, above fast's + {C4K_CORNER_EXTRA_LAUNCHES} a pass ({c4k_gate})")
     big_adam, big_adam_rates, big_st, big_step = adam_steps_per_s(obj_big["highest"], tgt_big,
                                                                   None, BIG_N, 36)
     check_no_sync(lambda: gradient.run_block(big_st, big_step, tgt_big, None, 1),
@@ -1883,6 +1971,12 @@ def main() -> int:
             "bound_ms": bounds["K4_B32"][0],
             "bound_by": bounds["K4_B32"][1],
             "library_ms": None,
+            "note": "ms by CUDA events includes the wrapper's host time; device_ms under "
+                    "torch.profiler, beside an empty kernel's device time (the launch floor)",
+            "device_ms": t["K4_device_B32"],
+            "empty_kernel_device_ms": t["empty_kernel_device"],
+            "B512": {"ms": t["K4_B512"], "device_ms": t["K4_device_B512"],
+                     "bound_ms": bounds["K4_B512"][0], "bound_by": bounds["K4_B512"][1]},
         },
         {
             "name": "K1-bf16 fitness_tiles_bf16 (the walk in bf16)",
@@ -1904,7 +1998,7 @@ def main() -> int:
                     f"lists: {t['K1_B32_reference_box']} ms",
         },
         {
-            "name": "K5 bin_splats_scatter (pair-scatter binning, >= 256 tiles)",
+            "name": "K5 bin_splats_scatter (pair-scatter binning from the boxes, >= 256 tiles)",
             "route": "cuda",
             "source": "ggs_tpu_torch/csrc/scatter.cu",
             "replaces": "ggs_tpu/ops/render_pallas.py:986",
@@ -1915,20 +2009,22 @@ def main() -> int:
             "bound_ms": lb["K5_ga_exact"][0],
             "bound_by": lb["K5_ga_exact"][1],
             "library_ms": None,
-            "note": f"B={GA_P}, a {BIG_N // 2}-splat pass at {GA_SIDE}x{GA_SIDE}, 512 tiles, "
-                    f"exact-tight; the dense sort it replaces there: {lt['dense_ga_exact']} ms; "
-                    "ga_fast: the same pass under the fast GA's corner cull, where the batch "
-                    "overflows cap_s and the fallback rebuilds the lists by the per-tile test",
-            "ga_fast": {
-                "launches": ga_big_fast_launches["K5"],
-                "fallback_launches": ga_big_fast_launches["K5-fallback"],
-                "overflow": scatter_errs["ga_fast"]["overflow"],
-                "ms": lt["K5_ga_fast"],
-                "plain_ms": lt["K5_plain_ga_fast"],
-                "bound_ms": lb["K5_ga_fast"][0],
-                "bound_by": lb["K5_ga_fast"][1],
-                "dense_ms": lt["dense_ga_fast"],
-            },
+            "note": f"the whole binning of a pass from the boxes (band stage, tile stage, and "
+                    f"the overflow fallback where it applies); B={GA_P}, a {BIG_N // 2}-splat "
+                    f"pass at {GA_SIDE}x{GA_SIDE}, 512 tiles, exact-tight; the dense sort it "
+                    f"replaces there: {lt['dense_ga_exact']} ms; band stages in the GA: "
+                    f"{ga_big_launches['K5-band']}; ga_fast: the same pass under the fast GA's "
+                    "corner cull, where the batch overflows cap_s and the fallback rebuilds the "
+                    "lists by the per-tile test",
+            "device_ms": lt["K5_device_ga_exact"],
+            **{k: {"launches": n, "ms": lt[f"K5_{k}"], "device_ms": lt[f"K5_device_{k}"],
+                   "plain_ms": lt[f"K5_plain_{k}"], "bound_ms": lb[f"K5_{k}"][0],
+                   "bound_by": lb[f"K5_{k}"][1], "overflow": scatter_errs[k]["overflow"]}
+               for k, n in (("ga_fast", ga_big_fast_launches["K5"]),
+                            ("c4k_exact", c4k_launches["exact"]["K5"]),
+                            ("c4k_fast", c4k_launches["fast+corner"]["K5"]),
+                            ("grad_1024", big_grad_launches["K5"]))},
+            "ga_fast_fallback_launches": ga_big_fast_launches["K5-fallback"],
         },
         {
             "name": "K6 bwd_tiles (backward walk, 9 gradients per splat)",

@@ -16,8 +16,9 @@ PyTorch/CUDA counterpart of `ggs_tpu/ops/render_pallas.py`:
   count. Below 256 tiles `bin_splats_dense` (:659): per-tile ascending
   splat lists padded with N, counts capped at `bin_capacity`, with the
   corner cull ANDed in. From 256 tiles `scatter_binning`
-  (`_bin_splats_scatter`, :892): its static rules, `_band_lists`
-  (`_band_lists_xla`, :698) and the band ranges in plain PyTorch, then K5.
+  (`_bin_splats_scatter`, :892): its static rules, then K5 from the boxes
+  (the band lists and band ranges on the card); its plain route keeps
+  `_band_lists` (`_band_lists_xla`, :698) and the band ranges in PyTorch.
 * Kernel wrappers, each with a launch count and a plain version beside it
   (a CPU tensor takes the plain version; a CUDA tensor launches the kernel
   or raises): `fitness_tiles` (K1), `render_tiles` (K2),
@@ -127,12 +128,14 @@ class _Kernels:
         lib.ggs_walk_sub_rows.restype = i
         lib.ggs_bf16x2_probe.argtypes = [i, p, p, p, i, p]
         lib.ggs_bf16x2_probe.restype = i
-        scatter.ggs_scatter_bin.argtypes = [p] * 7 + [i] * 7 + [p]
-        scatter.ggs_scatter_bin.restype = i
-        scatter.ggs_scatter_fallback.argtypes = [p, p, p, f, p, i, p, p] + [i] * 7 + [p]
-        scatter.ggs_scatter_fallback.restype = i
+        scatter.ggs_scatter_bands.argtypes = [p] * 4 + [f] + [p] * 3 + [i] * 7 + [p]
+        scatter.ggs_scatter_bands.restype = i
+        scatter.ggs_scatter_tiles.argtypes = [p] * 4 + [f] + [p] * 5 + [i] * 10 + [p]
+        scatter.ggs_scatter_tiles.restype = i
         lib.ggs_prep_fast.argtypes = [p, p, p, i, i] + [f] * 5 + [p]
         lib.ggs_prep_fast.restype = i
+        lib.ggs_empty_launch.argtypes = [p]
+        lib.ggs_empty_launch.restype = i
         lib.ggs_walk_geometry_ok.argtypes = [i, i]
         lib.ggs_walk_geometry_ok.restype = i
         lib.ggs_error_string.argtypes = [i]
@@ -525,10 +528,11 @@ def _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner) -> Optional[_ScatterPla
 @torch.no_grad()
 def scatter_args(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=SCATTER_PAD,
                  corner=None) -> Optional[dict]:
-    """The XLA-side half of `_bin_splats_scatter` in plain PyTorch: K5's
-    keyword arguments (tile bounds, band lists, band column ranges, the
-    overflow fallback's boxes and corner parameters), or None where the
-    rules bin densely."""
+    """The XLA-side half of `_bin_splats_scatter` in plain PyTorch: the
+    keyword arguments of bin_splats_scatter_plain (tile bounds, band lists,
+    band column ranges, the overflow fallback's boxes and corner
+    parameters), or None where the rules bin densely. K5 on the card
+    computes all of it from the boxes itself."""
     B, N = x0.shape
     plan = _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner)
     if plan is None:
@@ -553,9 +557,10 @@ def scatter_args(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=SCAT
 @torch.no_grad()
 def bin_splats_scatter_plain(rng, gl, gcnt, cxr, n_tx, n_ty, tile_h, tile_w, rpg, cap, cap_s,
                              fallback=None):
-    """Plain version of K5: -> (idx [B, T, cap] int32 padded with N, cnt
-    [B, T], tmax 0-d int32). Tile (row ty, column tx) keeps splat s iff
-    rng's rows cover ty and tx lies in s's column range: the band's
+    """Plain version of K5, from scatter_args' arguments: -> (idx [B, T,
+    cap] int32 padded with N, cnt [B, T], tmax 0-d int32). Tile (row ty,
+    column tx) keeps splat s iff rng's rows cover ty and tx lies in s's
+    column range: the band's
     [txl, txh] (cxr, band ty // rpg) or the box's; lists ascending, the
     first cap kept, cnt = min(count, cap), tmax the largest true count over
     the batch. With `fallback` (the band cull under cap_s < cap) and
@@ -585,69 +590,169 @@ def bin_splats_scatter_plain(rng, gl, gcnt, cxr, n_tx, n_ty, tile_h, tile_w, rpg
     return idx, torch.clamp_max(true, cap), tmax
 
 
-def bin_splats_scatter(rng, gl, gcnt, cxr, n_tx, n_ty, tile_h, tile_w, rpg, cap, cap_s,
-                       fallback=None):
-    """K5: as bin_splats_scatter_plain, on the card.
+_BAND_CHUNK = 256  # splats a block of K5's band stage walks (csrc/scatter.cu kChunk)
+
+
+def _pack_range(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
+    """K5's packed tile range: [lo, hi] within [0, n) as lo | (hi + 1) << 16,
+    each clamped to [0, n] (csrc/scatter.cu pack_range), so that for
+    0 <= v < n, lo <= v <= hi iff (lo' <= v < hi')."""
+    return torch.clamp(lo, 0, n) | ((torch.clamp(hi, -1, n - 1) + 1) << 16)
+
+
+@torch.no_grad()
+def scatter_band_entries_plain(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, rpg, corner=None):
+    """Plain version of K5's band stage: pixel boxes [B, N] int32 -> (ent
+    [B, nb, nc, 256, 4] int32, cnt [B, nb, nc] int32) for nb = ceil(n_ty /
+    rpg) bands and nc = max(1, ceil(N / 256)) chunks of 256 splats. Chunk c
+    of band k holds from ent[b, k, c, 0], ascending, the entries of its
+    splats whose tile rows reach the band (`_band_lists`' row test without
+    its cull filter), cnt of them, and zeros after: (s, its tile rows within
+    the band, the band's tile columns, the box's tile columns), each range
+    packed by _pack_range. The band's columns are `_corner_band_xranges`'
+    under `corner`, else the box's."""
+    B, N = x0.shape
+    dev = x0.device
+    nb, nc = _cdiv(n_ty, rpg), max(1, _cdiv(N, _BAND_CHUNK))
+    div = functools.partial(torch.div, rounding_mode="floor")
+    tx0, tx1, ty0, ty1 = div(x0, tile_w), div(x1, tile_w), div(y0, tile_h), div(y1, tile_h)
+    k = torch.arange(nb, dtype=torch.int32, device=dev)[None, :, None]
+    a = div(torch.clamp_min(ty0, 0), rpg)[:, None, :]
+    z = div(torch.clamp_max(ty1, n_ty - 1), rpg)[:, None, :]
+    in_row = (a <= k) & (z >= k)  # [B, nb, N]
+    if corner is None:
+        txl, txh = tx0[:, None, :], tx1[:, None, :]
+    else:
+        txl, txh = _corner_band_xranges(corner, x0, x1, y0, y1, rpg * tile_h, tile_w)
+        txl, txh = txl[:, :nb], txh[:, :nb]
+    shape = (B, nb, N)
+    ent = torch.stack([
+        torch.arange(N, dtype=torch.int32, device=dev).expand(shape),
+        _pack_range(ty0[:, None, :] - k * rpg, ty1[:, None, :] - k * rpg, rpg),
+        _pack_range(txl, txh, n_tx).expand(shape),
+        _pack_range(tx0, tx1, n_tx)[:, None, :].expand(shape),
+    ], -1) * in_row[..., None]
+    pad = nc * _BAND_CHUNK - N
+    ent = torch.cat([ent, ent.new_zeros((B, nb, pad, 4))], 2).reshape(B, nb, nc, _BAND_CHUNK, 4)
+    keep = torch.cat([in_row, in_row.new_zeros((B, nb, pad))], 2).reshape(B, nb, nc, _BAND_CHUNK)
+    # each chunk's kept entries first, in ascending order
+    order = torch.sort((~keep).to(torch.int8), dim=-1, stable=True).indices
+    ent = torch.gather(ent, 3, order[..., None].expand(B, nb, nc, _BAND_CHUNK, 4))
+    return ent.contiguous(), torch.sum(keep, dim=-1, dtype=torch.int32)
+
+
+def _k5_rows(rows, dtype, B: int, N: int, dev, what: str):
+    """K5's [B, N] input rows as ctypes arrays of pointers and batch strides
+    (rows of K4's tables are read in place: only the last stride must be 1)."""
+    for r in rows:
+        if r.dtype != dtype:
+            raise TypeError(f"{what}: rows of dtype {r.dtype}, expected {dtype}")
+        if r.device != dev or tuple(r.shape) != (B, N):
+            raise ValueError(f"{what}: expected [{B}, {N}] rows on {dev}, got "
+                             f"{tuple(r.shape)} on {r.device}")
+        if N > 1 and r.stride(1) != 1:
+            raise ValueError(f"{what}: each row's last stride must be 1")
+    return ((ctypes.c_void_p * len(rows))(*(r.data_ptr() for r in rows)),
+            (ctypes.c_longlong * len(rows))(*(r.stride(0) for r in rows)))
+
+
+def _band_launch(k, box, cpar, log2eps, B, N, n_tx, n_ty, tile_h, tile_w, rpg, dev, stream):
+    """One launch of K5's band stage: (ent, ent_cnt, tmax zeroed)."""
+    ent = torch.empty((B, _cdiv(n_ty, rpg), max(1, _cdiv(N, _BAND_CHUNK)), _BAND_CHUNK, 4),
+                      dtype=torch.int32, device=dev)
+    ent_cnt = torch.empty(ent.shape[:3], dtype=torch.int32, device=dev)
+    tmax = torch.empty((), dtype=torch.int32, device=dev)
+    rc = k.scatter.ggs_scatter_bands(*box, *(cpar or (None, None)), log2eps, ent.data_ptr(),
+                                     ent_cnt.data_ptr(), tmax.data_ptr(), B, N, n_tx, n_ty,
+                                     tile_h, tile_w, rpg, stream)
+    k.check(rc, "bin_splats_scatter (band stage)")
+    bin_splats_scatter.band_launches += 1
+    return ent, ent_cnt, tmax
+
+
+def scatter_band_entries(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, rpg, corner=None):
+    """K5's band stage alone: as scatter_band_entries_plain, where the
+    kernel leaves the slots after each chunk's cnt entries unwritten."""
+    if x0.device.type == "cpu":
+        return scatter_band_entries_plain(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, rpg, corner)
+    B, N = x0.shape
+    dev = x0.device
+    box = _k5_rows((x0, x1, y0, y1), torch.int32, B, N, dev, "box")
+    cpar = None if corner is None else _k5_rows(corner[:6], torch.float32, B, N, dev, "corner")
+    k = build()
+    with torch.cuda.device(dev):
+        ent, ent_cnt, _ = _band_launch(
+            k, box, cpar, 0.0 if corner is None else float(corner[6]), B, N, n_tx, n_ty, tile_h,
+            tile_w, rpg, dev, torch.cuda.current_stream(dev).cuda_stream)
+    return ent, ent_cnt
+
+
+def bin_splats_scatter(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=SCATTER_PAD,
+                       corner=None):
+    """K5: the scatter binning of one pass, from the pixel boxes [B, N]
+    int32 (and `corner`, the fast tier's `_corner_params`) to (idx [B, T,
+    cap] int32 padded with N, cnt [B, T], tmax 0-d int32, the largest true
+    count), equal to scatter_args then bin_splats_scatter_plain, which a
+    CPU tensor takes.
 
     Replaces ggs_tpu/ops/render_pallas.py:_scatter_bin_kernel (pallas_call
-    in _bin_splats_scatter). A block per (candidate, tile) walks its band's
-    list (every splat without bands) 256 entries at a time, tests each and
-    compacts the kept ones in ascending order by a warp ballot and a block
-    prefix, so no list slot takes an atomic; it counts past cap for the true
-    count. The overflow decision stays on the card: the walk takes the
-    batch's largest true count by atomicMax, and with `fallback` a second
-    launch rebuilds the lists by the per-tile corner test where it exceeds
-    cap_s, and returns at once elsewhere. `launches` counts calls,
-    `fallback_launches` those that also launched the fallback (whether it
-    rebuilt the lists is known only on the card). Bound by bytes, mostly
-    the padded lists written (csrc/scatter.cu)."""
-    if rng.device.type == "cpu":
-        return bin_splats_scatter_plain(rng, gl, gcnt, cxr, n_tx, n_ty, tile_h, tile_w, rpg, cap,
-                                        cap_s, fallback)
-    B, _, N = rng.shape
+    in _bin_splats_scatter) and the band lists and band column ranges the
+    JAX package computes in XLA around it. On the card, two or three
+    launches (csrc/scatter.cu): with bands, the band stage (a block per
+    (candidate, band, 256 splats) writes the row lists' entries with their
+    tile rows and the band's tile columns, computing `_corner_band_xranges`
+    under the cull); the tile stage (a block per tile row and up to 8
+    columns stages the band's entries in shared memory, a warp per tile
+    appends its kept ones in order by a ballot, no atomic on a slot, and
+    pads with N); and, with the band cull under cap_s < cap, the overflow
+    fallback, which reads tmax on the card and returns at once unless it
+    exceeds cap_s, else rebuilds the lists from the row lists by the box
+    and the per-tile corner test. Without bands (one row group, or above
+    8192 splats) the tile stage walks every splat's box, after a zeroing of
+    tmax. `launches` counts calls (one tile stage each), `band_launches`
+    band stages, `fallback_launches` calls that also launched the fallback
+    (whether it rebuilt the lists is known only on the card). Bound by
+    bytes: the padded lists written."""
+    if x0.device.type == "cpu":
+        args = scatter_args(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots, corner)
+        if args is None:
+            raise ValueError("the scatter rules bin this shape densely (bin_splats_dense)")
+        return bin_splats_scatter_plain(**args)
+    B, N = x0.shape
+    plan = _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner)
+    if plan is None:
+        raise ValueError("the scatter rules bin this shape densely (bin_splats_dense)")
+    dev = x0.device
+    box = _k5_rows((x0, x1, y0, y1), torch.int32, B, N, dev, "box")
+    cpar = _k5_rows(corner[:6], torch.float32, B, N, dev, "corner") if plan.corner_x else None
+    log2eps = float(corner[6]) if plan.corner_x else 0.0
+    fallback = plan.corner_x and plan.cap_s < cap
     T = n_tx * n_ty
-    dev = rng.device
-    _require(rng, "rng", torch.int32, (B, 4, N), dev)
-    if gl is not None:
-        _require(gl, "gl", torch.int32, (B, _N_COARSE, gl.shape[2]), dev)
-        _require(gcnt, "gcnt", torch.int32, (B, _N_COARSE, 1), dev)
-        if _cdiv(n_ty, rpg) > _N_COARSE:
-            raise ValueError(f"{_cdiv(n_ty, rpg)} row groups: the band lists hold {_N_COARSE}")
-    if cxr is not None:
-        if gl is None:
-            raise ValueError("band column ranges need the band lists")
-        _require(cxr, "cxr", torch.int32, (B, _N_COARSE, 2, N), dev)
     idx = torch.empty((B, T, cap), dtype=torch.int32, device=dev)
     cnt = torch.empty((B, T), dtype=torch.int32, device=dev)
-    tmax = torch.zeros((), dtype=torch.int32, device=dev)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
     k = build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = k.scatter.ggs_scatter_bin(
-            rng.data_ptr(), ptr(gl), ptr(gcnt), ptr(cxr), idx.data_ptr(), cnt.data_ptr(),
-            tmax.data_ptr(), B, N, n_tx, n_ty, rpg, 0 if gl is None else gl.shape[2], cap, stream,
+        if plan.two_level:
+            ent, ent_cnt, tmax = _band_launch(k, box, cpar, log2eps, B, N, n_tx, n_ty, tile_h,
+                                              tile_w, plan.rpg, dev, stream)
+            bands = (ent.data_ptr(), ent_cnt.data_ptr())
+        else:
+            tmax = torch.zeros((), dtype=torch.int32, device=dev)
+            bands = (None, None)
+        rc = k.scatter.ggs_scatter_tiles(
+            *box, *(cpar or (None, None)), log2eps, *bands, idx.data_ptr(), cnt.data_ptr(),
+            tmax.data_ptr(), B, N, n_tx, n_ty, tile_h, tile_w, plan.rpg, cap, plan.cap_s,
+            int(fallback), stream,
         )
         k.check(rc, "bin_splats_scatter")
-        if fallback is not None and cap_s < cap:
-            x0, x1, y0, y1, corner = fallback
-            box = torch.stack([x0, x1, y0, y1], 1).to(torch.int32).contiguous()
-            cpar = torch.stack([v.to(torch.float32) for v in corner[:6]], 1).contiguous()
-            rc = k.scatter.ggs_scatter_fallback(
-                rng.data_ptr(), box.data_ptr(), cpar.data_ptr(), float(corner[6]),
-                tmax.data_ptr(), cap_s, idx.data_ptr(), cnt.data_ptr(),
-                B, N, n_tx, n_ty, tile_h, tile_w, cap, stream,
-            )
-            k.check(rc, "bin_splats_scatter (overflow fallback)")
-            bin_splats_scatter.fallback_launches += 1
     bin_splats_scatter.launches += 1
+    bin_splats_scatter.fallback_launches += fallback
     return idx, cnt, tmax
 
 
-bin_splats_scatter.launches = bin_splats_scatter.fallback_launches = 0
+bin_splats_scatter.launches = bin_splats_scatter.band_launches = 0
+bin_splats_scatter.fallback_launches = 0
 
 
 def scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=SCATTER_PAD,
@@ -656,11 +761,12 @@ def scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=S
     cnt [B, T]). Without the corner cull the lists equal bin_splats_dense's;
     with it, while two-level, each band culls by its column ranges (weaker
     than the per-tile test, so the lists are supersets of the dense corner
-    lists), and where a budget cap_s < cap overflows, by the per-tile test."""
-    args = scatter_args(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots, corner)
-    if args is None:
+    lists), and where a budget cap_s < cap overflows, by the per-tile test.
+    Where the rules bin densely, bin_splats_dense."""
+    if _scatter_plan(n_tx, n_ty, cap, x0.shape[1], pad_slots, corner) is None:
         return bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=corner)
-    idx, cnt, _ = bin_splats_scatter(**args)
+    idx, cnt, _ = bin_splats_scatter(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots,
+                                     corner)
     return idx, cnt
 
 

@@ -385,7 +385,8 @@ def _scatter_case(dev, B, N, H, W, tile_h, precision, eps=None, coincident=0, se
     p = rc._screen(codec.genome_to_renderer(g), H, W, 3.0, precision, eps)
     corner = rc._corner_params(p, eps) if eps is not None else None
     n_tx, n_ty = -(-W // 128), -(-H // tile_h)
-    return rc.scatter_args(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, tile_h, 128, N, corner=corner), p
+    return dict(x0=p.x0, x1=p.x1, y0=p.y0, y1=p.y1, n_tx=n_tx, n_ty=n_ty, tile_h=tile_h,
+                tile_w=128, cap=N, corner=corner), p
 
 
 @pytest.mark.parametrize(
@@ -399,20 +400,23 @@ def _scatter_case(dev, B, N, H, W, tile_h, precision, eps=None, coincident=0, se
     ],
 )
 def test_scatter_kernel_matches_plain(dev, B, N, H, W, tile_h, precision, eps, coincident):
-    """K5 against bin_splats_scatter_plain: idx over its whole width, cnt and
-    the largest true count equal; without the cull also equal to
-    bin_splats_dense; the same bits twice; one count per call."""
+    """K5, from the boxes, against its plain route (scatter_args then
+    bin_splats_scatter_plain): idx over its whole width, cnt and the largest
+    true count equal; without the cull also equal to bin_splats_dense; the
+    same bits twice; one count per call, and one band stage each."""
     from ggs_tpu_torch.ops import render_cuda as rc
 
     args, p = _scatter_case(dev, B, N, H, W, tile_h, precision, eps, coincident)
-    n = rc.bin_splats_scatter.launches
+    n, nb = rc.bin_splats_scatter.launches, rc.bin_splats_scatter.band_launches
     idx, cnt, tmax = rc.bin_splats_scatter(**args)
-    idx_p, cnt_p, tmax_p = rc.bin_splats_scatter_plain(**args)
+    plain = rc.scatter_args(**args)
+    idx_p, cnt_p, tmax_p = rc.bin_splats_scatter_plain(**plain)
     assert torch.equal(idx, idx_p) and torch.equal(cnt, cnt_p) and int(tmax) == int(tmax_p)
     assert rc.bin_splats_scatter.launches == n + 1
+    assert rc.bin_splats_scatter.band_launches == nb + 1
     again = rc.bin_splats_scatter(**args)
     assert torch.equal(again[0], idx) and torch.equal(again[1], cnt)
-    overflow = args["fallback"] is not None and int(tmax) > args["cap_s"]
+    overflow = plain["fallback"] is not None and int(tmax) > plain["cap_s"]
     assert overflow == bool(coincident)
     if eps is None:
         di, dc = rc.bin_splats_dense(p.x0, p.x1, p.y0, p.y1, args["n_tx"], args["n_ty"], tile_h,
@@ -420,13 +424,17 @@ def test_scatter_kernel_matches_plain(dev, B, N, H, W, tile_h, precision, eps, c
         assert torch.equal(idx, di) and torch.equal(cnt, dc)
 
 
-def test_scatter_wrapper_rejects_bad_arguments(dev):
+def test_scatter_wrapper_rejects_bad_arguments(dev, monkeypatch):
     from ggs_tpu_torch.ops import render_cuda as rc
 
     args, _ = _scatter_case(dev, 1, 200, 1024, 1024, 16, "fast", 8e-2)
     with pytest.raises(TypeError):
-        rc.bin_splats_scatter(**dict(args, rng=args["rng"].long()))
+        rc.bin_splats_scatter(**dict(args, x0=args["x0"].long()))
+    with pytest.raises(ValueError):  # a box row whose last stride is not 1
+        rc.bin_splats_scatter(**dict(args, y1=args["y1"].repeat(1, 2)[:, ::2]))
     with pytest.raises(ValueError):
-        rc.bin_splats_scatter(**dict(args, gl=None))  # band ranges need the band lists
+        corner = (args["corner"][0][:, :-1],) + tuple(args["corner"][1:])
+        rc.bin_splats_scatter(**dict(args, corner=corner))
+    monkeypatch.setattr(rc, "SCATTER_BUDGET", 1024)  # cap_s = 3: the rules bin densely
     with pytest.raises(ValueError):
-        rc.bin_splats_scatter(**dict(args, cxr=args["cxr"][:, :, :, :-1]))
+        rc.bin_splats_scatter(**args)
