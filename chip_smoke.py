@@ -96,6 +96,25 @@ rebuilds the lists; the fallback's launches are counted apart), canvas-4k's
 big-10k-1024 and canvas-4k (whose fast+corner render may launch at most
 C4K_CORNER_EXTRA_LAUNCHES kernels a pass more than fast's), Adam
 steps/s at grad-10k-1024, and one chained Adam step with no host sync.
+The SA slice (`sa_paths`, and last `sa_checks_and_times`) adds the main
+paths `python -m
+ggs_tpu_torch.run_sa` at its defaults (synthetic 512x512, N=512, 8 tries,
+exact-tight; SA_ITERS iterations: the best must fall and stay monotone, K1
+once an iteration at B=8, K2 for the export), with `--proposal-mode
+sequential` (K1 eight times an iteration at B=1), `--replicas 4` (parallel
+tempering: K1 once an iteration at B=32), `--precision fast` (K4 and K3
+once an iteration, K1 once for the rescore) and `--metric ssim` (K2 once an
+iteration, no K1), `--precision bf16` (K1-bf16 once an iteration) and
+`--precision highest --metric mix --replicas 2` (K2 once an iteration, no
+rescore), `run_grad --metric mix` (K2' and K6 once a step, no K7;
+the loss must fall) and `run_ga --metric ssim`, each with objective.evaluate's
+batch sizes counted; one SA and one PT block under torch.cuda's sync debug
+mode; the SSIM of 8 rendered 512x512 canvases on the card with both TF32
+flags on, against the same function in float64 on the CPU (within
+SSIM_F64_ATOL, the same bits with the flags off); and SA, sequential SA and
+PT iterations/s (medians of host-timed blocks), launches an iteration and
+SSIM-metric renders/s at B=8 on an `SA TIMES` line beside the card. Each
+kernel's entry in the `kernels` line also gives its launches on these paths.
 Prints a `GRAD KERNELS` line (K6/K7 times, bounds and launches, blocks a
 SM, Adam steps/s at both gradient configurations, beside the card), one
 `kernels` JSON line, the card line, and last the device line.
@@ -103,6 +122,8 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import os
@@ -207,6 +228,18 @@ BIG_GRAD_STEPS, BIG_GA_GENS = 30, 8
 BIG_N, BIG_SIDE, BIG_B = 10_000, 1024, 4
 GA_SIDE, GA_P = 2048, 32
 C4K_SIDE, C4K_N, C4K_SCALES, C4K_EPS = 4096, 50_000, (1.0, 0.02), 8e-2
+# The SA slice's main paths at run_sa's defaults (synthetic 512x512, N=512,
+# 8 tries, exact-tight), cut in depth only: iterations of batched SA (K1 once
+# an iteration at B=8), sequential SA (eight times at B=1), PT with 4
+# replicas (once at B=32), the fast tier and the SSIM metric; Adam steps of
+# run_grad --metric mix and generations of run_ga --metric ssim
+SA_ITERS, SA_SEQ_ITERS, PT_ITERS, PT_K = 300, 30, 200, 4
+SA_FAST_ITERS, SA_SSIM_ITERS, GRAD_MIX_STEPS, GA_SSIM_GENS = 200, 100, 30, 30
+SA_SHORT_ITERS = 50  # run_sa under bf16, and under highest with the mix metric and PT
+SA_BLOCKS, SA_BLOCK_ITERS, SA_SEQ_BLOCK_ITERS = 5, 20, 4  # iterations/s: timed blocks
+PROFILE_ATTEMPTS = 3  # torch.profiler sessions a profile may take when one records no kernel
+SSIM_B = 8  # SSIM-metric renders/s: the batch of run_sa --metric ssim
+SSIM_F64_ATOL = 1e-6  # the card's f32 SSIM against the same function in f64 on the CPU
 
 
 def check(ok: bool, what: str) -> None:
@@ -1121,40 +1154,264 @@ def check_no_sync(fn, what: str) -> None:
     print(f"CHECK {what}: no host sync", flush=True)
 
 
+@contextlib.contextmanager
+def evaluate_batches():
+    """Counts objective.evaluate's calls by batch size, each one walk launch
+    at that B (no chunking on these paths)."""
+    from ggs_tpu_torch.ops import objective
+
+    seen = collections.Counter()
+    plain = objective.evaluate
+
+    def counted(obj, g, *args, **kw):
+        seen[int(g.shape[0]) if len(g.shape) == 3 else 1] += 1
+        return plain(obj, g, *args, **kw)
+
+    objective.evaluate = counted
+    try:
+        yield seen
+    finally:
+        objective.evaluate = plain
+
+
+def sa_paths(drive, ga_path, tgt) -> dict:
+    """The SA slice's main paths: run_sa (batched, sequential, PT, fast, bf16,
+    SSIM, highest with mix) and run_grad / run_ga under the SSIM metrics,
+    each with its launch counts and evaluate's batch sizes."""
+    import torch
+
+    from ggs_tpu_torch import run_grad, run_sa
+
+    out = {"launches": {}, "batches": {}}
+    H, W = tgt.shape[:2]
+
+    def sa_path(tag, outdir, iters, argv):
+        with evaluate_batches() as seen:
+            res, counts, wall = drive(tag, run_sa, outdir, [
+                "--iterations", str(iters), "--log-every", str(max(1, iters // 3)), "--no-video",
+                *argv])
+        best = res["curves"]["best"]
+        print(f"MAIN PATH {tag} " + json.dumps({
+            "iterations": iters, "seconds": wall, "best_first": best[0], "best_last": best[-1],
+            "exact_rescore": res["best_fit"], "launches": counts,
+            "evaluate_batches": dict(seen),
+        }), flush=True)
+        check(len(best) == iters + 1, f"{tag}: curve length")
+        check(best[-1] < best[0], f"{tag}: the best did not fall ({best[0]} -> {best[-1]})")
+        check(all(b1 <= b0 for b0, b1 in zip(best, best[1:])), f"{tag}: the best is not monotone")
+        check(math.isfinite(res["best_fit"]) and res["best_fit"] > 0, f"{tag}: rescored energy")
+        check(tuple(res["final"].shape) == (H, W, 3) and bool(torch.isfinite(res["final"]).all()),
+              f"{tag}: export render")
+        out["launches"][tag], out["batches"][tag] = counts, dict(seen)
+        return counts, seen
+
+    n = SA_ITERS
+    c, b = sa_path("run_sa", "chip_smoke_sa", n, [])
+    check(c["K1"] == n + 2 and b == {8: n, 1: 2} and c["K2"] >= 1 and c["K3"] + c["K4"] == 0,
+          f"run_sa: K1 once an iteration at B=8, the init and the rescore at B=1: {c}, {b}")
+    n = SA_SEQ_ITERS
+    c, b = sa_path("run_sa sequential", "chip_smoke_sa_seq", n, ["--proposal-mode", "sequential"])
+    check(c["K1"] == 8 * n + 2 and b == {1: 8 * n + 2}, f"run_sa sequential: {c}, {b}")
+    n = PT_ITERS
+    c, b = sa_path("run_sa pt", "chip_smoke_pt", n, ["--replicas", str(PT_K)])
+    check(c["K1"] == n + 2 and b == {8 * PT_K: n, PT_K: 1, 1: 1}, f"run_sa --replicas: {c}, {b}")
+    n = SA_FAST_ITERS
+    c, b = sa_path("run_sa fast", "chip_smoke_sa_fast", n, ["--precision", "fast"])
+    check(c["K4"] == n + 1 and c["K3"] == n + 1 and c["K1"] == 1,
+          f"run_sa fast: K4 and K3 once an iteration, K1 once for the rescore: {c}")
+    n = SA_SSIM_ITERS
+    c, b = sa_path("run_sa ssim", "chip_smoke_sa_ssim", n, ["--metric", "ssim"])
+    check(c["K2"] == n + 3 and c["K1"] == 0 and b == {8: n, 1: 2},
+          f"run_sa ssim: K2 once an iteration, the init, the rescore and the export: {c}, {b}")
+    n = SA_SHORT_ITERS
+    c, b = sa_path("run_sa bf16", "chip_smoke_sa_bf16", n, ["--precision", "bf16"])
+    check(c["K1-bf16"] == n + 1 and c["K1"] == 1, f"run_sa bf16: K1-bf16 once an iteration: {c}")
+    c, b = sa_path("run_sa highest mix", "chip_smoke_sa_mix", n,
+                   ["--precision", "highest", "--metric", "mix", "--replicas", "2"])
+    check(c["K2"] == n + 2 and c["K1"] == 0 and b == {16: n, 2: 1},
+          f"run_sa highest mix (PT, no rescore): K2 once an iteration, the init and the export: "
+          f"{c}, {b}")
+
+    res, c, wall = drive("run_grad --metric mix", run_grad, "chip_smoke_grad_mix", [
+        "--steps", str(GRAD_MIX_STEPS), "--log-every", "10", "--metric", "mix"])
+    curve = res["curve"]
+    print("MAIN PATH run_grad mix " + json.dumps({
+        "steps": GRAD_MIX_STEPS, "seconds": wall, "loss_first": curve[0], "loss_last": curve[-1],
+        "highest_rescore": res["best_loss"], "launches": c,
+    }), flush=True)
+    check(len(curve) == GRAD_MIX_STEPS and curve[-1] < curve[0],
+          f"run_grad mix: the loss did not fall ({curve[0]} -> {curve[-1]})")
+    check(c["K6"] == GRAD_MIX_STEPS and c["K2"] == GRAD_MIX_STEPS + 2 and c["K7"] == 0,
+          f"run_grad mix: K2' and K6 once a step (K2 also the rescore and export), no K7: {c}")
+    out["launches"]["run_grad mix"] = c
+    _, c = ga_path("run_ga --metric ssim", "ga ssim", "chip_smoke_ga_ssim", GA_SSIM_GENS,
+                   ["--metric", "ssim"])
+    check(c["K2"] == GA_SSIM_GENS + 3 and c["K1"] == 0, f"run_ga ssim launches {c}")
+    out["launches"]["run_ga ssim"] = c
+
+    return out
+
+
+def conv2d_filter2(img_hwc, taps):
+    """ssim._filter2 as one depthwise F.conv2d of the 2-D window outer(taps,
+    taps), [..., H, W, C] -> [..., H-k+1, W-k+1, C]: the contrast to the
+    port's shifted sums, subject to the TF32 flags where cuDNN applies them."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.tensor(taps, dtype=img_hwc.dtype, device=img_hwc.device)
+    k = g.numel()
+    *lead, H, W, C = img_hwc.shape
+    x = img_hwc.reshape(-1, H, W, C).permute(0, 3, 1, 2)
+    y = F.conv2d(x, torch.outer(g, g).expand(C, 1, k, k).contiguous(), groups=C)
+    return y.permute(0, 2, 3, 1).reshape(*lead, H - k + 1, W - k + 1, C)
+
+
+def sa_checks_and_times(tgt, wm, card) -> dict:
+    """The SA slice's checks and times, run after every other phase: SA and
+    PT blocks with no host sync; the SSIM on the card under the TF32 flags
+    against float64; iterations/s, launches an iteration and SSIM-metric
+    renders/s. (In the one run that profiled these blocks before the
+    large-canvas path, its fast canvas-4k profile recorded no kernel; the
+    cause is not known, hence the order and profile_split's retry.)"""
+    import torch
+
+    from ggs_tpu_torch.config import GenomeConfig, SAConfig
+    from ggs_tpu_torch.models import genome, pt, sa
+    from ggs_tpu_torch.ops import objective, ssim
+
+    H, W = tgt.shape[:2]
+    dev = tgt.device
+    phase("SA and PT blocks: no host sync; SSIM on the card")
+    obj = objective.Objective(H=H, W=W, precision="exact-tight")
+    gnm = GenomeConfig()
+    cfgs = {"batched": SAConfig(), "sequential": SAConfig(proposal_mode="sequential")}
+    runs = {mode: sa.make_run_block(obj, cfg, gnm) for mode, cfg in cfgs.items()}
+    runs["pt"] = pt.make_run_block(obj, SAConfig(), gnm)
+    states = {mode: sa.init(torch.Generator(device=dev).manual_seed(41), obj, tgt, wm, gnm)
+              for mode in cfgs}
+    states["pt"] = pt.init(torch.Generator(device=dev).manual_seed(42), obj, tgt, wm, gnm,
+                           PT_K, 1e-3, 1e-1)
+    block = {"batched": SA_BLOCK_ITERS, "sequential": SA_SEQ_BLOCK_ITERS, "pt": SA_BLOCK_ITERS}
+    for mode in runs:  # warm-up
+        states[mode], _ = runs[mode](states[mode], tgt, wm, block[mode])
+    check_no_sync(lambda: runs["batched"](states["batched"], tgt, wm, 5),
+                  "a 5-iteration SA block (batched, exact-tight)")
+    check_no_sync(lambda: runs["pt"](states["pt"], tgt, wm, 5),
+                  f"a 5-iteration PT block ({PT_K} replicas)")
+
+    pop8 = genome.new_population(torch.Generator(device=dev).manual_seed(43), SSIM_B, 512, H, W,
+                                 device=dev)
+    imgs = objective.render_genomes(obj, pop8, device=dev)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        s_card = ssim.ssim(imgs, tgt)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        same_bits = torch.equal(ssim.ssim(imgs, tgt), s_card)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    s_ref = ssim.ssim(imgs.double().cpu(), tgt.double().cpu())
+    err = float((s_card.double().cpu() - s_ref).abs().max())
+    ssim_check = {
+        "canvases": f"{SSIM_B} x {H}x{W}", "ssim": s_card.tolist(), "max_abs_vs_f64": err,
+        "same_bits_tf32_on_and_off": same_bits,
+    }
+    # the contrast, not a check: the same SSIM with the window as one
+    # depthwise F.conv2d (what the port does not use), TF32 flags on and off
+    port_filter = ssim._filter2
+    try:
+        ssim._filter2 = conv2d_filter2
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            s_conv = ssim.ssim(imgs, tgt).double().cpu()
+            key = "conv2d_tf32" if tf32 else "conv2d_f32"
+            ssim_check[key + "_max_abs_vs_f64"] = float((s_conv - s_ref).abs().max())
+    finally:
+        ssim._filter2 = port_filter
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    print("SSIM CHECK " + json.dumps(ssim_check), flush=True)
+    check(err <= SSIM_F64_ATOL and same_bits,
+          f"the card's SSIM under the TF32 flags: {err} from float64 (limit {SSIM_F64_ATOL})")
+
+    phase("times: SA and PT iterations/s, SSIM-metric renders/s")
+    rates = {}
+    for mode in runs:
+        rs = []
+        for _ in range(SA_BLOCKS):
+            t0 = time.perf_counter()
+            states[mode], m = runs[mode](states[mode], tgt, wm, block[mode])
+            m.cpu()
+            torch.cuda.synchronize()
+            rs.append(block[mode] / (time.perf_counter() - t0))
+        rates[mode] = {"median": sorted(rs)[SA_BLOCKS // 2], "blocks": rs}
+    prof = {mode: profile_split(
+        lambda: runs[mode](states[mode], tgt, wm, block[mode])[1].cpu(), block[mode])
+        for mode in runs}
+    obj_ssim = obj._replace(metric="ssim")
+    ssim_ms = cuda_ms(lambda: objective.evaluate(obj_ssim, pop8, tgt, wm, device=dev), 20)
+    mse_ms = cuda_ms(lambda: objective.evaluate(obj, pop8, tgt, wm, device=dev), 20)
+    render_ms = cuda_ms(lambda: objective.render_genomes(obj, pop8, device=dev), 20)
+    energy_ms = cuda_ms(lambda: ssim.mixed_energy(imgs, tgt, wm, ssim_weight=1.0), 20)
+    times = {
+        "card": card,
+        "sa_iterations_per_s": {k: v["median"] for k, v in rates.items()},
+        "sa_iterations_per_s_blocks": {k: v["blocks"] for k, v in rates.items()},
+        "launches_per_iteration": {k: p["kernels_per_step"] for k, p in prof.items()},
+        "device_busy_share": {k: p["device_busy_share"] for k, p in prof.items()},
+        "device_ms_per_iteration": {k: {n: v / p["steps"] for n, v in p["device_ms"].items()}
+                                    for k, p in prof.items()},
+        f"ssim_renders_per_s_B{SSIM_B}": SSIM_B / (ssim_ms / 1e3),
+        f"mse_renders_per_s_B{SSIM_B}": SSIM_B / (mse_ms / 1e3),
+        "ssim_evaluate_ms": ssim_ms, "render_ms": render_ms, "ssim_energy_ms": energy_ms,
+    }
+    print("SA TIMES " + json.dumps(times), flush=True)
+    return times
+
+
 def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
     """Device time of one fn() (n_gens GA generations or Adam steps) under
     torch.profiler, split between the walk kernel, K4 (prep), K5 (the
     scatter binning), sort kernels (the dense binning and the band lists)
-    and the rest, with the device's busy share of the host-timed window."""
+    and the rest, with the device's busy share of the host-timed window.
+    A session that records no device kernel at all is a lost trace, not a
+    reading (the fast canvas-4k render, which launches 276 kernels, once
+    read 0): fn() is profiled again, up to PROFILE_ATTEMPTS times, and
+    "attempts" says how many it took."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    split = {"walk": 0.0, "prep": 0.0, "scatter": 0.0, "sort": 0.0, "other": 0.0}
-    by_name = []
-    for e in prof.key_averages():
-        # user annotations (torch.optim's "Optimizer.step#Adam.step") span
-        # kernels counted on their own
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        key = ("walk" if walk in e.key else "prep" if "prep_fast_kernel" in e.key
-               else "scatter" if "ggs_scatter" in e.key
-               else "sort" if "sort" in e.key.lower() or "radix" in e.key.lower() else "other")
-        split[key] += us / 1e3
-        by_name.append((us / 1e3, e.count, e.key[:90]))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        split = {"walk": 0.0, "prep": 0.0, "scatter": 0.0, "sort": 0.0, "other": 0.0}
+        by_name = []
+        for e in prof.key_averages():
+            # user annotations (torch.optim's "Optimizer.step#Adam.step") span
+            # kernels counted on their own
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            key = ("walk" if walk in e.key else "prep" if "prep_fast_kernel" in e.key
+                   else "scatter" if "ggs_scatter" in e.key
+                   else "sort" if "sort" in e.key.lower() or "radix" in e.key.lower() else "other")
+            split[key] += us / 1e3
+            by_name.append((us / 1e3, e.count, e.key[:90]))
+        if by_name:
+            break
+        print(f"PROFILE note: attempt {attempt} recorded no device kernel", flush=True)
     busy = sum(split.values())
     by_name.sort(reverse=True)
     return {
         "steps": n_gens,
         "walk_kernel": walk,
+        "attempts": attempt,
         "wall_ms_under_profiler": wall_ms,
         "device_ms": split,
         "device_busy_share": busy / wall_ms,
@@ -1216,6 +1473,13 @@ def main() -> int:
     c_cap = make_case(4, 256, 200, 328, "highest", cap=cap, seed=1)
     check(int(c_cap["cnt"].max()) == cap, "bin_capacity did not truncate")
     compare(c_cap, f"B=4 N=256 200x328 highest bin_capacity={cap}")
+    # the SA slice's shapes: run_sa's tries (B=8: K1, and K2 under --metric
+    # ssim), sequential SA and the highest rescore (B=1), and PT with 2
+    # replicas under highest with the mix metric (K2 at B=16); PT with 4
+    # replicas and run_ga --metric ssim walk B=32, checked above
+    for B, precision in ((8, "exact-tight"), (1, "exact-tight"), (1, "highest"), (16, "highest")):
+        compare(make_case(B, 512, 512, 512, precision, seed=24),
+                f"B={B} N=512 512x512 {precision} (run_sa)")
 
     # the entry points on a small input against the dense oracle on the CPU
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1272,6 +1536,10 @@ def main() -> int:
                  "B=4 N=256 200x328 bf16, 16x128 tiles")
     bf16_case = make_case(32, 512, 512, 512, "bf16", seed=22)
     bf16_err = compare_bf16(bf16_case, "B=32 N=512 512x512 bf16")
+    # run_sa's tries under --precision fast (K4, K3) and bf16 (K1-bf16)
+    compare_fast(make_case(8, 512, 512, 512, "fast", seed=25, cull_eps=2e-3),
+                 "B=8 N=512 512x512 fast eps=0.002 corner cull (run_sa)")
+    compare_bf16(make_case(8, 512, 512, 512, "bf16", seed=26), "B=8 N=512 512x512 bf16 (run_sa)")
     bf16x2 = check_bf16x2(kern)
     check_fast_entry_points()
 
@@ -1493,6 +1761,9 @@ def main() -> int:
     _, bf16_launches = ga_path("run_ga --precision bf16", "bf16", "chip_smoke_bf16", BF16_GENS,
                                   ["--precision", "bf16"])
     check(bf16_launches["K1-bf16"] >= BF16_GENS, f"bf16 launches {bf16_launches}")
+
+    # the SA slice: SA, PT and the SSIM metrics through run_sa, run_grad, run_ga
+    sa_out = sa_paths(drive, ga_path, tgt)
 
     # the large-canvas main paths: chained passes, K5 from 256 tiles
     phase("chained equals one pass")
@@ -1891,6 +2162,8 @@ def main() -> int:
     print("LAUNCHES per GA generation / Adam step " + json.dumps(
         {"measured": launch_rates, "limit": LAUNCH_LIMITS}), flush=True)
 
+    sa_checks_and_times(tgt, wm, card)
+
     kernels = [
         {
             "name": "K1 fitness_tiles (fused walk + weighted SSE partials)",
@@ -2065,6 +2338,10 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    # each kernel's launches on the SA slice's main paths
+    for entry in kernels:
+        key = entry["name"].split()[0]
+        entry["launches_sa_slice"] = {tag: c[key] for tag, c in sa_out["launches"].items()}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -71,6 +71,23 @@ class GAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SAConfig:
+    """Simulated-annealing settings (reference: modules/config.py:71-73)."""
+
+    iterations: int = 500_000
+    tries_per_iter: int = 8
+    t0: float = 1e-3
+    temp_schedule: str = "cosine"  # "exp"|"linear"|"cosine"|"log"|"cauchy"
+    sigma_schedule: str = "cosine"
+    mutpb: float = 0.05
+    # "batched": all tries proposed from the iteration-start state, scored as
+    # one batch, then Metropolis-accepted in order; "sequential": each try
+    # mutates the possibly-updated state (the reference's chaining,
+    # annealing.py:121-146), scored one at a time
+    proposal_mode: str = "batched"
+
+
+@dataclasses.dataclass(frozen=True)
 class GradConfig:
     """Gradient-descent fitting (projected Adam; no reference analogue)."""
 

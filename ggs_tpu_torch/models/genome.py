@@ -83,6 +83,13 @@ def new_population(
     return apply_population(draws, H, W, min_scale, max_scale)
 
 
+def _f32_op(fn, *args) -> np.float32:
+    """fn of float32 arguments, correctly rounded to float32 (evaluated in
+    float64, then rounded), as XLA's cos, log and pow nearly always are
+    and numpy's float32 cos and power are not."""
+    return np.float32(fn(*(np.float64(a) for a in args)))
+
+
 def anneal_factor(gen: int, total: int, kind: str) -> float:
     """Mutation-sigma decay in [0, 1] (modules/utils.py:15-28), in float32
     like the JAX package's traced version."""
@@ -90,10 +97,10 @@ def anneal_factor(gen: int, total: int, kind: str) -> float:
     g = f32(min(max(gen, 0), total))
     p = g / f32(max(1, total))
     if kind == "cosine":
-        raw = f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * p))
+        raw = f32(0.5) * (f32(1.0) + _f32_op(np.cos, f32(math.pi) * p))
     elif kind == "exp":
         decay = f32(0.2 ** (1.0 / max(1, total)))
-        raw = decay**g
+        raw = _f32_op(np.power, decay, g)
     else:  # "linear" and unknown kinds fall back to linear, like the reference
         raw = f32(1.0) - p
     return float(max(f32(raw), f32(0.0)))
@@ -107,3 +114,27 @@ def build_mut_sigma(gen: int, total: int, kind: str, sig_max: dict, sig_min: dic
         k: float(np.float32(sig_min[k]) + f * np.float32(sig_max[k] - sig_min[k]))
         for k in sig_max
     }
+
+
+def temp_schedule(kind: str, T0: float, i: int, total: int) -> np.float32:
+    """SA temperature at iteration i (modules/annealing.py:29-44).
+
+    The JAX package computes it in float32 from a traced i; here i stays on
+    the host and every operation rounds to float32 in the same order (cos,
+    log and pow by _f32_op), so T, which feeds the acceptance test
+    exp(-dE / T), matches to the ulp. Unknown kinds fall back to "exp",
+    like the reference."""
+    f32 = np.float32
+    it = f32(i)
+    p = it / f32(max(1, total))
+    floor = f32(1e-12)
+    if kind == "linear":
+        return max(floor, f32(T0) * (f32(1.0) - p))
+    if kind == "cosine":
+        return max(floor, f32(T0 * 0.5) * (f32(1.0) + _f32_op(np.cos, f32(math.pi) * p)))
+    if kind == "log":
+        return max(floor, f32(T0) / (f32(1.0) + _f32_op(np.log, f32(1.0) + f32(9.0) * it)))
+    if kind == "cauchy":
+        return max(floor, f32(T0) / (f32(1.0) + it))
+    r = 0.01 ** (1.0 / max(1, total))
+    return f32(T0) * _f32_op(np.power, f32(r), it)

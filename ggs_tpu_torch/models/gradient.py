@@ -12,13 +12,15 @@ renderer's exact backward (ops/render_grad.py), which gives:
 
 Under precision "fast" the gradient paths walk the eps-culled lists
 (`_grad_cull_eps`, `_grad_corner`): exact gradients of the culled render the
-fast GA selects on. `optax.adam` becomes `torch.optim.Adam` with the same
-lr, betas and eps (the same update up to rounding); the optimizer updates
-the state's genome tensor in place and the projection follows under
-`torch.no_grad()`. Not ported yet (each raises NotImplementedError): the
-tile-sharded loss, the blur homotopy (`anneal_sigma0`), metrics "ssim" and
-"mix". Precision "bf16" is a fitness-only tier and is refused here, as
-runners/run_grad.py refuses it.
+fast GA selects on. Metrics "ssim" and "mix" differentiate the canvases
+through autograd (ops/ssim.py), so they take render_diff (K2' forward, K6
+backward) and never the fused K7 path (gradient.py:242-246). `optax.adam`
+becomes `torch.optim.Adam` with the same lr, betas and eps (the same update
+up to rounding); the optimizer updates the state's genome tensor in place
+and the projection follows under `torch.no_grad()`. Not ported yet (each
+raises NotImplementedError): the tile-sharded loss and the blur homotopy
+(`anneal_sigma0`). Precision "bf16" is a fitness-only tier and is refused
+here, as runners/run_grad.py refuses it.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 
 from .. import resolve_device
 from ..config import GenomeConfig, GradConfig
-from ..ops import codec, fitness, oracle, render_cuda, render_grad
+from ..ops import codec, oracle, render_cuda, render_grad
 from ..ops import objective as objective_mod
 from ..ops.objective import Objective
 from . import genome as genome_mod
@@ -56,8 +58,7 @@ def _grad_box(obj: Objective) -> str:
 
 
 def _check_objective(obj: Objective) -> None:
-    if obj.metric != "mse":
-        raise NotImplementedError(f"metric={obj.metric!r} is not ported yet (only 'mse')")
+    objective_mod.check_metric(obj.metric)
     render_cuda._check_precision(obj.precision)
     if obj.precision == "bf16":
         raise NotImplementedError("precision 'bf16' is a fitness-only tier: no gradients")
@@ -66,10 +67,11 @@ def _check_objective(obj: Objective) -> None:
 
 
 def make_loss_fn(obj: Objective, gnm: GenomeConfig):
-    """Differentiable loss: axes-angle genomes [B, N, 9] -> (mean fitness,
-    fits [B]). impl "cuda" renders with render_grad.render_diff (forward
-    K2, backward K6; eps-culled under "fast"); impl "oracle" with the dense
-    renderer and autograd (always exact)."""
+    """Differentiable loss: axes-angle genomes [B, N, 9] -> (mean energy,
+    energies [B]) in obj's metric. impl "cuda" renders with
+    render_grad.render_diff (forward K2, backward K6; eps-culled under
+    "fast"); impl "oracle" with the dense renderer and autograd (always
+    exact)."""
     _check_objective(obj)
     bg = tuple(float(c) for c in obj.background)
 
@@ -85,10 +87,7 @@ def make_loss_fn(obj: Objective, gnm: GenomeConfig):
             imgs = oracle.render_dense(
                 g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=bg, box=_grad_box(obj)
             )
-        fits = fitness.fitness_from_images(
-            imgs, target, weight_mask=weight_mask,
-            boost_only=obj.boost_only, boost_beta=obj.boost_beta,
-        )
+        fits = objective_mod.image_energy(obj, imgs, target, weight_mask)
         return torch.mean(fits), fits
 
     return loss_fn
@@ -103,8 +102,9 @@ def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
 
     impl "cuda" with metric "mse" takes the fused path, one K7 launch per
     step (render_grad.fused_value_and_grad), up to render_cuda.MAX_SPLATS
-    splats; above that, and for every other case, autograd through
-    make_loss_fn (K2 and K6 once per chained pass; gradient.py:251-257)."""
+    splats; above that, for metrics "ssim" and "mix" (K7's loss head is the
+    weighted-SSE family only) and for impl "oracle", autograd through
+    make_loss_fn (K2 and K6 once per chained pass; gradient.py:242-257)."""
     loss_fn = make_loss_fn(obj, gnm)
 
     def autograd_vg(g_axes, target, weight_mask):
@@ -114,7 +114,7 @@ def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
             (grads,) = torch.autograd.grad(loss, g)
         return (loss.detach(), fits.detach()), grads
 
-    if obj.impl != "cuda":
+    if obj.impl != "cuda" or obj.metric != "mse":
         return autograd_vg
 
     def fused_vg(g_axes, target, weight_mask):

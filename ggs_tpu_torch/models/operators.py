@@ -11,7 +11,7 @@ gene guarantees, theta wrapping, genome clamping, and the z-order swap.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
@@ -82,10 +82,26 @@ def _zorder_swap(pop: torch.Tensor, z_i: torch.Tensor, z_u: torch.Tensor) -> tor
     return torch.where(cand.any(dim=1)[:, None, None], swapped, pop)
 
 
+def _sig_row(v):
+    """A sigma as a factor of a [P, N, c] group: a float, or a [P] tensor of
+    per-row sigmas as [P, 1, 1]."""
+    return v[:, None, None] if torch.is_tensor(v) else v
+
+
+def _sig_cols(vals, dev) -> torch.Tensor:
+    """The sigmas of a group's c columns as one factor of [P, N, c]: floats
+    as a [c] row, copied to the device without waiting for it (pinned
+    memory, non-blocking); per-row [P] tensors as [P, 1, c]."""
+    if torch.is_tensor(vals[0]):
+        return torch.stack(vals, dim=-1)[:, None, :]
+    row = torch.tensor(vals, dtype=torch.float32, pin_memory=dev.type == "cuda")
+    return row.to(dev, non_blocking=True)
+
+
 def apply_mutation(
     pop: torch.Tensor,
     draws: Dict[str, torch.Tensor],
-    sig: Dict[str, float],
+    sig: Dict[str, Union[float, torch.Tensor]],
     mutpb: float,
     H: int,
     W: int,
@@ -94,7 +110,10 @@ def apply_mutation(
 ) -> torch.Tensor:
     """Mutate an axes-angle population [P, N, 9] (mutate_individual for each
     row): Bernoulli(mutpb) gene-group masks with >= 1-True guarantees,
-    Gaussian steps scaled by the annealed sigmas, clamping, z-order swap."""
+    Gaussian steps scaled by the annealed sigmas, clamping, z-order swap.
+    The sigmas are all floats, or all [P] tensors giving each row its own
+    (parallel tempering scales a replica's sigmas by sqrt(T_k / T_0),
+    pt.py:116-122)."""
     P, N, _ = pop.shape
     d = draws
     m_xy = d["u_xy"] < mutpb
@@ -114,12 +133,11 @@ def apply_mutation(
     m_t = _ensure_one_true(m_t, d["r_t"])
 
     dev = pop.device
-    f32 = torch.float32
-    sig_ab = torch.tensor([sig["alog"], sig["blog"]], dtype=f32, device=dev)
-    sig_rgba = torch.tensor([sig["rgb"]] * 3 + [sig["alpha"]], dtype=f32, device=dev)
-    xy = pop[:, :, 0:2] + d["n_xy"] * sig["xy"] * m_xy
+    sig_ab = _sig_cols([sig["alog"], sig["blog"]], dev)
+    sig_rgba = _sig_cols([sig["rgb"]] * 3 + [sig["alpha"]], dev)
+    xy = pop[:, :, 0:2] + d["n_xy"] * _sig_row(sig["xy"]) * m_xy
     ab = pop[:, :, 2:4] + d["n_ab"] * sig_ab * m_ab
-    th = codec.wrap_angle(pop[:, :, 4:5] + d["n_t"] * sig["theta"] * m_t)
+    th = codec.wrap_angle(pop[:, :, 4:5] + d["n_t"] * _sig_row(sig["theta"]) * m_t)
     rgba = pop[:, :, 5:9] + d["n_rgba"] * sig_rgba * m_rgba
 
     out = torch.cat([xy, ab, th, rgba], dim=2)

@@ -2,8 +2,10 @@
 
 PyTorch counterpart of the single-device part of `ggs_tpu/ops/objective.py`:
 `Objective`, `evaluate` (with the chunk padding of objective.py:182-195)
-and `render_genomes`. Only metric="mse" is ported; the SSIM/mix metrics
-and the sharded paths raise.
+and `render_genomes`. Metric "mse" scores in the fused walk (K1, K3 or
+K1-bf16); "ssim" and "mix" render the canvases at the objective's tier and
+score them with ops/ssim.mixed_energy (objective.py:121-141). The sharded
+paths are not ported.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from .. import resolve_device
-from . import codec, fitness, render, render_cuda
+from . import codec, fitness, render, render_cuda, ssim
 
 
 class Objective(NamedTuple):
@@ -27,7 +29,10 @@ class Objective(NamedTuple):
     chunk: Optional[int] = None
     bin_capacity: Optional[int] = None
     background: Sequence[float] = (1.0, 1.0, 1.0)
+    # "mse" (the reference's masked MSE) | "ssim" (DSSIM) | "mix":
+    # (1 - ssim_weight) * masked MSE + ssim_weight * DSSIM
     metric: str = "mse"
+    ssim_weight: float = 0.5
     # "highest": the reference's conservative box; "exact-tight": the same
     # exact f32 walk over the tight k-sigma box (codec.tighten_boxes_exact);
     # "fast": the exp2 walk (K3) over the eps-tight boxes; "bf16": the exact
@@ -37,6 +42,14 @@ class Objective(NamedTuple):
     # corner cull at that eps; the JAX package's defaults
     cull_eps: Optional[float] = render_cuda.DEFAULT_CULL_EPS
     corner_cull: bool = True
+
+
+METRICS = ("mse", "ssim", "mix")
+
+
+def check_metric(metric: str) -> None:
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
 
 
 def _as_f32(x, device: torch.device) -> torch.Tensor:
@@ -58,6 +71,22 @@ def render_genomes(
     )
 
 
+def image_energy(obj: Objective, imgs, target, weight_mask=None) -> torch.Tensor:
+    """Rendered canvases [B, H, W, 3] -> obj's energy [B]: the masked MSE, or
+    mixed_energy with weight 1 ("ssim") or obj.ssim_weight ("mix"). The one
+    home of the metric, for evaluate and the differentiable losses."""
+    if obj.metric == "mse":
+        return fitness.fitness_from_images(
+            imgs, target, weight_mask=weight_mask,
+            boost_only=obj.boost_only, boost_beta=obj.boost_beta,
+        )
+    return ssim.mixed_energy(
+        imgs, target, weight_mask=weight_mask,
+        ssim_weight=1.0 if obj.metric == "ssim" else obj.ssim_weight,
+        boost_only=obj.boost_only, boost_beta=obj.boost_beta,
+    )
+
+
 def evaluate(
     obj: Objective,
     g_axes,
@@ -69,8 +98,7 @@ def evaluate(
 
     Inputs may be numpy arrays or tensors; they are moved to `device`.
     With obj.chunk set, at most chunk candidates are scored at once."""
-    if obj.metric != "mse":
-        raise NotImplementedError(f"metric={obj.metric!r} is not ported yet (only 'mse')")
+    check_metric(obj.metric)
     dev = resolve_device(device)
     g_axes = _as_f32(g_axes, dev)
     target = _as_f32(target, dev)
@@ -80,6 +108,8 @@ def evaluate(
     B = g_axes.shape[0]
 
     def eval_batch(g):
+        if obj.metric != "mse":
+            return image_energy(obj, render_genomes(obj, g, device=dev), target, weight_mask)
         g9 = codec.genome_to_renderer(g)
         if obj.impl == "cuda":
             return render_cuda.fitness(
@@ -93,10 +123,7 @@ def evaluate(
             impl=obj.impl, bin_capacity=obj.bin_capacity, precision=obj.precision,
             cull_eps=obj.cull_eps, corner_cull=obj.corner_cull,
         )
-        return fitness.fitness_from_images(
-            imgs, target, weight_mask=weight_mask,
-            boost_only=obj.boost_only, boost_beta=obj.boost_beta,
-        )
+        return image_energy(obj, imgs, target, weight_mask)
 
     if obj.chunk is None or obj.chunk >= B:
         return eval_batch(g_axes)

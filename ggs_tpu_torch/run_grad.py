@@ -7,11 +7,12 @@ differentiable renderer, on the card.
 Each Adam step is one fused K7 launch (forward walk, loss head, backward
 walk); under `--precision fast` it walks the eps-culled lists (`--cull-eps`,
 default 2e-3, and the corner cull), giving the exact gradients of that
-culled render. The final loss is rescored on the "highest" energy. Options
-of runners/run_grad.py that are not ported yet raise NotImplementedError:
---metric ssim|mix, --anneal-sigma0 > 0, and --pop-shards / --tile-shards
-above 1; --ssim-weight and --anneal-frac, which only those read, are not
-accepted.
+culled render. `--metric ssim|mix` (`--ssim-weight` for mix) differentiates
+the SSIM energy of the rendered canvas: K2' forward and K6 backward each
+step, no K7. The final loss is rescored on the "highest" energy. Options of
+runners/run_grad.py that are not ported yet raise NotImplementedError:
+--anneal-sigma0 > 0, and --pop-shards / --tile-shards above 1;
+--anneal-frac, which only the first reads, is not accepted.
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--init-from", default="", help=".npy genome [N, 9] to warm-start from")
     p.add_argument("--impl", default="cuda", choices=["cuda", "oracle"])
-    p.add_argument("--metric", default="mse", choices=["mse", "ssim", "mix"],
-                   help="only mse is ported")
+    p.add_argument("--metric", default="mse", choices=["mse", "ssim", "mix"])
+    p.add_argument("--ssim-weight", type=float, default=0.5)
     p.add_argument("--anneal-sigma0", type=float, default=0.0,
                    help="scale-space homotopy: not ported (must be 0)")
     p.add_argument(
@@ -79,7 +80,7 @@ def main(argv=None) -> dict:
 
     obj = objective.Objective(
         H=H, W=W, k_sigma=args.k_sigma, impl=args.impl, metric=args.metric,
-        precision=args.precision, cull_eps=args.cull_eps,
+        ssim_weight=args.ssim_weight, precision=args.precision, cull_eps=args.cull_eps,
     )
     gnm = GenomeConfig(n_splats=args.n_splats)
     cfg = GradConfig(steps=args.steps, lr=args.lr)
@@ -92,12 +93,13 @@ def main(argv=None) -> dict:
         seed=args.seed, log_every=args.log_every, anneal_sigma0=args.anneal_sigma0, device=dev,
     )
     print("Final loss:", best_loss)
-    if best_loss > 0:
+    if best_loss > 0 and args.metric == "mse":
         print(f"PSNR: {-10.0 * math.log10(best_loss):.2f} dB")
 
     curves_mod.save_loss_curve_png(
         {"loss": curve}, os.path.join(args.output_dir, "grad_loss.png"),
-        title="Adam fitting", xlabel="Step", ylabel="MSE", log_y=True,
+        title="Adam fitting", xlabel="Step",
+        ylabel="MSE" if args.metric == "mse" else f"energy ({args.metric})", log_y=True,
     )
     curves_mod.save_curves_csv({"loss": curve}, os.path.join(args.output_dir, "grad_loss.csv"))
     np.save(os.path.join(args.output_dir, "grad_genome.npy"), best)

@@ -37,6 +37,7 @@ from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
 from torch_inputs import axes_genomes, image, weights
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W, TH = 40, 200, 16
 N = 20  # three passes of 6, 7 and 7 splats

@@ -10,6 +10,7 @@ import torch
 from ggs_tpu.ops import codec as jcodec
 from ggs_tpu_torch.ops import codec as tcodec
 from torch_inputs import axes_genomes
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

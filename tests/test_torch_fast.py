@@ -41,6 +41,7 @@ from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render as trender
 from ggs_tpu_torch.ops import render_cuda as rc
 from torch_inputs import axes_genomes, image, pass_lists, weights
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W, TH, TW = 40, 200, 16, 128
 CANVAS_ATOL = 4e-6

@@ -37,6 +37,7 @@ from ggs_tpu_torch.ops import objective as tobjective
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
 from torch_inputs import axes_genomes, image, weights
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W = 48, 160
 EPS = 8e-2

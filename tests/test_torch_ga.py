@@ -33,6 +33,7 @@ from ggs_tpu_torch.models import genome as tgenome
 from ggs_tpu_torch.models import operators as tops
 from ggs_tpu_torch.ops import objective as tobjective
 from torch_inputs import image, weights
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W = 32, 160
 SIG_MAX = MutSigma.max_defaults().__dict__
@@ -47,8 +48,13 @@ def _t(x, dtype=None):
 
 def jax_mutation_draws(k_mut, P, N):
     """mutate_population's random numbers, stacked over the population."""
+    return jax_mutation_draws_from_keys(jax.random.split(k_mut, P), N)
+
+
+def jax_mutation_draws_from_keys(keys, N):
+    """mutate_individual's random numbers for each key, stacked."""
     rows = []
-    for key in jax.random.split(k_mut, P):
+    for key in keys:
         ks = jax.random.split(key, 14)
         k_i, k_j = jax.random.split(ks[13])
         u = jax.random.uniform

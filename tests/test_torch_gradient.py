@@ -35,6 +35,7 @@ from ggs_tpu_torch.ops import objective as tobjective
 from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render_grad as trg
 from torch_inputs import axes_genomes, image, weights
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -162,18 +163,20 @@ def test_memetic_block_keeps_best_monotone():
 
 
 def test_loss_fns_agree_and_unported_raise():
-    """make_loss_fn scores with objective.evaluate's energy in both impls,
-    and the unported options raise."""
+    """make_loss_fn scores with objective.evaluate's energy in both impls
+    and every metric, and the unported options raise."""
     target, g = _target(3006), _pop(6, 2)
-    want = tobjective.evaluate(OBJ, g, target, None, device="cpu")
-    for impl in ("cuda", "oracle"):
-        obj = OBJ._replace(impl=impl)
-        _, fits = tgradient.make_loss_fn(obj, GNM)(g, target, None)
-        np.testing.assert_allclose(fits.numpy(), want.numpy(), rtol=1e-5, atol=1e-7)
+    for metric in ("mse", "ssim", "mix"):
+        want = tobjective.evaluate(OBJ._replace(metric=metric), g, target, None, device="cpu")
+        for impl in ("cuda", "oracle"):
+            obj = OBJ._replace(impl=impl, metric=metric)
+            _, fits = tgradient.make_loss_fn(obj, GNM)(g, target, None)
+            np.testing.assert_allclose(fits.numpy(), want.numpy(), rtol=1e-5, atol=1e-7)
     # "fast" is ported (tests/test_torch_fast_grad.py); "bf16" is fitness-only
-    for bad in (OBJ._replace(metric="mix"), OBJ._replace(precision="bf16")):
-        with pytest.raises(NotImplementedError):
-            tgradient.make_fit_step(bad, GNM, GradConfig())
+    with pytest.raises(NotImplementedError):
+        tgradient.make_fit_step(OBJ._replace(precision="bf16"), GNM, GradConfig())
+    with pytest.raises(ValueError):
+        tgradient.make_fit_step(OBJ._replace(metric="psnr"), GNM, GradConfig())
     with pytest.raises(NotImplementedError):
         tgradient._make_sharded_loss_fn(OBJ)
     with pytest.raises(NotImplementedError):
@@ -182,7 +185,7 @@ def test_loss_fns_agree_and_unported_raise():
 
 @pytest.mark.parametrize(
     "extra",
-    [["--metric", "ssim"], ["--pop-shards", "2"], ["--anneal-sigma0", "2"], ["--tile-shards", "2"]],
+    [["--pop-shards", "2"], ["--anneal-sigma0", "2"], ["--tile-shards", "2"]],
 )
 def test_run_grad_unported_flags_raise(extra, tmp_path):
     with pytest.raises(NotImplementedError):

@@ -18,6 +18,7 @@ from ggs_tpu.ops import mask as jmask
 from ggs_tpu_torch.ops import fitness as tfit
 from ggs_tpu_torch.ops import mask as tmask
 from torch_inputs import image, weights
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MASK_ATOL = 2e-5
 

@@ -18,6 +18,7 @@ from ggs_tpu_torch.models import ga as tga
 from ggs_tpu_torch.ops import objective as tobjective
 from ggs_tpu_torch.utils import io as tio
 from torch_inputs import axes_genomes, image, weights
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W = 40, 200
 
@@ -106,7 +107,8 @@ def test_synthetic_target_and_ensure_hw():
 
 def test_run_ga_cpu_end_to_end(tmp_path):
     """The runner on the CPU at a tiny size: best falls, artifacts written,
-    unported options refused (the fast tiers run: tests/test_torch_fast_grad.py)."""
+    the SSIM metrics run, unported options refused (the fast tiers run:
+    tests/test_torch_fast_grad.py)."""
     out = run_ga.main([
         "--image", "synthetic:40x200", "--work-max-side", "200", "--n-splats", "16",
         "--pop-size", "6", "--elite-k", "2", "--generations", "8", "--log-every", "4",
@@ -120,6 +122,7 @@ def test_run_ga_cpu_end_to_end(tmp_path):
     base = ["--image", "synthetic:40x200", "--device", "cpu", "--generations", "1"]
     with pytest.raises(NotImplementedError):
         run_ga.main(base)  # video frames
-    for extra in (["--metric", "mix"], ["--metric", "ssim"]):
-        with pytest.raises(NotImplementedError):
-            run_ga.main(base + ["--no-video", "--output-dir", str(tmp_path)] + extra)
+    small = ["--n-splats", "8", "--pop-size", "4", "--elite-k", "1", "--log-every", "1"]
+    for extra in (["--metric", "mix", "--ssim-weight", "0.3"], ["--metric", "ssim"]):
+        out = run_ga.main(base + small + ["--no-video", "--output-dir", str(tmp_path)] + extra)
+        assert 0.0 < out["best_fit"] < 1.0 and len(out["curves"]["best"]) == 2

@@ -39,6 +39,7 @@ from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
 from torch_inputs import axes_genomes, image, pass_lists, weights
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W = 48, 160
 CANVAS_ATOL = 4e-6

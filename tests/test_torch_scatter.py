@@ -21,6 +21,7 @@ from ggs_tpu.ops import render_pallas as rp
 from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import render_cuda as rc
 from torch_inputs import axes_genomes, pass_lists
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CANVAS_ATOL = 4e-6
 BUDGET = rc.SCATTER_BUDGET

@@ -35,6 +35,7 @@ from ggs_tpu.ops import codec as jcodec
 from ggs_tpu.ops import render_pallas as rp
 from ggs_tpu_torch.ops import render_cuda as rc
 from torch_inputs import axes_genomes
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W, N, EPS = 512, 256, 64, 8e-2  # the band case: 16 x 2 tiles of 32x128
 TILE_H, TILE_W = 32, 128

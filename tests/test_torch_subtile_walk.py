@@ -30,6 +30,7 @@ import torch
 from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import render_cuda as rc
 from torch_inputs import axes_genomes, image, weights
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W, B, N = 72, 200, 2, 40
 SUB_ROWS = 4  # walk.cu kRows: the rows of a sub-tile

@@ -23,6 +23,7 @@ from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
 from torch_inputs import axes_genomes, pass_lists
+from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W, B, N = 72, 200, 2, 40
 KERNEL_CHUNK = 16  # walk_grad.cu kChunk: splats per transmittance checkpoint

@@ -1,7 +1,26 @@
 """Seeded numpy inputs shared by the port's cross-check tests
 (tests/test_torch_*.py): both packages receive the same float32 arrays;
-and `pass_lists`, one pass's walk inputs through the port's own steps."""
+`pass_lists`, one pass's walk inputs through the port's own steps; and
+`one_torch_thread`, the autouse fixture those files import."""
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Runs a test module's torch CPU ops on one intra-op thread. The suite
+    runs six worker processes on the machine's cores, and with a thread pool
+    each the many small ops these tests make oversubscribe them: six
+    concurrent copies of tests/test_torch_runners_sa.py took 514 s with the
+    default pool and 17 s with one thread (8 cores); alone, either takes
+    ~10 s. The thread count changes no result beyond the summation order of
+    CPU reductions, which every tolerance here covers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def axes_genomes(seed: int, B: int, N: int, H: int, W: int, max_scale: float = 0.3):
