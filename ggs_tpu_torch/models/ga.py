@@ -11,8 +11,10 @@ metrics. A step takes its random numbers from the state's torch.Generator,
 or from `draws` when given (the tests hand it the JAX package's own draws).
 With `memetic_every` set, the elites get a few Adam steps through the
 differentiable renderer every that many generations (`run_memetic_block`).
-Not ported yet: islands, meshes, scale-space annealing, recycling, growth,
-checkpoint writing and video frames.
+`genetic_approx` also runs scale-space annealing (`blur_sigma`, ops/anneal.py),
+the densify+prune recycle (models/grow.py), stall-ended stages for growth,
+warm starts from a population and video frames. Not ported yet: islands,
+meshes and checkpoint writing.
 """
 from __future__ import annotations
 
@@ -24,11 +26,13 @@ import torch
 
 from .. import resolve_device
 from ..config import GAConfig, GenomeConfig, GradConfig, MaskConfig, MutSigma
+from ..ops import anneal as anneal_mod
+from ..ops import codec as codec_mod
 from ..ops import mask as mask_mod
 from ..ops import objective as objective_mod
 from ..ops.objective import Objective
 from . import genome as genome_mod
-from . import gradient, operators
+from . import gradient, grow, operators
 
 
 class GAState(NamedTuple):
@@ -52,12 +56,25 @@ def init(
     weight_mask: Optional[torch.Tensor],
     ga: GAConfig,
     gnm: GenomeConfig,
+    init_pop=None,
 ) -> GAState:
-    """Fresh population on rng's device + initial evaluation (algorithm.py:55-68)."""
-    pop = genome_mod.new_population(
-        rng, ga.pop_size, gnm.n_splats, obj.H, obj.W, gnm.min_scale, gnm.max_scale,
-        device=rng.device,
-    )
+    """Fresh population on rng's device + initial evaluation (algorithm.py:55-68).
+
+    init_pop warm-starts from an existing [pop_size, N, 9] axes-angle
+    population (a smaller stage's grown result, or a coarser resolution's
+    rescaled by codec.scale_genome_pixels_anisotropic); it is clamped to
+    this resolution's scale domain before evaluation."""
+    if init_pop is not None:
+        pop = torch.as_tensor(init_pop, dtype=torch.float32, device=rng.device)
+        if tuple(pop.shape) != (ga.pop_size, gnm.n_splats, 9):
+            raise ValueError(f"init_pop has shape {tuple(pop.shape)}, not "
+                             f"{(ga.pop_size, gnm.n_splats, 9)}")
+        pop = codec_mod.clamp_genome(pop, obj.H, obj.W, gnm.min_scale, gnm.max_scale)
+    else:
+        pop = genome_mod.new_population(
+            rng, ga.pop_size, gnm.n_splats, obj.H, obj.W, gnm.min_scale, gnm.max_scale,
+            device=rng.device,
+        )
     fits = _evaluate(obj, pop, target, weight_mask)
     b = torch.argmin(fits)
     return GAState(
@@ -123,8 +140,13 @@ def step(
     sig_max: dict,
     sig_min: dict,
     draws: Optional[dict] = None,
+    blur_sigma: Optional[torch.Tensor] = None,
 ) -> Tuple[GAState, torch.Tensor]:
-    """One generation. Returns (state, [best, mean, median, no_improve])."""
+    """One generation. Returns (state, [best, mean, median, no_improve]).
+
+    With `blur_sigma` (a 0-d tensor), candidates are evaluated at scale sigma
+    (anneal.blur_genome_axes) against a caller-blurred target; the
+    population itself evolves unblurred."""
     P, N, _ = state.pop.shape
     # elitism always leaves at least one offspring slot
     E = max(1, min(ga.elite_k, P - 1)) if P > 1 else 1
@@ -132,25 +154,30 @@ def step(
     if draws is None:
         draws = draw_offspring(state.rng, P, N, ga.tour_k, state.pop.device)
 
+    def at_scale(g):
+        return g if blur_sigma is None else anneal_mod.blur_genome_axes(g, blur_sigma)
+
     offspring = _offspring(state.pop, state.fits, draws, ga, gen, obj, gnm, sig_max, sig_min)
-    off_fits = _evaluate(obj, offspring, target, weight_mask)
+    off_fits = _evaluate(obj, at_scale(offspring), target, weight_mask)
 
     # Elitism: the E best of the current population, ties to the lower
     # index as lax.top_k(-fits, E) keeps them (algorithm.py:129-141)
     elite_idx = torch.sort(state.fits, stable=True).indices[:E]
     elites = state.pop[elite_idx]
     if ga.reeval_elites:
-        elite_fits = _evaluate(obj, elites, target, weight_mask)
+        elite_fits = _evaluate(obj, at_scale(elites), target, weight_mask)
     else:
         elite_fits = state.fits[elite_idx]
 
     pop = torch.cat([elites, offspring[: P - E]], dim=0)
     fits = torch.cat([elite_fits, off_fits[: P - E]], dim=0)
 
-    gb = torch.argmin(fits)
-    improved = fits[gb] + 1e-10 < state.best_fit
-    best = torch.where(improved, pop[gb], state.best)
-    best_fit = torch.where(improved, fits[gb], state.best_fit)
+    # a [1] index: indexing by a 0-d CUDA tensor synchronises with the host
+    gb = torch.argmin(fits).reshape(1)
+    cand, cand_fit = pop[gb][0], fits[gb][0]
+    improved = cand_fit + 1e-10 < state.best_fit
+    best = torch.where(improved, cand, state.best)
+    best_fit = torch.where(improved, cand_fit, state.best_fit)
     no_improve = torch.where(improved, torch.zeros_like(state.no_improve), state.no_improve + 1)
 
     metrics = torch.stack(
@@ -161,15 +188,16 @@ def step(
 
 def run_block(
     state: GAState, obj: Objective, target, weight_mask, ga: GAConfig, gnm: GenomeConfig,
-    num_gens: int,
+    num_gens: int, blur_sigma: Optional[torch.Tensor] = None,
 ) -> Tuple[GAState, torch.Tensor]:
     """num_gens generations with the default mutation sigmas, without a host
-    sync -> (state, metrics [num_gens, 4])."""
+    sync -> (state, metrics [num_gens, 4]); blur_sigma as in step."""
     sig_max = MutSigma.max_defaults().__dict__
     sig_min = MutSigma.min_defaults().__dict__
     rows = []
     for _ in range(num_gens):
-        state, m = step(state, obj, target, weight_mask, ga, gnm, sig_max, sig_min)
+        state, m = step(state, obj, target, weight_mask, ga, gnm, sig_max, sig_min,
+                        blur_sigma=blur_sigma)
         rows.append(m)
     return state, torch.stack(rows)
 
@@ -182,12 +210,13 @@ def _refine(state: GAState, obj, target, weight_mask, gnm, grad_cfg, refine_step
     )
     pop = torch.cat([el, state.pop[E:]], dim=0)
     fits = torch.cat([ef, state.fits[E:]], dim=0)
-    gb = torch.argmin(fits)
-    improved = fits[gb] + 1e-10 < state.best_fit
+    gb = torch.argmin(fits).reshape(1)  # a [1] index: no host sync
+    cand, cand_fit = pop[gb][0], fits[gb][0]
+    improved = cand_fit + 1e-10 < state.best_fit
     return GAState(
         pop, fits,
-        torch.where(improved, pop[gb], state.best),
-        torch.where(improved, fits[gb], state.best_fit),
+        torch.where(improved, cand, state.best),
+        torch.where(improved, cand_fit, state.best_fit),
         torch.where(improved, torch.zeros_like(state.no_improve), state.no_improve),
         state.rng, state.gen,
     )
@@ -213,6 +242,20 @@ def run_memetic_block(
     return state, torch.stack(rows)
 
 
+def _rescore(state: GAState, obj, target, weight_mask, sigma) -> GAState:
+    """sigma stepped: the population and the tracked best scored again on the
+    new landscape (sigma None: unblurred), so the elites' stored fits and the
+    best tracking stay commensurate with the next block's energies; the
+    stall counter restarts (ga.py:430-458)."""
+    def at(g):
+        return g if sigma is None else anneal_mod.blur_genome_axes(g, sigma)
+
+    fits = _evaluate(obj, at(state.pop), target, weight_mask)
+    best_fit = _evaluate(obj, at(state.best[None]), target, weight_mask)[0]
+    return state._replace(fits=fits, best_fit=best_fit,
+                          no_improve=torch.zeros_like(state.no_improve))
+
+
 def genetic_approx(
     target_img,
     H: int,
@@ -224,72 +267,161 @@ def genetic_approx(
     mask_cfg: Optional[MaskConfig] = None,
     seed: int = 42,
     log_every: int = 50,
+    save_video: bool = False,
+    frame_every: int = 5000,
+    video_dir: str = "",
+    prefix: str = "ga",
     loss_png_path: str = "",
     loss_csv_path: str = "",
     device="cuda",
+    init_pop=None,
+    return_state: bool = False,
+    recycle_every: int = 0,
+    recycle_k: int = 0,
+    recycle_patience: int = 0,
+    stall_patience: int = 0,
+    weight_mask=None,
+    anneal_sigma0: float = 0.0,
+    anneal_frac: float = 0.6,
     memetic_every: int = 0,
     memetic_steps: int = 5,
     memetic_lr: float = 1e-2,
 ):
-    """Host loop: a full GA run with loss curves (algorithm.py:17-195).
+    """Host loop: a full GA run with loss curves and frames (algorithm.py:17-195).
 
-    The importance mask comes from every field of mask_cfg. `log_every`
-    generations run per block, with one host sync and one progress line
-    each. memetic_every > 0 runs the memetic block: every memetic_every
-    generations the elites get memetic_steps Adam steps at memetic_lr.
-    Returns (best_genome [N, 9] np, best_fit float, curves dict)."""
+    `log_every` generations run per block, with one host sync each; every
+    trigger below reads that block's metrics. The importance mask comes from
+    every field of mask_cfg unless `weight_mask` [H, W] is given.
+    `init_pop` warm-starts from a population (see init).
+    save_video writes the best's frame every `frame_every` generations to
+    video_dir/{prefix}_{gen}.png (the block shrinks to that cadence).
+    recycle_every/recycle_k: every recycle_every generations each candidate's
+    recycle_k lowest-impact splats are replaced by error-guided ones
+    (grow.recycle_population) and the population is scored again;
+    recycle_patience also recycles when the best has stalled that many
+    generations (and restarts the stall count). stall_patience ends the run
+    when the best has stalled that many generations (a growth stage).
+    anneal_sigma0 > 0: scale-space annealing, candidates scored at scale
+    sigma against the sigma-blurred target, sigma decaying from anneal_sigma0
+    to 0 over the first anneal_frac of the budget; at each sigma step the
+    population and the best are scored again, so the curves during the
+    anneal are energies of the current smoothed landscape. The mask stays
+    the unblurred target's. memetic_every > 0 runs the memetic block: every
+    memetic_every generations the elites get memetic_steps Adam steps at
+    memetic_lr (exclusive with annealing, as in the JAX package).
+    Returns (best_genome [N, 9] np, best_fit float, curves dict), and the
+    final population [P, N, 9] np too with return_state."""
     from ..utils import curves as curves_mod
     from ..utils import io as io_mod
 
+    if memetic_every > 0 and anneal_sigma0 > 0.0:
+        raise ValueError("memetic refinement and scale-space annealing are mutually exclusive "
+                         "(the memetic block has no sigma input)")
     dev = resolve_device(device)
     mask_cfg = mask_cfg if mask_cfg is not None else MaskConfig()
     target = io_mod.ensure_hw(target_img, H, W, device=dev)
-    weight_mask = mask_mod.mask_from_config(target, H, W, mask_cfg)
+    if weight_mask is None:
+        weight_mask = mask_mod.mask_from_config(target, H, W, mask_cfg)
+    else:
+        # a caller-fixed mask, e.g. run_ga --fixed-mask's, resized per stage
+        weight_mask = torch.as_tensor(weight_mask, dtype=torch.float32, device=dev)
+        if tuple(weight_mask.shape) != (H, W):
+            raise ValueError(f"weight_mask has shape {tuple(weight_mask.shape)}, not {(H, W)}")
 
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
-    state = init(rng, obj, target, weight_mask, ga, gnm)
+    state = init(rng, obj, target, weight_mask, ga, gnm, init_pop=init_pop)
     curves = {
         "best": [float(state.best_fit)],
         "mean": [float(torch.mean(state.fits))],
         "median": [float(_median(state.fits))],
     }
 
-    block_size = max(1, log_every)
+    pad = len(str(ga.generations))
+    if save_video:
+        io_mod.save_frame_png(0, state.best, pad, prefix, video_dir, H, W, obj.k_sigma,
+                              impl=obj.impl)
+    radius = anneal_mod.default_radius(anneal_sigma0)
+    cur_sigma, sigma_t, cur_target = 0.0, None, target
+
+    # frames and recycles happen between blocks: a cadence finer than the
+    # logging cadence shrinks the block (ga.py:467-472)
+    block_size = min(log_every, frame_every) if save_video else log_every
+    if recycle_every and recycle_k:
+        block_size = min(block_size, recycle_every)
+    block_size = max(1, block_size)
+    last_frame_bucket = 0
     gen = 0
     try:
         while gen < ga.generations:
             block = min(block_size, ga.generations - gen)
+            stepped = anneal_sigma0 > 0.0 and anneal_mod.sigma_step(
+                gen, ga.generations, anneal_sigma0, anneal_frac, cur_sigma, target, radius)
+            if stepped:
+                cur_sigma, sigma_t, cur_target = stepped
+                state = _rescore(state, obj, cur_target, weight_mask, sigma_t)
             t_block = time.perf_counter()
             if memetic_every > 0:
                 state, metrics = run_memetic_block(
-                    state, obj, target, weight_mask, ga, gnm, GradConfig(lr=memetic_lr),
+                    state, obj, cur_target, weight_mask, ga, gnm, GradConfig(lr=memetic_lr),
                     memetic_every, memetic_steps, block,
                 )
             else:
-                state, metrics = run_block(state, obj, target, weight_mask, ga, gnm, block)
+                state, metrics = run_block(state, obj, cur_target, weight_mask, ga, gnm, block,
+                                           blur_sigma=sigma_t)
             metrics = metrics.cpu().numpy()  # the block's one host sync
             gens_per_s = block / max(1e-9, time.perf_counter() - t_block)
             curves["best"].extend(metrics[:, 0].tolist())
             curves["mean"].extend(metrics[:, 1].tolist())
             curves["median"].extend(metrics[:, 2].tolist())
+            no_improve_now = int(metrics[-1, 3])
             gen += block
-            print(
-                f"gen {gen}/{ga.generations} best {metrics[-1, 0]:.6f} "
-                f"stale {int(metrics[-1, 3])} {gens_per_s:.1f} gen/s",
-                flush=True,
-            )
+
+            if save_video and gen // max(1, frame_every) > last_frame_bucket:
+                last_frame_bucket = gen // max(1, frame_every)
+                io_mod.save_frame_png(gen, state.best, pad, prefix, video_dir, H, W,
+                                      obj.k_sigma, impl=obj.impl)
+            periodic = bool(recycle_every and recycle_k and gen % recycle_every < block
+                            and gen < ga.generations)
+            stalled = bool(recycle_patience and recycle_k and gen < ga.generations
+                           and no_improve_now >= recycle_patience)
+            if periodic or stalled:
+                # placed and scored on the current (blurred) landscape; the
+                # draws are seeded by (seed, gen), as fold_in(seed ^ 0x5EED, gen)
+                r_rng = torch.Generator(device=dev).manual_seed(((seed ^ 0x5EED) << 32) + gen)
+                new_pop = grow.recycle_population(state.pop, recycle_k, cur_target, obj,
+                                                  weight_mask, rng=r_rng)
+                eval_pop = (new_pop if sigma_t is None
+                            else anneal_mod.blur_genome_axes(new_pop, sigma_t))
+                state = state._replace(
+                    pop=new_pop, fits=_evaluate(obj, eval_pop, cur_target, weight_mask))
+                if stalled:
+                    state = state._replace(no_improve=torch.zeros_like(state.no_improve))
+                    no_improve_now = 0
+            if gen % max(1, log_every) < block or gen >= ga.generations:
+                print(
+                    f"{prefix} gen {gen}/{ga.generations} best {metrics[-1, 0]:.6f} "
+                    f"stale {no_improve_now} sigma {cur_sigma:.3g} {gens_per_s:.1f} gen/s",
+                    flush=True,
+                )
+            # a stage that has not improved its best for stall_patience
+            # generations ends, so the caller can grow capacity
+            if stall_patience and no_improve_now >= stall_patience:
+                break
     except KeyboardInterrupt:
         print("\n[Interrupted] Returning current best individual…", flush=True)
 
     try:
         curves_mod.save_loss_curve_png(
-            curves, loss_png_path, title="ga fitness", xlabel="Generation",
+            curves, loss_png_path, title=f"{prefix} fitness", xlabel="Generation",
             ylabel="MSE", log_y=True,
         )
         curves_mod.save_curves_csv(curves, loss_csv_path)
     except Exception as e:  # a plot must not lose the run's result
         print(f"[warn] Could not save loss curves: {e}")
 
+    io_mod.flush_frames()
     best = state.best.cpu().numpy()
+    if return_state:
+        return best, float(state.best_fit), curves, state.pop.cpu().numpy()
     return best, float(state.best_fit), curves

@@ -17,10 +17,12 @@ through autograd (ops/ssim.py), so they take render_diff (K2' forward, K6
 backward) and never the fused K7 path (gradient.py:242-246). `optax.adam`
 becomes `torch.optim.Adam` with the same lr, betas and eps (the same update
 up to rounding); the optimizer updates the state's genome tensor in place
-and the projection follows under `torch.no_grad()`. Not ported yet (each
-raises NotImplementedError): the tile-sharded loss and the blur homotopy
-(`anneal_sigma0`). Precision "bf16" is a fitness-only tier and is refused
-here, as runners/run_grad.py refuses it.
+and the projection follows under `torch.no_grad()`. The blur homotopy
+(`blur_sigma`, `anneal_sigma0`; ops/anneal.py) scores the blurred genome on
+the objective's usual path (K7 under "mse") and chains its gradient back to
+the raw genome through the blur by autograd. Not ported yet (raises
+NotImplementedError): the tile-sharded loss. Precision "bf16" is a
+fitness-only tier and is refused here, as runners/run_grad.py refuses it.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from .. import resolve_device
 from ..config import GenomeConfig, GradConfig
+from ..ops import anneal as anneal_mod
 from ..ops import codec, oracle, render_cuda, render_grad
 from ..ops import objective as objective_mod
 from ..ops.objective import Objective
@@ -143,15 +146,27 @@ def make_adam(g: torch.Tensor, cfg: GradConfig) -> torch.optim.Adam:
 
 def make_fit_step(obj: Objective, gnm: GenomeConfig, cfg: GradConfig):
     """-> (make_opt, step): make_opt(g) builds the Adam over g;
-    step(state, target, weight_mask) takes one projected Adam step and
-    returns (state, fits [B]), the fits before the step."""
+    step(state, target, weight_mask, blur_sigma=None) takes one projected
+    Adam step and returns (state, fits [B]), the fits before the step.
+
+    With `blur_sigma` (a 0-d tensor) the loss is that of the sigma-blurred
+    genomes (anneal.blur_genome_axes) against a caller-blurred target, and
+    the gradient chains through the blur back to the raw genome: the JAX
+    package's explicit vjp (gradient.py:269-304), here autograd over the
+    blur alone, so any value_and_grad path (the fused K7 one included) sees
+    only the blurred batch."""
     value_and_grad = make_value_and_grad(obj, gnm)
     make_opt = functools.partial(make_adam, cfg=cfg)
 
     def step(state: GradState, target, weight_mask, blur_sigma=None) -> Tuple[GradState, torch.Tensor]:
-        if blur_sigma is not None:
-            raise NotImplementedError("the blur homotopy (ops/anneal.py) is not ported yet")
-        (_, fits), grads = value_and_grad(state.g, target, weight_mask)
+        if blur_sigma is None:
+            (_, fits), grads = value_and_grad(state.g, target, weight_mask)
+        else:
+            g = state.g.detach().requires_grad_(True)
+            with torch.enable_grad():
+                gb = anneal_mod.blur_genome_axes(g, blur_sigma)
+            (_, fits), grads_b = value_and_grad(gb.detach(), target, weight_mask)
+            (grads,) = torch.autograd.grad(gb, g, grads_b)
         state.g.grad = grads
         state.opt.step()
         with torch.no_grad():
@@ -167,11 +182,11 @@ def init_state(make_opt, g0: torch.Tensor) -> GradState:
     return GradState(g, make_opt(g), 0)
 
 
-def run_block(state: GradState, step, target, weight_mask, num_steps: int):
+def run_block(state: GradState, step, target, weight_mask, num_steps: int, blur_sigma=None):
     """num_steps steps without a host sync -> (state, fits [num_steps, B])."""
     rows = []
     for _ in range(num_steps):
-        state, fits = step(state, target, weight_mask)
+        state, fits = step(state, target, weight_mask, blur_sigma=blur_sigma)
         rows.append(fits)
     return state, torch.stack(rows)
 
@@ -196,9 +211,10 @@ def fit_adam(
     """Host loop: Adam-fit `init_genomes` (or a fresh random individual)
     to the target. Returns (best genome [N, 9] np, best loss, loss curve);
     the curve holds each step's best fitness, the best loss is rescored on
-    the "highest" energy."""
-    if anneal_sigma0 > 0.0:
-        raise NotImplementedError("the scale-space homotopy (ops/anneal.py) is not ported yet")
+    the "highest" energy. anneal_sigma0 > 0 runs the scale-space homotopy:
+    the loss of the sigma-smoothed landscape, sigma decaying to 0 over the
+    first anneal_frac of the steps (set per block, the target blurred again
+    when it steps); the curve then holds smoothed-landscape losses."""
     dev = resolve_device(device)
     obj = obj if obj is not None else Objective(H=H, W=W, impl="oracle")
     gnm = gnm if gnm is not None else GenomeConfig()
@@ -228,12 +244,18 @@ def fit_adam(
         except ImportError:
             pbar = None
 
+    radius = anneal_mod.default_radius(anneal_sigma0)
+    cur_sigma, sigma_t, cur_target = 0.0, None, target
     curve = []
     done = 0
     try:
         while done < cfg.steps:
             block = min(log_every, cfg.steps - done)
-            state, fits = run_block(state, step, target, weight_mask, block)
+            stepped = anneal_sigma0 > 0.0 and anneal_mod.sigma_step(
+                done, cfg.steps, anneal_sigma0, anneal_frac, cur_sigma, target, radius)
+            if stepped:
+                cur_sigma, sigma_t, cur_target = stepped
+            state, fits = run_block(state, step, cur_target, weight_mask, block, blur_sigma=sigma_t)
             curve.extend(fits.min(dim=1).values.cpu().tolist())  # the block's one host sync
             done += block
             if pbar is not None:

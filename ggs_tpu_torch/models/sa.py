@@ -188,6 +188,9 @@ def simulated_annealing(
     sig_min: Optional[MutSigma] = None,
     seed: int = 42,
     log_every: int = 50,
+    save_video: bool = False,
+    frame_every: int = 10_000,
+    video_dir: str = "",
     prefix: str = "sa",
     loss_png_path: str = "",
     loss_csv_path: str = "",
@@ -205,7 +208,9 @@ def simulated_annealing(
     scored as one batch, neighbour swaps every `swap_every` iterations; the
     "current" curve then follows the coldest replica. The importance mask
     comes from every field of mask_cfg. `log_every` iterations run per
-    block, with one host sync and one progress line each.
+    block, with one host sync and one progress line each. save_video writes
+    the best's frame every `frame_every` iterations to
+    video_dir/{prefix}_{it}.png (the block shrinks to that cadence).
     Returns (best genome [N, 9] np, best energy float, curves dict)."""
     from ..utils import curves as curves_mod
     from ..utils import io as io_mod
@@ -230,8 +235,13 @@ def simulated_annealing(
         run = make_run_block(obj, sa, gnm, sig_max, sig_min)
     curves = {"best": [float(state.best_fit)], "current": [float(state.curr_fit)]}
 
+    pad = len(str(sa.iterations))
+    if save_video:
+        io_mod.save_frame_png(0, state.best, pad, prefix, video_dir, H, W, obj.k_sigma,
+                              impl=obj.impl)
     it = 0
-    block_size = max(1, log_every)
+    last_frame_bucket = 0
+    block_size = max(1, min(log_every, frame_every) if save_video else log_every)
     try:
         while it < sa.iterations:
             block = min(block_size, sa.iterations - it)
@@ -242,12 +252,17 @@ def simulated_annealing(
             curves["best"].extend(metrics[:, 0].tolist())
             curves["current"].extend(metrics[:, 1].tolist())
             it += block
-            T = genome_mod.temp_schedule(sa.temp_schedule, sa.t0, it, sa.iterations)
-            print(
-                f"it {it}/{sa.iterations} best {metrics[-1, 0]:.6f} "
-                f"curr {metrics[-1, 1]:.6f} T {T:.4g} {its_per_s:.1f} it/s",
-                flush=True,
-            )
+            if save_video and it // max(1, frame_every) > last_frame_bucket:
+                last_frame_bucket = it // max(1, frame_every)
+                io_mod.save_frame_png(it, state.best, pad, prefix, video_dir, H, W, obj.k_sigma,
+                                      impl=obj.impl)
+            if it % max(1, log_every) < block or it >= sa.iterations:
+                T = genome_mod.temp_schedule(sa.temp_schedule, sa.t0, it, sa.iterations)
+                print(
+                    f"it {it}/{sa.iterations} best {metrics[-1, 0]:.6f} "
+                    f"curr {metrics[-1, 1]:.6f} T {T:.4g} {its_per_s:.1f} it/s",
+                    flush=True,
+                )
     except KeyboardInterrupt:
         print("\n[Interrupted] Returning current best…", flush=True)
 
@@ -260,5 +275,6 @@ def simulated_annealing(
     except Exception as e:  # a plot must not lose the run's result
         print(f"[warn] Could not save SA curves: {e}")
 
+    io_mod.flush_frames()
     best = state.best.cpu().numpy()
     return best, float(state.best_fit), curves

@@ -9,10 +9,12 @@ walk); under `--precision fast` it walks the eps-culled lists (`--cull-eps`,
 default 2e-3, and the corner cull), giving the exact gradients of that
 culled render. `--metric ssim|mix` (`--ssim-weight` for mix) differentiates
 the SSIM energy of the rendered canvas: K2' forward and K6 backward each
-step, no K7. The final loss is rescored on the "highest" energy. Options of
-runners/run_grad.py that are not ported yet raise NotImplementedError:
---anneal-sigma0 > 0, and --pop-shards / --tile-shards above 1;
---anneal-frac, which only the first reads, is not accepted.
+step, no K7. `--anneal-sigma0` runs the scale-space homotopy: each step
+scores the sigma-blurred genome against the sigma-blurred target on the
+same path and chains the gradient back through the blur, sigma decaying to
+0 over the first `--anneal-frac` of the steps. The final loss is rescored
+on the "highest" energy. Not ported yet (NotImplementedError):
+--pop-shards / --tile-shards above 1.
 """
 from __future__ import annotations
 
@@ -39,7 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metric", default="mse", choices=["mse", "ssim", "mix"])
     p.add_argument("--ssim-weight", type=float, default=0.5)
     p.add_argument("--anneal-sigma0", type=float, default=0.0,
-                   help="scale-space homotopy: not ported (must be 0)")
+                   help="scale-space homotopy: optimize the sigma-smoothed landscape first, "
+                   "sigma decaying to 0 over the first --anneal-frac of the steps")
+    p.add_argument("--anneal-frac", type=float, default=0.6)
     p.add_argument(
         "--precision", default="exact-tight", choices=["highest", "exact-tight", "fast"],
         help="exact-tight (default): exact gradients of the tight k-sigma box "
@@ -90,7 +94,8 @@ def main(argv=None) -> dict:
     init = np.load(args.init_from) if args.init_from else None
     best, best_loss, curve = gradient.fit_adam(
         t, H, W, obj=obj, gnm=gnm, cfg=cfg, init_genomes=init, weight_mask=wm,
-        seed=args.seed, log_every=args.log_every, anneal_sigma0=args.anneal_sigma0, device=dev,
+        seed=args.seed, log_every=args.log_every, anneal_sigma0=args.anneal_sigma0,
+        anneal_frac=args.anneal_frac, device=dev,
     )
     print("Final loss:", best_loss)
     if best_loss > 0 and args.metric == "mse":

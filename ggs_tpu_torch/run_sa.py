@@ -2,9 +2,10 @@
 
 Loads a target image, picks the working resolution, runs simulated
 annealing on the card, rescores the winner on the exact energy, and
-exports the full-resolution render, the genome and the curves.
+exports the full-resolution render, the genome, the curves, the video
+frames and their animation (`sa_anim.apng`; `--no-video` turns them off).
 
-    python -m ggs_tpu_torch.run_sa --image synthetic --iterations 5000 --no-video
+    python -m ggs_tpu_torch.run_sa --image synthetic --iterations 5000
 
 `--proposal-mode batched` (default) scores all tries of an iteration as
 one batch; `sequential` chains each try on the updated state with batch-1
@@ -13,8 +14,7 @@ ladder to `--t-hot`, tries x K proposals scored as one batch, neighbour
 swaps every `--swap-every` iterations. `--metric ssim|mix` scores rendered
 canvases with the SSIM energy (`--ssim-weight` for mix). Under any tier but
 "highest" the winner is rescored on the exact "highest" energy. Not ported
-yet: video frames (`--no-video` is required), `--checkpoint-every` and
-`--resume`.
+yet: `--checkpoint-every` and `--resume`.
 """
 from __future__ import annotations
 
@@ -60,8 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ssim-weight", type=float, default=0.5)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--log-every", type=int, default=50)
-    p.add_argument("--no-video", action="store_true",
-                   help="required: the port writes no video frames yet")
+    p.add_argument("--no-video", action="store_true", help="write no frames and no animation")
+    p.add_argument("--video-len", type=int, default=10, help="animation length, seconds")
+    p.add_argument("--fps", type=int, default=30)
     p.add_argument("--checkpoint-every", type=int, default=0, help="not ported (must be 0)")
     p.add_argument("--resume", default="", help="not ported (must be empty)")
     p.add_argument(
@@ -78,8 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run SA (or PT); returns {"best_fit", "curves", "final" (the export render), "best"}."""
     args = build_parser().parse_args(argv)
-    if not args.no_video:
-        raise NotImplementedError("video frames are not ported yet; pass --no-video")
     if args.checkpoint_every or args.resume:
         raise NotImplementedError("checkpoints (--checkpoint-every, --resume) are not ported yet")
 
@@ -94,6 +93,8 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
+    video_dir = os.path.join(args.output_dir, "video_frames_sa")
+    save_video = not args.no_video
     target = io_mod.load_image(args.image)
     H_out, W_out = target.shape[0], target.shape[1]
     H, W = codec.choose_work_size(H_out, W_out, max_side=args.work_max_side)
@@ -113,7 +114,8 @@ def main(argv=None) -> dict:
     mask_cfg = MaskConfig(strength=args.mask_strength, boost_only=args.boost_only)
     best, best_fit, curves = sa.simulated_annealing(
         target, H, W, obj=obj, sa=sa_cfg, gnm=gnm, mask_cfg=mask_cfg, seed=args.seed,
-        log_every=args.log_every,
+        log_every=args.log_every, save_video=save_video,
+        frame_every=max(1, args.iterations // (args.fps * args.video_len)), video_dir=video_dir,
         loss_png_path=os.path.join(args.output_dir, "sa_loss.png"),
         loss_csv_path=os.path.join(args.output_dir, "sa_loss.csv"), loss_log_y=True,
         replicas=args.replicas, swap_every=args.swap_every, t_hot=args.t_hot, device=dev,
@@ -145,6 +147,11 @@ def main(argv=None) -> dict:
     io_mod.save_image_u8(final, out_path)
     np.save(os.path.join(args.output_dir, "sa_best_genome.npy"), best)
     print(f"Saved full-resolution SA result as {out_path}")
+    if save_video:
+        anim = io_mod.assemble_apng(video_dir, "sa", os.path.join(args.output_dir, "sa_anim.apng"),
+                                    fps=args.fps)
+        if anim:
+            print(f"Assembled animation: {anim}")
     return {"best_fit": best_fit, "curves": curves, "final": final, "best": best}
 
 

@@ -179,13 +179,11 @@ def test_loss_fns_agree_and_unported_raise():
         tgradient.make_fit_step(OBJ._replace(metric="psnr"), GNM, GradConfig())
     with pytest.raises(NotImplementedError):
         tgradient._make_sharded_loss_fn(OBJ)
-    with pytest.raises(NotImplementedError):
-        tgradient.fit_adam(target, H, W, obj=OBJ, gnm=GNM, anneal_sigma0=1.0, device="cpu")
 
 
 @pytest.mark.parametrize(
     "extra",
-    [["--pop-shards", "2"], ["--anneal-sigma0", "2"], ["--tile-shards", "2"]],
+    [["--pop-shards", "2"], ["--pop-shards", "2", "--tile-shards", "2"], ["--tile-shards", "2"]],
 )
 def test_run_grad_unported_flags_raise(extra, tmp_path):
     with pytest.raises(NotImplementedError):

@@ -101,13 +101,12 @@ def test_synthetic_target_and_ensure_hw():
     ref = jio.ensure_hw(jnp.asarray(t * 255.0), 12, 15)
     got = tio.ensure_hw(t * 255.0, 12, 15, device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tio.load_image("photo")
+    np.testing.assert_array_equal(tio.load_image("photo:24x30"), jio.load_image("photo:24x30"))
 
 
 def test_run_ga_cpu_end_to_end(tmp_path):
     """The runner on the CPU at a tiny size: best falls, artifacts written,
-    the SSIM metrics run, unported options refused (the fast tiers run:
+    the SSIM metrics run, frames are written by default (the fast tiers run:
     tests/test_torch_fast_grad.py)."""
     out = run_ga.main([
         "--image", "synthetic:40x200", "--work-max-side", "200", "--n-splats", "16",
@@ -120,9 +119,9 @@ def test_run_ga_cpu_end_to_end(tmp_path):
     assert (tmp_path / "ga_splats.png").exists() and (tmp_path / "ga_loss.csv").exists()
     assert np.load(tmp_path / "ga_best_genome.npy").shape == (16, 9)
     base = ["--image", "synthetic:40x200", "--device", "cpu", "--generations", "1"]
-    with pytest.raises(NotImplementedError):
-        run_ga.main(base)  # video frames
     small = ["--n-splats", "8", "--pop-size", "4", "--elite-k", "1", "--log-every", "1"]
+    run_ga.main(base + small + ["--output-dir", str(tmp_path / "video")])  # frames by default
+    assert (tmp_path / "video" / "ga_anim.apng").exists()
     for extra in (["--metric", "mix", "--ssim-weight", "0.3"], ["--metric", "ssim"]):
         out = run_ga.main(base + small + ["--no-video", "--output-dir", str(tmp_path)] + extra)
         assert 0.0 < out["best_fit"] < 1.0 and len(out["curves"]["best"]) == 2

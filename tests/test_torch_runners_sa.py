@@ -38,7 +38,7 @@ def test_run_sa_cpu(extra, tmp_path):
 
 def test_run_sa_refuses_what_is_not_ported(tmp_path):
     base = BASE + ["--iterations", "1", "--output-dir", str(tmp_path)]
-    for argv in (base, base + ["--no-video", "--checkpoint-every", "5"],
+    for argv in (base + ["--no-video", "--checkpoint-every", "5"],
                  base + ["--no-video", "--resume", str(tmp_path / "sa_ckpt.npz")]):
         with pytest.raises(NotImplementedError):
             run_sa.main(argv)
