@@ -51,7 +51,9 @@ Phases, each fatal on failure (no exception is caught):
    device time split between the walk kernel, sorting (the dense binning)
    and the other kernels; and one fast GA block (walk, K4, sort, other);
    the device launches a GA generation (exact-tight, fast) and an Adam step
-   may not exceed LAUNCH_LIMITS.
+   may not exceed LAUNCH_LIMITS, counted exactly as the kernel, copy and
+   fill nodes of each block captured in a CUDA graph (`graph_launches`;
+   torch.profiler's counts, which can lose records, printed beside them).
 The fast tier adds, in the same phases: K3 (fitness_tiles_fast,
 render_tiles_fast) and K4 (prep_fast) against their plain versions at the
 fast GA's shapes (B=32, N=512, 512x512, eps 2e-3 and 8e-2, corner cull) and
@@ -133,6 +135,25 @@ block with no host sync, the annealed GA's launches a generation within
 LAUNCH_LIMITS["ga_exact_tight"] + BLUR_LAUNCHES, and a `PIPELINE TIMES`
 line (annealed against plain generations/s and Adam steps/s in turns, one
 `blur_image` at sigma 8, one `grow_population`).
+The checkpoint / island / profile slice (`slice_paths` after the pipeline
+paths, and `slice_checks_and_times` after the profile phase) adds the main
+paths `run_ga --islands 4 --migrate-every 10 --migrate-k 2` at run_ga's
+defaults (ISLAND_GENS generations: the best falls and is monotone, K1 once
+a generation plus the init and the rescore) and under `--precision fast`
+(ISLAND_FAST_GENS: K4 and K3 once an evaluation); run_ga with
+`--checkpoint-every 50` stopped right after its 100-generation checkpoint
+and resumed with `--resume`, whose `ga_best_genome.npy` and curves must
+equal an uninterrupted 200-generation run's in bits (K1 102: the template's
+init, 100 generations, the rescore); `run_ga --profile-dir` over three
+blocks, whose one Chrome trace must name the walk's `fitness_kernel`; one
+island equal in bits to ga.step on the same draws; a 3-generation island
+block under the sync debug mode; block resumes on the card (GA exact-tight
+and fast, the island GA, SA, PT, Adam): run(10) equal in bits (genomes,
+fits, best, the generator's state, Adam's moments) to run(5) -> save ->
+load into a fresh template -> run(5); and a `SLICE TIMES` line (island
+against plain generations/s in turns, the island's exact launches a
+generation, one save's ms and bytes at P=32, N=512 with a 500-generation
+curve).
 Prints a `GRAD KERNELS` line (K6/K7 times, bounds and launches, blocks a
 SM, Adam steps/s at both gradient configurations, beside the card), one
 `kernels` JSON line, the card line, and last the device line.
@@ -145,6 +166,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -276,6 +298,12 @@ GROW_FAST_GENS, GROW_FAST_NS = 300, [128, 256, 512]  # run_ga --grow-stages 3 --
 BLUR_LAUNCHES = 17
 RATE_PAIRS, RATE_GA_GENS, RATE_ADAM_STEPS = 3, 50, 20  # annealed vs plain, in turns
 GROW_P, GROW_N_NEW = 32, 256  # grow_population's time: the 256 -> 512 growth
+# the checkpoint / island / profile slice
+ISLAND_ARGV = ["--islands", "4", "--migrate-every", "10", "--migrate-k", "2"]
+ISLAND_GENS, ISLAND_FAST_GENS = 200, 50  # run_ga --islands 4, exact-tight and fast
+RESUME_GENS, RESUME_EVERY = 200, 50  # run_ga stopped after its RESUME_GENS // 2 checkpoint
+RESUME_K = 5  # block resumes: run(2k) == run(k) -> save -> load -> run(k)
+PROFILE_ARGV = ["--generations", "30", "--log-every", "10"]  # run_ga --profile-dir: 3 blocks
 
 
 def check(ok: bool, what: str) -> None:
@@ -1190,6 +1218,70 @@ def check_no_sync(fn, what: str) -> None:
     print(f"CHECK {what}: no host sync", flush=True)
 
 
+GRAPH_NODE_KINDS = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "GRAPH", "EMPTY", "WAIT_EVENT",
+                    "EVENT_RECORD", "EXT_SEMAS_SIGNAL", "EXT_SEMAS_WAIT", "MEM_ALLOC", "MEM_FREE",
+                    "BATCH_MEM_OP", "CONDITIONAL")  # CUgraphNodeType 0-13
+
+
+def _graph_nodes(raw: int) -> list:
+    """The CUgraphNodeType names of a captured graph's nodes (the driver
+    API's cuGraphGetNodes and cuGraphNodeGetType)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    kinds = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0,
+              "cuGraphNodeGetType")
+        kinds.append(GRAPH_NODE_KINDS[t.value] if 0 <= t.value < len(GRAPH_NODE_KINDS)
+                     else f"TYPE_{t.value}")
+    return kinds
+
+
+def graph_launches(fn, steps: int, generators=(), optimizers=()) -> dict:
+    """The device work of one fn() (`steps` generations or Adam steps) as the
+    nodes of a CUDA graph that captures it: kernels, copies and fills, each
+    a node, so no profiler trace can drop or add one. fn runs once first on
+    the capture stream (so first-use allocations and per-stream buffers
+    stay out of the graph); the generators it draws from are registered
+    with the graph, and each optimizer's capture check is lifted for the
+    capture (torch.optim refuses a graph of a non-capturable step, which
+    launches the same kernels as the eager step counted here; the graph is
+    never replayed). Returns the nodes by kind and the kernels, copies and
+    fills a step ("per_step")."""
+    import torch
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    for gen in generators:
+        g.register_generator_state(gen)
+    checks = ("_accelerator_graph_capture_health_check", "_cuda_graph_capture_health_check")
+    lifted = [(opt, name) for opt in optimizers for name in checks
+              if hasattr(type(opt), name) and name not in opt.__dict__]
+    for opt, name in lifted:
+        setattr(opt, name, lambda: None)
+    try:
+        with torch.cuda.graph(g, stream=s, capture_error_mode="relaxed"):
+            fn()
+    finally:
+        for opt, name in lifted:
+            delattr(opt, name)
+    kinds = collections.Counter(_graph_nodes(g.raw_cuda_graph()))
+    del g
+    work = kinds["KERNEL"] + kinds["MEMCPY"] + kinds["MEMSET"]
+    check(work > 0, f"the captured graph holds no device work: {dict(kinds)}")
+    return {"per_step": work / steps, "steps": steps, "nodes": dict(kinds)}
+
+
 @contextlib.contextmanager
 def count_calls(module, name: str, key=None):
     """Counts the calls of module.name while the block runs, by key(*args,
@@ -1501,10 +1593,14 @@ def pipeline_checks_and_times(tgt, wm, card) -> dict:
                   f"a 3-step annealed Adam block (N={ADAM_N}, sigma {ANNEAL_SIGMA0})")
     prof = profile_split(
         lambda: ga.run_block(st, obj, tgt_b, wm, cfg, gnm, 20, blur_sigma=sig)[1].cpu(), 20)
+    st_x = ga.init(torch.Generator(device=dev).manual_seed(63), obj, tgt, wm, cfg, gnm)
+    exact = graph_launches(lambda: ga.run_block(st_x, obj, tgt_b, wm, cfg, gnm, 20,
+                                                blur_sigma=sig), 20, generators=[st_x.rng])
+    prof["exact_launches_per_step"] = exact["per_step"]
     limit = LAUNCH_LIMITS["ga_exact_tight"] + BLUR_LAUNCHES
     print("PROFILE GA annealed " + json.dumps(prof), flush=True)
-    check(round(prof["kernels_per_step"] * prof["steps"]) <= round(limit * prof["steps"]),
-          f"annealed GA: {prof['kernels_per_step']} launches a generation, above {limit}")
+    check(round(exact["per_step"] * exact["steps"]) <= round(limit * exact["steps"]),
+          f"annealed GA: {exact['per_step']} launches a generation (exactly), above {limit}")
 
     phase("times: annealed against plain, blur_image, grow_population")
 
@@ -1552,10 +1648,239 @@ def pipeline_checks_and_times(tgt, wm, card) -> dict:
             lambda: anneal.blur_image(tgt, sig, radius), 20),
         f"grow_population_ms_P{GROW_P}_{H}x{W}_n_new{GROW_N_NEW}": cuda_ms(
             lambda: grow.grow_population(pop, GROW_N_NEW, tgt, obj, wm, rng=rng), 10),
-        "annealed_ga_launches_per_generation": prof["kernels_per_step"],
+        "annealed_ga_launches_per_generation": exact["per_step"],
+        "annealed_ga_launches_per_generation_profiler": prof["kernels_per_step"],
         "annealed_ga_device_busy_share": prof["device_busy_share"],
     }
     print("PIPELINE TIMES " + json.dumps(times), flush=True)
+    return times
+
+
+def slice_paths(drive, ga_path) -> dict:
+    """The checkpoint / island / profile slice's main paths: run_ga --islands
+    4 (exact-tight for ISLAND_GENS generations, fast for ISLAND_FAST_GENS),
+    run_ga stopped right after its RESUME_GENS // 2 checkpoint (a
+    KeyboardInterrupt raised after that save, which the host loop takes as a
+    Ctrl-C) and resumed with --resume, against an uninterrupted run of the
+    same flags, and run_ga --profile-dir; each with its launch counts."""
+    import numpy as np
+
+    from ggs_tpu_torch import run_ga
+    from ggs_tpu_torch.utils import checkpoint
+
+    out = {"launches": {}}
+    _, c = ga_path("run_ga --islands 4", "islands", "chip_smoke_islands", ISLAND_GENS,
+                   ISLAND_ARGV, monotone=True)
+    check(c["K1"] == ISLAND_GENS + 2 and c["K2"] == 1 and c["K3"] + c["K4"] == 0,
+          f"run_ga --islands: K1 once a generation, the init and the rescore: {c}")
+    out["launches"]["islands"] = c
+    _, c = ga_path("run_ga --islands 4 --precision fast", "islands fast",
+                   "chip_smoke_islands_fast", ISLAND_FAST_GENS,
+                   ISLAND_ARGV + ["--precision", "fast"], monotone=True)
+    check(c["K4"] == c["K3"] == ISLAND_FAST_GENS + 1 and c["K1"] == 1 and c["K2"] == 1,
+          f"run_ga --islands --precision fast: K4 and K3 once an evaluation: {c}")
+    out["launches"]["islands_fast"] = c
+
+    argv = ["--generations", str(RESUME_GENS), "--log-every", str(RESUME_EVERY), "--no-video"]
+    full_dir = os.path.join(HERE, "output", "chip_smoke_resume_full")
+    stop_dir = os.path.join(HERE, "output", "chip_smoke_resume")
+    shutil.rmtree(stop_dir, ignore_errors=True)
+    full, c_full, _ = drive("run_ga uninterrupted (the resume's reference)", run_ga,
+                            "chip_smoke_resume_full", argv)
+    save = checkpoint.save_checkpoint
+
+    def stop(path, state, meta=None):
+        save(path, state, meta)
+        if meta["gen"] == RESUME_GENS // 2:
+            raise KeyboardInterrupt
+
+    checkpoint.save_checkpoint = stop
+    try:
+        drive(f"run_ga --checkpoint-every {RESUME_EVERY}, stopped after its "
+              f"{RESUME_GENS // 2}-generation checkpoint", run_ga, "chip_smoke_resume",
+              argv + ["--checkpoint-every", str(RESUME_EVERY)])
+    finally:
+        checkpoint.save_checkpoint = save
+    ck = os.path.join(stop_dir, "ga_ckpt.npz")
+    res, c, wall = drive("run_ga --resume", run_ga, "chip_smoke_resume", argv + ["--resume", ck])
+    a = np.load(os.path.join(full_dir, "ga_best_genome.npy"))
+    b = np.load(os.path.join(stop_dir, "ga_best_genome.npy"))
+    same = a.shape == b.shape and bool((a.view(np.uint32) == b.view(np.uint32)).all())
+    print("MAIN PATH run_ga resume " + json.dumps({
+        "generations": RESUME_GENS, "resumed_at": RESUME_GENS // 2, "seconds": wall,
+        "best_genome_same_bits": same, "curves_equal": res["curves"] == full["curves"],
+        "best_last": res["curves"]["best"][-1], "launches": c,
+        "launches_uninterrupted": c_full}), flush=True)
+    check(same, "run_ga --resume: ga_best_genome.npy differs from the uninterrupted run's")
+    check(res["curves"] == full["curves"], "run_ga --resume: the curves differ")
+    check(c["K1"] == RESUME_GENS // 2 + 2 and c_full["K1"] == RESUME_GENS + 2,
+          f"run_ga --resume: K1 {c['K1']} (the template's init, {RESUME_GENS // 2} "
+          f"generations, the rescore); uninterrupted {c_full['K1']}")
+    out["launches"]["resume"] = c
+
+    prof_dir = os.path.join(HERE, "output", "chip_smoke_profile_trace")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    _, c, wall = drive("run_ga --profile-dir", run_ga, "chip_smoke_profile",
+                       PROFILE_ARGV + ["--no-video", "--profile-dir", prof_dir])
+    traces = sorted(f for f in os.listdir(prof_dir) if f.endswith(".json"))
+    check(len(traces) == 1, f"run_ga --profile-dir wrote {traces}, not one trace")
+    path = os.path.join(prof_dir, traces[0])
+    with open(path) as f:
+        text = f.read()
+    print("MAIN PATH run_ga profile " + json.dumps({
+        "seconds": wall, "trace": os.path.relpath(path, HERE), "trace_bytes": len(text),
+        "fitness_kernel_events": text.count("fitness_kernel"), "launches": c}), flush=True)
+    check("fitness_kernel" in text, "the profile trace does not name the walk's fitness_kernel")
+    out["launches"]["profile"] = c
+    return out
+
+
+def _same_state(a, b) -> bool:
+    """Two states equal in bits: every tensor (genomes, fits, best), the
+    ints, the generator's state and Adam's moments and step."""
+    import torch
+
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            same = x.dtype == y.dtype and torch.equal(x, y)
+        elif isinstance(x, torch.Generator):
+            same = torch.equal(x.get_state(), y.get_state())
+        elif isinstance(x, torch.optim.Optimizer):
+            sx, sy = x.state[a.g], y.state[b.g]
+            same = sx.keys() == sy.keys() and all(torch.equal(sx[k], sy[k]) for k in sx)
+        else:
+            same = x == y
+        if not same:
+            return False
+    return True
+
+
+def slice_checks_and_times(tgt, wm, card) -> dict:
+    """The checkpoint / island / profile slice's checks and times: one island
+    equal in bits to ga.run_block on the same draws; an island block with no
+    host sync; block resumes bit-equal to the uninterrupted blocks (the GA
+    exact-tight and fast, the island GA, SA, PT and Adam); the island's
+    launches a generation, exactly, and its generations/s against the plain
+    block's in turns; one save's ms and bytes at run_ga's defaults."""
+    import tempfile
+
+    import torch
+
+    from ggs_tpu_torch.config import GAConfig, GenomeConfig, GradConfig, MutSigma, SAConfig
+    from ggs_tpu_torch.models import ga, genome, gradient, pt, sa
+    from ggs_tpu_torch.ops import objective
+    from ggs_tpu_torch.parallel import island
+    from ggs_tpu_torch.utils import checkpoint
+
+    phase("checkpoint / island slice: one island, no host sync, resumes in bits")
+    H, W = tgt.shape[:2]
+    dev = tgt.device
+    obj = objective.Objective(H=H, W=W, precision="exact-tight")
+    obj_fast = objective.Objective(H=H, W=W, precision="fast")
+    cfg, gnm = GAConfig(pop_size=32, generations=500_000), GenomeConfig(n_splats=512)
+    sig_max, sig_min = MutSigma.max_defaults().__dict__, MutSigma.min_defaults().__dict__
+
+    def fresh_ga(o, seed=80):
+        return ga.init(torch.Generator(device=dev).manual_seed(seed), o, tgt, wm, cfg, gnm)
+
+    # one island is ga.step on the same draws (the permutation the stable
+    # argsort of the shuffle's uniforms)
+    a = b = fresh_ga(obj)
+    rng = torch.Generator(device=dev).manual_seed(81)
+    for _ in range(3):
+        d = island.draw_island(rng, 1, cfg.pop_size, gnm.n_splats, cfg.tour_k, dev)
+        gd = {"sel": d["sel"][0], "perm": torch.argsort(d["u_shuf"][0], stable=True),
+              "u_cx": d["u_cx"][0], "u_cxm": d["u_cxm"][0], "mut": d["mut"]}
+        a, ma = island.step(a, obj, tgt, wm, cfg, gnm, sig_max, sig_min, 1, draws=d)
+        b, mb = ga.step(b, obj, tgt, wm, cfg, gnm, sig_max, sig_min, draws=gd)
+    check(all(torch.equal(x, y) for x, y in zip(a[:5], b[:5])) and torch.equal(ma, mb),
+          "one island differs from ga.step on the same draws")
+    print("CHECK one island equals ga.step on the same draws, bit for bit (3 generations)",
+          flush=True)
+
+    run_isl = island.make_run_block(obj, cfg, gnm, 4, migrate_every=10, migrate_k=2)
+    st_i, _ = run_isl(fresh_ga(obj, 82), tgt, wm, 3)  # warm-up
+    check_no_sync(lambda: run_isl(st_i, tgt, wm, 3), "a 3-generation island block (I=4)")
+
+    # resumes on the card: run(2k) == run(k) -> save -> load into a fresh template -> run(k)
+    sa_cfg, sa_gnm = SAConfig(), GenomeConfig()
+    make_opt, step = gradient.make_fit_step(obj, GenomeConfig(n_splats=ADAM_N), GradConfig(lr=1e-2))
+
+    def adam_state():
+        g0 = genome.new_population(torch.Generator(device=dev).manual_seed(83), 1, ADAM_N, H, W,
+                                   device=dev)
+        return gradient.init_state(make_opt, g0)
+
+    cases = {
+        "ga_exact_tight": (lambda: fresh_ga(obj),
+                           lambda s, k: ga.run_block(s, obj, tgt, wm, cfg, gnm, k)[0]),
+        "ga_fast": (lambda: fresh_ga(obj_fast),
+                    lambda s, k: ga.run_block(s, obj_fast, tgt, wm, cfg, gnm, k)[0]),
+        "islands": (lambda: fresh_ga(obj), lambda s, k: run_isl(s, tgt, wm, k)[0]),
+        "sa": (lambda: sa.init(torch.Generator(device=dev).manual_seed(84), obj, tgt, wm, sa_gnm),
+               lambda s, k: sa.make_run_block(obj, sa_cfg, sa_gnm)(s, tgt, wm, k)[0]),
+        "pt": (lambda: pt.init(torch.Generator(device=dev).manual_seed(85), obj, tgt, wm, sa_gnm,
+                               PT_K, t_cold=sa_cfg.t0, t_hot=100.0 * sa_cfg.t0),
+               lambda s, k: pt.make_run_block(obj, sa_cfg, sa_gnm)(s, tgt, wm, k)[0]),
+        "adam": (adam_state, lambda s, k: gradient.run_block(s, step, tgt, wm, k)[0]),
+    }
+    resumes = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ckpt.npz")
+        for name, (make, run) in cases.items():
+            full = run(make(), 2 * RESUME_K)
+            checkpoint.save_checkpoint(path, run(make(), RESUME_K), meta={"gen": RESUME_K})
+            resumed = run(checkpoint.load_checkpoint(path, make())[0], RESUME_K)
+            torch.cuda.synchronize()
+            resumes[name] = _same_state(full, resumed)
+            check(resumes[name], f"{name}: the resumed block differs from the uninterrupted one")
+        print(f"CHECK resumes on the card equal the uninterrupted blocks in bits "
+              f"(run({2 * RESUME_K}) == run({RESUME_K}) -> save -> load -> run({RESUME_K})): "
+              + json.dumps(resumes), flush=True)
+
+        # one save at run_ga's defaults (P=32, N=512) with a 500-generation
+        # curve in its meta, as genetic_approx writes it
+        st = fresh_ga(obj)
+        curves = {k: [0.1 + 1e-3 * i for i in range(501)] for k in ("best", "mean", "median")}
+        save_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save_checkpoint(path, st, meta={"gen": 500, "curves": curves})
+            save_ms.append(1e3 * (time.perf_counter() - t0))
+        save_bytes = os.path.getsize(path)
+
+    phase("times: island generations/s against plain, launches a generation")
+    plain = {"st": fresh_ga(obj, 86)}
+    isl = {"st": fresh_ga(obj, 87)}
+    plain["st"], _ = ga.run_block(plain["st"], obj, tgt, wm, cfg, gnm, 5)
+    isl["st"], _ = run_isl(isl["st"], tgt, wm, 5)
+    rates = {"plain": [], "islands": []}
+    for i in range(RATE_PAIRS):
+        for mode in (("plain", "islands") if i % 2 == 0 else ("islands", "plain")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "plain":
+                plain["st"], m = ga.run_block(plain["st"], obj, tgt, wm, cfg, gnm, RATE_GA_GENS)
+            else:
+                isl["st"], m = run_isl(isl["st"], tgt, wm, RATE_GA_GENS)
+            m.cpu()
+            torch.cuda.synchronize()
+            rates[mode].append(RATE_GA_GENS / (time.perf_counter() - t0))
+    st_g = fresh_ga(obj, 88)
+    exact = graph_launches(lambda: run_isl(st_g, tgt, wm, 20), 20, generators=[st_g.rng])
+    times = {
+        "card": card,
+        "ga_generations_per_s_P32_N512": {k: sorted(v)[len(v) // 2] for k, v in rates.items()},
+        "blocks": rates,
+        "islands_launches_per_generation": exact["per_step"],
+        "islands_graph_nodes_20_generations": exact["nodes"],
+        "save_ms_P32_N512_500_generations": sorted(save_ms)[len(save_ms) // 2],
+        "save_ms_all": save_ms,
+        "save_bytes": save_bytes,
+        "resumes_equal": resumes,
+    }
+    print("SLICE TIMES " + json.dumps(times), flush=True)
     return times
 
 
@@ -2086,6 +2411,8 @@ def main() -> int:
     sa_out = sa_paths(drive, ga_path, tgt)
     # the pipeline slice: run_pipeline, annealing and staged growth
     pipe_out = pipeline_paths(drive)
+    # the checkpoint / island / profile slice: islands, resume, the trace
+    slice_out = slice_paths(drive, ga_path)
 
     # the large-canvas main paths: chained passes, K5 from 256 tiles
     phase("chained equals one pass")
@@ -2479,16 +2806,36 @@ def main() -> int:
     )
     print("PROFILE ADAM " + json.dumps(prof_adam), flush=True)
     # device launches a generation and a step may not rise above the
-    # parent's counts for the same code path
+    # parent's counts for the same code path: counted exactly, as the nodes
+    # of each block captured in a CUDA graph (from states of their own); the
+    # profiler's counts, which can lose records, are printed beside them
+    st_x, st_xf = (ga.init(torch.Generator(device="cuda").manual_seed(90), o, tgt, wm, cfg, gnm)
+                   for o in (obj, obj_fast))
+    make_opt, adam_x_step = gradient.make_fit_step(obj_grad, GenomeConfig(n_splats=2000),
+                                                   GradConfig(lr=1e-2))
+    adam_x = gradient.init_state(make_opt, genome.new_population(
+        torch.Generator(device="cuda").manual_seed(91), 1, 2000, H, W, device="cuda"))
+    exact_launches = {
+        "ga_exact_tight": graph_launches(
+            lambda: ga.run_block(st_x, obj, tgt, wm, cfg, gnm, 20), 20, generators=[st_x.rng]),
+        "ga_fast": graph_launches(
+            lambda: ga.run_block(st_xf, obj_fast, tgt, wm, cfg, gnm, 20), 20,
+            generators=[st_xf.rng]),
+        "adam": graph_launches(lambda: gradient.run_block(adam_x, adam_x_step, tgt, wm, 20), 20,
+                               optimizers=[adam_x.opt]),
+    }
     launch_rates = {}
     for key, p in (("ga_exact_tight", prof), ("ga_fast", prof_fast), ("adam", prof_adam)):
-        launch_rates[key] = p["kernels_per_step"]
+        x = exact_launches[key]
+        launch_rates[key] = {"exact": x["per_step"], "profiler": p["kernels_per_step"],
+                             "graph_nodes": x["nodes"]}
         limit = LAUNCH_LIMITS[key]
-        check(round(p["kernels_per_step"] * p["steps"]) <= round(limit * p["steps"]),
-              f"{key}: {p['kernels_per_step']} launches a step, above {limit}")
+        check(round(x["per_step"] * x["steps"]) <= round(limit * x["steps"]),
+              f"{key}: {x['per_step']} launches a step, above {limit}")
     print("LAUNCHES per GA generation / Adam step " + json.dumps(
         {"measured": launch_rates, "limit": LAUNCH_LIMITS}), flush=True)
 
+    slice_checks_and_times(tgt, wm, card)
     pipe_times = pipeline_checks_and_times(tgt, wm, card)
     pipe_times["pipeline_seconds"] = pipe_out["pipeline_seconds"]
     sa_checks_and_times(tgt, wm, card)
@@ -2673,6 +3020,8 @@ def main() -> int:
         entry["launches_sa_slice"] = {tag: c[key] for tag, c in sa_out["launches"].items()}
         entry["launches_pipeline_slice"] = {tag: c[key]
                                             for tag, c in pipe_out["launches"].items()}
+        entry["launches_checkpoint_island_slice"] = {tag: c[key]
+                                                     for tag, c in slice_out["launches"].items()}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,10 @@ With `memetic_every` set, the elites get a few Adam steps through the
 differentiable renderer every that many generations (`run_memetic_block`).
 `genetic_approx` also runs scale-space annealing (`blur_sigma`, ops/anneal.py),
 the densify+prune recycle (models/grow.py), stall-ended stages for growth,
-warm starts from a population and video frames. Not ported yet: islands,
-meshes and checkpoint writing.
+warm starts from a population, video frames, the island model
+(parallel/island.py), checkpoints and resume (utils/checkpoint.py) and a
+torch.profiler trace of one block (utils/profiling.py). Not ported yet:
+meshes.
 """
 from __future__ import annotations
 
@@ -286,6 +288,13 @@ def genetic_approx(
     memetic_every: int = 0,
     memetic_steps: int = 5,
     memetic_lr: float = 1e-2,
+    checkpoint_path: str = "",
+    checkpoint_every: int = 0,
+    resume_from: str = "",
+    n_islands: int = 1,
+    migrate_every: int = 0,
+    migrate_k: int = 1,
+    profile_dir: str = "",
 ):
     """Host loop: a full GA run with loss curves and frames (algorithm.py:17-195).
 
@@ -309,14 +318,28 @@ def genetic_approx(
     the unblurred target's. memetic_every > 0 runs the memetic block: every
     memetic_every generations the elites get memetic_steps Adam steps at
     memetic_lr (exclusive with annealing, as in the JAX package).
+    n_islands > 1 runs the island model (parallel/island.py): demes of
+    pop_size / n_islands with their own selection and elitism, migrate_k
+    migrants around the ring every migrate_every generations (single-deme
+    memetic refinement and annealing refuse it). checkpoint_every > 0 saves
+    the state with its generation and curves to checkpoint_path after each
+    block that crosses a multiple of it; resume_from continues such a run
+    from its file, bit for bit (frames from generation 0 are not written
+    again). profile_dir writes a torch.profiler trace of the first block
+    after the starting one.
     Returns (best_genome [N, 9] np, best_fit float, curves dict), and the
     final population [P, N, 9] np too with return_state."""
+    from ..utils import checkpoint as ckpt_mod
     from ..utils import curves as curves_mod
     from ..utils import io as io_mod
+    from ..utils import profiling
 
     if memetic_every > 0 and anneal_sigma0 > 0.0:
         raise ValueError("memetic refinement and scale-space annealing are mutually exclusive "
                          "(the memetic block has no sigma input)")
+    if n_islands > 1 and (memetic_every > 0 or anneal_sigma0 > 0.0):
+        raise ValueError("memetic refinement and scale-space annealing are single-deme only "
+                         "(n_islands must be 1)")
     dev = resolve_device(device)
     mask_cfg = mask_cfg if mask_cfg is not None else MaskConfig()
     target = io_mod.ensure_hw(target_img, H, W, device=dev)
@@ -328,17 +351,28 @@ def genetic_approx(
         if tuple(weight_mask.shape) != (H, W):
             raise ValueError(f"weight_mask has shape {tuple(weight_mask.shape)}, not {(H, W)}")
 
+    if n_islands > 1:
+        from ..parallel import island
+
+        run_islands = island.make_run_block(obj, ga, gnm, n_islands, migrate_every, migrate_k)
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
     state = init(rng, obj, target, weight_mask, ga, gnm, init_pop=init_pop)
+    start_gen = 0
     curves = {
         "best": [float(state.best_fit)],
         "mean": [float(torch.mean(state.fits))],
         "median": [float(_median(state.fits))],
     }
+    if resume_from:
+        # the template drew from a fresh generator; the loaded state carries
+        # the saved generator state and continues its stream
+        state, meta = ckpt_mod.load_checkpoint(resume_from, state)
+        start_gen = int(meta.get("gen", 0))
+        curves = meta.get("curves", curves)
 
     pad = len(str(ga.generations))
-    if save_video:
+    if save_video and start_gen == 0:
         io_mod.save_frame_png(0, state.best, pad, prefix, video_dir, H, W, obj.k_sigma,
                               impl=obj.impl)
     radius = anneal_mod.default_radius(anneal_sigma0)
@@ -350,8 +384,9 @@ def genetic_approx(
     if recycle_every and recycle_k:
         block_size = min(block_size, recycle_every)
     block_size = max(1, block_size)
-    last_frame_bucket = 0
-    gen = 0
+    gen = start_gen
+    last_frame_bucket = gen // max(1, frame_every)
+    profiled = not profile_dir
     try:
         while gen < ga.generations:
             block = min(block_size, ga.generations - gen)
@@ -361,15 +396,23 @@ def genetic_approx(
                 cur_sigma, sigma_t, cur_target = stepped
                 state = _rescore(state, obj, cur_target, weight_mask, sigma_t)
             t_block = time.perf_counter()
-            if memetic_every > 0:
-                state, metrics = run_memetic_block(
-                    state, obj, cur_target, weight_mask, ga, gnm, GradConfig(lr=memetic_lr),
-                    memetic_every, memetic_steps, block,
-                )
-            else:
-                state, metrics = run_block(state, obj, cur_target, weight_mask, ga, gnm, block,
-                                           blur_sigma=sigma_t)
-            metrics = metrics.cpu().numpy()  # the block's one host sync
+            # the first block after the starting one is traced (the first
+            # builds the kernels)
+            traced = not profiled and gen > start_gen
+            profiled = profiled or traced
+            with profiling.trace(profile_dir if traced else None), \
+                    profiling.named_scope(f"{prefix} block {gen}-{gen + block}"):
+                if n_islands > 1:
+                    state, metrics = run_islands(state, cur_target, weight_mask, block)
+                elif memetic_every > 0:
+                    state, metrics = run_memetic_block(
+                        state, obj, cur_target, weight_mask, ga, gnm, GradConfig(lr=memetic_lr),
+                        memetic_every, memetic_steps, block,
+                    )
+                else:
+                    state, metrics = run_block(state, obj, cur_target, weight_mask, ga, gnm,
+                                               block, blur_sigma=sigma_t)
+                metrics = metrics.cpu().numpy()  # the block's one host sync
             gens_per_s = block / max(1e-9, time.perf_counter() - t_block)
             curves["best"].extend(metrics[:, 0].tolist())
             curves["mean"].extend(metrics[:, 1].tolist())
@@ -398,6 +441,9 @@ def genetic_approx(
                 if stalled:
                     state = state._replace(no_improve=torch.zeros_like(state.no_improve))
                     no_improve_now = 0
+            if checkpoint_path and checkpoint_every and gen % checkpoint_every < block:
+                ckpt_mod.save_checkpoint(checkpoint_path, state,
+                                         meta={"gen": gen, "curves": curves})
             if gen % max(1, log_every) < block or gen >= ga.generations:
                 print(
                     f"{prefix} gen {gen}/{ga.generations} best {metrics[-1, 0]:.6f} "

@@ -14,8 +14,8 @@ the device (acceptance by torch.where on 0-d tensors, the temperature a 0-d
 device tensor), so the caller syncs once per block when it reads the
 metrics. A step takes its random numbers from the state's torch.Generator,
 or from `draws` when given (the tests hand it the JAX package's own draws).
-`simulated_annealing(replicas=K>1)` runs parallel tempering (models/pt.py).
-Not ported yet: video frames, checkpoints and resume.
+`simulated_annealing(replicas=K>1)` runs parallel tempering (models/pt.py);
+it also writes video frames and checkpoints, and resumes from them.
 """
 from __future__ import annotations
 
@@ -198,6 +198,9 @@ def simulated_annealing(
     replicas: int = 1,
     swap_every: int = 10,
     t_hot: float = 0.0,
+    checkpoint_path: str = "",
+    checkpoint_every: int = 0,
+    resume_from: str = "",
     device="cuda",
 ):
     """Host loop: a full SA run with its curves (run_sags.py /
@@ -211,7 +214,12 @@ def simulated_annealing(
     block, with one host sync and one progress line each. save_video writes
     the best's frame every `frame_every` iterations to
     video_dir/{prefix}_{it}.png (the block shrinks to that cadence).
+    checkpoint_every > 0 saves the state (SAState or PTState) with its
+    iteration and curves to checkpoint_path after each block that crosses a
+    multiple of it; resume_from continues such a run from its file, bit for
+    bit (frames from iteration 0 are not written again).
     Returns (best genome [N, 9] np, best energy float, curves dict)."""
+    from ..utils import checkpoint as ckpt_mod
     from ..utils import curves as curves_mod
     from ..utils import io as io_mod
 
@@ -233,14 +241,21 @@ def simulated_annealing(
     else:
         state = init(rng, obj, target, weight_mask, gnm)
         run = make_run_block(obj, sa, gnm, sig_max, sig_min)
+    start_it = 0
     curves = {"best": [float(state.best_fit)], "current": [float(state.curr_fit)]}
+    if resume_from:
+        # the template drew from a fresh generator; the loaded state carries
+        # the saved generator state and continues its stream
+        state, meta = ckpt_mod.load_checkpoint(resume_from, state)
+        start_it = int(meta.get("it", 0))
+        curves = meta.get("curves", curves)
 
     pad = len(str(sa.iterations))
-    if save_video:
+    if save_video and start_it == 0:
         io_mod.save_frame_png(0, state.best, pad, prefix, video_dir, H, W, obj.k_sigma,
                               impl=obj.impl)
-    it = 0
-    last_frame_bucket = 0
+    it = start_it
+    last_frame_bucket = it // max(1, frame_every)
     block_size = max(1, min(log_every, frame_every) if save_video else log_every)
     try:
         while it < sa.iterations:
@@ -256,6 +271,9 @@ def simulated_annealing(
                 last_frame_bucket = it // max(1, frame_every)
                 io_mod.save_frame_png(it, state.best, pad, prefix, video_dir, H, W, obj.k_sigma,
                                       impl=obj.impl)
+            if checkpoint_path and checkpoint_every and it % checkpoint_every < block:
+                ckpt_mod.save_checkpoint(checkpoint_path, state,
+                                         meta={"it": it, "curves": curves})
             if it % max(1, log_every) < block or it >= sa.iterations:
                 T = genome_mod.temp_schedule(sa.temp_schedule, sa.t0, it, sa.iterations)
                 print(

@@ -17,8 +17,15 @@ kernel, over the eps-culled lists under "fast"; under "ssim" and "mix" K2'
 and K6; refused under "bf16"). `--anneal-sigma0` runs scale-space
 annealing, `--recycle-every/-k/-patience` the densify+prune recycle,
 `--grow-stages`/`--grow-auto` error-guided growth over stages and
-`--progressive` coarse-to-fine stages, each as runners/run_ga.py does. Not
-ported yet: meshes, islands and checkpoints.
+`--progressive` coarse-to-fine stages, each as runners/run_ga.py does.
+`--islands I` runs the island model (demes of pop-size / I, `--migrate-k`
+migrants around the ring every `--migrate-every` generations).
+`--checkpoint-every K` saves `output_dir/ga_ckpt.npz` every K generations
+and `--resume PATH` continues from such a file, bit for bit; with
+`--profile-dir DIR` the first block after the start is traced with
+torch.profiler into DIR. All three act on the last stage only, as in
+runners/run_ga.py (a resumed staged run runs its earlier stages again).
+Not ported yet: meshes (`--pop-shards`, `--tile-shards`).
 """
 from __future__ import annotations
 
@@ -101,6 +108,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--progressive", default="",
                    help="comma-separated work sides for coarse-to-fine stages, e.g. "
                    "'128,256,512' (overrides --work-max-side; --generations split equally)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save output_dir/ga_ckpt.npz every N generations (last stage; 0 = off)")
+    p.add_argument("--resume", default="", help="continue the last stage from this checkpoint")
+    p.add_argument("--islands", type=int, default=1,
+                   help=">1: island-model GA (deme-local selection and elitism, ring "
+                   "migration); pop-size must split into demes of an even size")
+    p.add_argument("--migrate-every", type=int, default=0,
+                   help="island migration cadence in generations (0 = never)")
+    p.add_argument("--migrate-k", type=int, default=1,
+                   help="migrants each island sends to the next")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler trace of the first block after the start here")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     return p
 
@@ -165,6 +184,11 @@ def main(argv=None) -> dict:
             anneal_sigma0=args.anneal_sigma0 if last else 0.0, anneal_frac=args.anneal_frac,
             memetic_every=args.memetic_every, memetic_steps=args.memetic_steps,
             memetic_lr=args.memetic_lr,
+            checkpoint_path=os.path.join(args.output_dir, "ga_ckpt.npz") if last else "",
+            checkpoint_every=args.checkpoint_every if last else 0,
+            resume_from=args.resume if last else "", n_islands=args.islands,
+            migrate_every=args.migrate_every, migrate_k=args.migrate_k,
+            profile_dir=args.profile_dir if last else "",
         )
         stages.append({"n_splats": n_splats, "work": (Hs, Ws),
                        "generations": len(out[2]["best"]) - 1, "best_fit": out[1],

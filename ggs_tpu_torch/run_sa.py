@@ -13,8 +13,9 @@ renders. `--replicas K` runs parallel tempering: K chains on a geometric
 ladder to `--t-hot`, tries x K proposals scored as one batch, neighbour
 swaps every `--swap-every` iterations. `--metric ssim|mix` scores rendered
 canvases with the SSIM energy (`--ssim-weight` for mix). Under any tier but
-"highest" the winner is rescored on the exact "highest" energy. Not ported
-yet: `--checkpoint-every` and `--resume`.
+"highest" the winner is rescored on the exact "highest" energy.
+`--checkpoint-every K` saves `output_dir/sa_ckpt.npz` every K iterations
+and `--resume PATH` continues from such a file, bit for bit.
 """
 from __future__ import annotations
 
@@ -63,8 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-video", action="store_true", help="write no frames and no animation")
     p.add_argument("--video-len", type=int, default=10, help="animation length, seconds")
     p.add_argument("--fps", type=int, default=30)
-    p.add_argument("--checkpoint-every", type=int, default=0, help="not ported (must be 0)")
-    p.add_argument("--resume", default="", help="not ported (must be empty)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save output_dir/sa_ckpt.npz every N iterations (0 = off)")
+    p.add_argument("--resume", default="", help="continue from this checkpoint")
     p.add_argument(
         "--replicas", type=int, default=1,
         help=">1: parallel tempering, K chains on a geometric annealed ladder, "
@@ -79,8 +81,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run SA (or PT); returns {"best_fit", "curves", "final" (the export render), "best"}."""
     args = build_parser().parse_args(argv)
-    if args.checkpoint_every or args.resume:
-        raise NotImplementedError("checkpoints (--checkpoint-every, --resume) are not ported yet")
 
     import numpy as np
     import torch
@@ -118,7 +118,9 @@ def main(argv=None) -> dict:
         frame_every=max(1, args.iterations // (args.fps * args.video_len)), video_dir=video_dir,
         loss_png_path=os.path.join(args.output_dir, "sa_loss.png"),
         loss_csv_path=os.path.join(args.output_dir, "sa_loss.csv"), loss_log_y=True,
-        replicas=args.replicas, swap_every=args.swap_every, t_hot=args.t_hot, device=dev,
+        replicas=args.replicas, swap_every=args.swap_every, t_hot=args.t_hot,
+        checkpoint_path=os.path.join(args.output_dir, "sa_ckpt.npz"),
+        checkpoint_every=args.checkpoint_every, resume_from=args.resume, device=dev,
     )
     label = "MSE" if args.metric == "mse" else f"energy ({args.metric})"
     if args.precision != "highest":
