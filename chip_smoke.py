@@ -154,6 +154,30 @@ load into a fresh template -> run(5); and a `SLICE TIMES` line (island
 against plain generations/s in turns, the island's exact launches a
 generation, one save's ms and bytes at P=32, N=512 with a 500-generation
 curve).
+The sharding slice (`slab_checks` and `shard_checks_and_times`, last) adds:
+each kernel of the sharded paths launched from a row slab's lists (shifted
+boxes, the bottom slab, splats above it) against its plain version under
+the gates above (K1/K2 exact-tight and highest, K3, K1-bf16 at B=16 on a
+256-row slab of 512x512, K2 at B=32, K6/K7 at run_grad's shape, K5 on a
+1024-row slab of the 2048x2048 GA's first pass, exact and fast); the slab
+partials summed against the full fitness (rtol 1e-6, atol 1e-7, also at
+2048x2048 with N=10,000 over 2 and 4 slabs), render_rows against the full
+canvas's rows (CANVAS_ATOL; bits reported), the slab gradients summed
+against the full canvas's (GRAD_ROW_REL); then worlds of 2 and 4 gloo
+ranks, all on cuda:0, spawned as `chip_smoke.py --shard-worker` after the
+build: the sharded evaluate over 1x2, 2x1, 2x2 and 1x4 in every tier and
+metric and the 2048x2048 GA's at tile 2 (K5) and 4 (dense) against the
+unsharded one (rtol 2e-5, atol 1e-6; fast 2e-3), the same bits on every
+rank; 20-generation GA blocks whose states hash equal on every rank after
+each block, pop-only equal in bits to one process; the tile-sharded Adam
+gradient (rtol 2e-4, atol 1e-6 mse / 2e-6 mix); a 2x2 island GA migrating
+over the pop shards; save_checkpoint_distributed then a resume equal in
+bits; run_ga (exact-tight, fast, bf16) at 2x2, run_ga --metric ssim and
+run_grad (mse, mix) at 1x2 through the runners, with launch counts; and
+`torchrun ... run_ga --pop-shards 2 --tile-shards 2` for 100 generations
+(exit 0, the artifacts written once); a `SHARD TIMES` line (generations/s
+of one process against 2x1, 1x2 and 2x2, Adam steps/s against 1x2, the
+bytes a rank puts into collectives a generation).
 Prints a `GRAD KERNELS` line (K6/K7 times, bounds and launches, blocks a
 SM, Adam steps/s at both gradient configurations, beside the card), one
 `kernels` JSON line, the card line, and last the device line.
@@ -336,9 +360,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def make_case(B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, device="cuda",
-              cull_eps=None):
+              cull_eps=None, y_origin=0, rows=None):
     """Random population (seeded) -> the walk's inputs at these shapes. Under
-    "fast": fast fitness's route (K4's table and boxes, corner-culled lists)."""
+    "fast": fast fitness's route (K4's table and boxes, corner-culled lists).
+    With `rows`: the lists of the row slab [y_origin, y_origin + rows) of the
+    H x W canvas, as fitness_partial builds them (shifted boxes, under "fast"
+    the shifted table and the corner cull; no K4), and the slab's rows of
+    the target and mask."""
     import torch
 
     from ggs_tpu_torch.models import genome
@@ -348,15 +376,19 @@ def make_case(B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, de
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device=dev))
-    n_tx, n_ty = -(-W // tile_w), -(-H // tile_h)
-    if precision == "fast":
+    slab = rows is not None
+    rows = H if rows is None else rows
+    n_tx, n_ty = -(-W // tile_w), -(-rows // tile_h)
+    if precision == "fast" and not slab:
         cnt, idx, feats = render_cuda._k4_pass(g9, H, W, 3.0, cap, tile_h, tile_w, cull_eps, True)
     else:
-        p = render_cuda._screen(g9, H, W, 3.0, precision, cull_eps)
-        cnt, idx, feats = render_cuda._pass_lists(p, n_tx, n_ty, tile_h, tile_w, cap, precision,
-                                                  None)
+        p = render_cuda._screen(g9, H, W, 3.0, precision, cull_eps, y_origin)
+        cnt, idx, feats = render_cuda._pass_lists(
+            p, n_tx, n_ty, tile_h, tile_w, cap, precision,
+            render_cuda._corner_eps(precision, slab, cull_eps))
     tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
     w = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
+    tgt, w = tgt[y_origin:y_origin + rows], w[y_origin:y_origin + rows]
     tgt_p, w_p = render_cuda.pad_planes(tgt, w, n_ty * tile_h, n_tx * tile_w)
     return dict(cnt=cnt, idx=idx, feats=feats, tgt_p=tgt_p, w_p=w_p, n_tx=n_tx,
                 tile_h=tile_h, tile_w=tile_w, g9=g9, H=H, W=W, precision=precision,
@@ -646,18 +678,20 @@ def compare(c, label: str) -> dict:
     return {"canvas": canvas_err, "fitness_rel": fit_rel, "partials": part_err}
 
 
-def make_grad_case(B, N, H, W, seed=0, device="cuda", tile_h=None):
+def make_grad_case(B, N, H, W, seed=0, device="cuda", tile_h=None, y_origin=0, rows=None):
     """Random genomes (seeded) -> the gradient walks' inputs: exact-tight
     lists on list tiles tile_h x 128 (default the port's GRAD_TILE_H), the
     raw and folded tables, the padded target and mask, and K6's image
-    cotangent (K7's own head)."""
+    cotangent (K7's own head); with `rows`, those of a row slab (make_case)."""
     import torch
 
-    from ggs_tpu_torch.ops import codec, render_grad as rg
+    from ggs_tpu_torch.ops import codec, render_cuda as rc, render_grad as rg
 
     th, tw = tile_h or rg.GRAD_TILE_H, rg.GRAD_TILE_W
-    c = make_case(B, N, H, W, "exact-tight", tile_h=th, tile_w=tw, seed=seed, device=device)
-    p = codec.tighten_boxes_exact(codec.preprocess(c["g9"], H, W, 3.0), 3.0)
+    c = make_case(B, N, H, W, "exact-tight", tile_h=th, tile_w=tw, seed=seed, device=device,
+                  y_origin=y_origin, rows=rows)
+    p = codec.tighten_boxes_exact(
+        rc.shift_rows(codec.preprocess(c["g9"], H, W, 3.0), y_origin), 3.0)
     c["feats_fast"], c["feats"] = c["feats"], rg._splat_feats(p)
     canvas = run_k2(dict(c, feats=c["feats_fast"]))
     c["g_img"] = (2.0 * c["w_p"] * (torch.clamp(canvas, 0.0, 1.0) - c["tgt_p"][None])).contiguous()
@@ -875,11 +909,12 @@ def compare_grad_init(c, label: str, init_must_show: bool = True) -> dict:
 
 
 def scatter_case(B, N, side, tile_h, precision, eps=None, chunk=None, scales=(3.0, 0.1), seed=0,
-                 coincident=0, pad_slots=8, device="cuda"):
+                 coincident=0, pad_slots=8, device="cuda", y_origin=0, rows=None):
     """Seeded genomes -> K5's arguments for the first pass (`chunk` splats)
     of a chained render at this shape: the tier's boxes, the corner
     parameters under "fast"; `coincident` splats of candidate 0 at the
-    canvas centre (sigma 4 px) force the overflow fallback."""
+    canvas centre (sigma 4 px) force the overflow fallback. With `rows`, the
+    pass of the row slab [y_origin, y_origin + rows) (shifted boxes)."""
     import torch
 
     from ggs_tpu_torch.models import genome
@@ -890,12 +925,12 @@ def scatter_case(B, N, side, tile_h, precision, eps=None, chunk=None, scales=(3.
     if coincident:
         g[0, :coincident] = torch.tensor([0.5, 0.5, 1.4, 1.4, 0.0, 128.0, 128.0, 128.0, 200.0],
                                          device=device)
-    p = rc._screen(codec.genome_to_renderer(g), side, side, 3.0, precision, eps)
+    p = rc._screen(codec.genome_to_renderer(g), side, side, 3.0, precision, eps, y_origin)
     if chunk is not None:
         p = rc._split_screen(p, 0, chunk)
     corner = rc._corner_params(p, eps) if eps is not None else None
     n = p.cx.shape[1]
-    n_t = -(-side // 128), -(-side // tile_h)
+    n_t = -(-side // 128), -(-(rows or side) // tile_h)
     args = rc.scatter_args(p.x0, p.x1, p.y0, p.y1, *n_t, tile_h, 128, n, pad_slots, corner=corner)
     check(args is not None, "the scatter rules chose the dense route")
     return {"args": args, "p": p, "corner": corner, "pad_slots": pad_slots}
@@ -2052,6 +2087,556 @@ def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
     }
 
 
+# ------------------------------------------------------------ the sharding slice
+
+
+SHARD_GA_CFG = dict(pop_size=32, generations=500_000, elite_k=8)  # run_ga's defaults
+SHARD_BLOCKS, SHARD_BLOCK_GENS = 2, 10  # the sharded GA blocks whose states are hashed
+SHARD_TIME_BLOCKS, SHARD_TIME_GENS = 3, 20  # generations/s: timed blocks after a warm-up
+SHARD_ADAM_STEPS = 20  # Adam steps/s: one timed block after a warm-up
+SHARD_PATH_GENS = 40  # the in-world run_ga main paths (20 under fast and bf16)
+SHARD_GRAD_STEPS = 20  # the in-world run_grad main paths (10 under mix)
+SHARD_TORCHRUN_GENS = 100  # torchrun ... run_ga --pop-shards 2 --tile-shards 2
+SHARD_TIMEOUT = 480  # seconds a world of ranks may take before it is killed
+# the JAX package's sharding tolerances (tests/test_sharding.py:48, :115,
+# :289, :339, :175-177, :229-234) and the slab sum's (:142)
+SHARD_RTOL, SHARD_ATOL, SHARD_FAST_ATOL = 2e-5, 1e-6, 2e-3
+SHARD_GRAD_RTOL, SHARD_GRAD_ATOL = 2e-4, {"mse": 1e-6, "mix": 2e-6}
+SLAB_SUM_RTOL, SLAB_SUM_ATOL = 1e-6, 1e-7
+
+
+def kernel_counters() -> dict:
+    """The kernel wrappers whose launches the main paths read."""
+    from ggs_tpu_torch.ops import render_cuda as rc, render_grad as rg
+
+    return {"K1": rc.fitness_tiles, "K2": rc.render_tiles, "K3": rc.fitness_tiles_fast,
+            "K3-canvas": rc.render_tiles_fast, "K4": rc.prep_fast,
+            "K1-bf16": rc.fitness_tiles_bf16, "K5": rc.bin_splats_scatter,
+            "K6": rg.bwd_tiles, "K7": rg.lossgrad_tiles}
+
+
+def reset_kernel_counts(counted: dict) -> None:
+    for fn in counted.values():
+        for attr in ("launches", "init_launches", "band_launches", "fallback_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+
+
+def read_kernel_counts(counted: dict) -> dict:
+    """Launches per kernel, as "<kernel>-init" those from an init canvas, as
+    "K5-band" K5's band stages and as "K5-fallback" K5's calls that also
+    launched its fallback."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    out = {k: fn.launches for k, fn in counted.items()}
+    out.update({f"{k}-init": fn.init_launches for k, fn in counted.items()
+                if hasattr(fn, "init_launches")})
+    out["K5-band"] = rc.bin_splats_scatter.band_launches
+    out["K5-fallback"] = rc.bin_splats_scatter.fallback_launches
+    return out
+
+
+def allclose_excess(got, want, rtol: float, atol: float) -> float:
+    """max(|got - want| - (atol + rtol |want|)): <= 0 where every element is
+    within numpy's allclose(rtol, atol)."""
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() - (atol + rtol * w.abs())).max())
+
+
+def tensor_hash(*xs) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def ga_state_hash(st) -> str:
+    return tensor_hash(st.pop, st.fits, st.best, st.best_fit, st.no_improve,
+                       st.rng.get_state()) + f"@{st.gen}"
+
+
+def ga_hashed_blocks(obj, tgt, wm, seed: int = 42):
+    """SHARD_BLOCKS GA blocks from a seeded init -> (the state's hash after
+    the init and after each block, the metrics' best column)."""
+    import torch
+
+    from ggs_tpu_torch.config import GAConfig, GenomeConfig
+    from ggs_tpu_torch.models import ga
+
+    cfg, gnm = GAConfig(**SHARD_GA_CFG), GenomeConfig(n_splats=512)
+    st = ga.init(torch.Generator(device=tgt.device).manual_seed(seed), obj, tgt, wm, cfg, gnm)
+    hashes, best = [ga_state_hash(st)], []
+    for _ in range(SHARD_BLOCKS):
+        st, m = ga.run_block(st, obj, tgt, wm, cfg, gnm, SHARD_BLOCK_GENS)
+        hashes.append(ga_state_hash(st))
+        best.extend(m[:, 0].tolist())
+    return hashes, best
+
+
+def ga_rate(obj, tgt, wm, counter=None) -> dict:
+    """Generations/s of ga.run_block at run_ga's defaults: the median of
+    SHARD_TIME_BLOCKS host-timed blocks of SHARD_TIME_GENS after a warm-up
+    block; with `counter` (comm.BYTES), the bytes this rank put into
+    collectives a generation."""
+    import statistics
+
+    import torch
+
+    from ggs_tpu_torch.config import GAConfig, GenomeConfig
+    from ggs_tpu_torch.models import ga
+
+    cfg, gnm = GAConfig(**SHARD_GA_CFG), GenomeConfig(n_splats=512)
+    st = ga.init(torch.Generator(device=tgt.device).manual_seed(7), obj, tgt, wm, cfg, gnm)
+    st, _ = ga.run_block(st, obj, tgt, wm, cfg, gnm, SHARD_TIME_GENS)
+    torch.cuda.synchronize()
+    before = dict(counter) if counter is not None else None
+    rates = []
+    for _ in range(SHARD_TIME_BLOCKS):
+        t0 = time.perf_counter()
+        st, m = ga.run_block(st, obj, tgt, wm, cfg, gnm, SHARD_TIME_GENS)
+        m.cpu()
+        rates.append(SHARD_TIME_GENS / (time.perf_counter() - t0))
+    out = {"gens_per_s": statistics.median(rates), "blocks": rates}
+    if counter is not None:
+        gens = SHARD_TIME_BLOCKS * SHARD_TIME_GENS
+        out["collective_bytes_per_gen"] = {k: (counter[k] - before[k]) / gens for k in counter}
+    return out
+
+
+def adam_rate(obj, tgt, wm, g0) -> float:
+    """Adam steps/s: one host-timed block of SHARD_ADAM_STEPS after a warm-up."""
+    import torch
+
+    from ggs_tpu_torch.config import GenomeConfig, GradConfig
+    from ggs_tpu_torch.models import gradient
+
+    make_opt, step = gradient.make_fit_step(obj, GenomeConfig(n_splats=g0.shape[1]), GradConfig())
+    st = gradient.init_state(make_opt, g0)
+    st, _ = gradient.run_block(st, step, tgt, wm, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, fits = gradient.run_block(st, step, tgt, wm, SHARD_ADAM_STEPS)
+    fits.cpu()
+    return SHARD_ADAM_STEPS / (time.perf_counter() - t0)
+
+
+def adam_genome(seed: int = 68):
+    """run_grad's default genome batch: one seeded genome of 2000 splats at 512x512."""
+    import torch
+
+    from ggs_tpu_torch.models import genome
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return genome.new_population(gen, 1, 2000, 512, 512, device="cuda")
+
+
+def shard_inputs(side: int, P: int, N: int, seed: int):
+    """run_ga's synthetic target and importance mask at side x side, and a
+    seeded population [P, N, 9] on the card."""
+    import torch
+
+    from ggs_tpu_torch.config import MaskConfig
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import mask
+    from ggs_tpu_torch.utils import io
+
+    tgt = io.ensure_hw(io.synthetic_target(side, side), side, side, device="cuda")
+    wm = mask.mask_from_config(tgt, side, side, MaskConfig())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tgt, wm, genome.new_population(gen, P, N, side, side, device="cuda")
+
+
+def slab_checks() -> dict:
+    """The row slabs in one process: each kernel of the sharded paths
+    launched from a slab's lists (shifted boxes; the bottom slab, splats
+    above it) against its plain version on those lists, under the gates
+    the kernels have; the slab partials summed against the full fitness
+    (rtol 1e-6, atol 1e-7); render_rows against the full canvas's rows
+    (bits reported, CANVAS_ATOL); the slab gradients, summed as the psum
+    and the gradient all-reduce sum them, against the full canvas's
+    (GRAD_ROW_REL per gradient row)."""
+    import torch
+
+    from ggs_tpu_torch.ops import codec, fitness, render_cuda as rc, render_grad as rg
+
+    phase("sharding slice: kernels vs plain from row slabs")
+    out = {}
+    # run_ga's defaults at pop 2 x tile 2: 16 candidates a rank, 256-row slabs
+    for prec in ("exact-tight", "highest"):
+        out[f"K1_K2_{prec}"] = compare(
+            make_case(16, 512, 512, 512, prec, seed=60, y_origin=256, rows=256),
+            f"slab 256+256 of 512x512, B=16 N=512 {prec}")
+    out["K3"] = compare_fast(
+        make_case(16, 512, 512, 512, "fast", seed=61, cull_eps=2e-3, y_origin=256, rows=256),
+        "slab 256+256 of 512x512, B=16 N=512 fast eps=0.002 corner cull")
+    out["K1-bf16"] = compare_bf16(
+        make_case(16, 512, 512, 512, "bf16", seed=62, y_origin=256, rows=256),
+        "slab 256+256 of 512x512, B=16 N=512 bf16")
+    # run_ga --metric ssim at tile 2: K2 at B=32 on the top slab
+    out["K2_top"] = compare(make_case(32, 512, 512, 512, "exact-tight", seed=63, rows=256),
+                            "slab 0+256 of 512x512, B=32 N=512 exact-tight")
+    # run_grad at tile 2: K6 (and K7) on the bottom slab's 16-row list tiles
+    out["K6"] = compare_grad(make_grad_case(1, 2000, 512, 512, seed=64, y_origin=256, rows=256),
+                             "K6/K7 slab 256+256 of 512x512, B=1 N=2000 exact-tight")
+    # the 2048x2048 GA at tile 2: the bottom slab's first pass, 256 tiles: K5
+    for key, prec, eps in (("exact", "exact-tight", None), ("fast", "fast", 2e-3)):
+        sc = scatter_case(GA_P, BIG_N, GA_SIDE, 64, prec, eps, chunk=BIG_N // 2, seed=65,
+                          y_origin=GA_SIDE // 2, rows=GA_SIDE // 2)
+        out[f"K5_{key}"] = compare_scatter(sc, f"slab 1024+1024 of the 2048 GA, {prec}",
+                                           dense=eps is None)
+    tiles_t4 = (GA_SIDE // 128) * (GA_SIDE // 4 // 64)
+    check(tiles_t4 < rc.SCATTER_TILES, f"a 512-row slab of 2048 has {tiles_t4} tiles")
+
+    phase("sharding slice: slab partials, rows and gradients against the full canvas")
+    tgt, wm, pop = shard_inputs(512, 32, 512, 66)
+    g9 = codec.genome_to_renderer(pop)
+    w_eff, denom = fitness.weff_denom(wm, False, 1.0, 512, 512)
+    sums, rows = {}, {}
+    for prec in ("exact-tight", "highest", "bf16"):
+        full = rc.fitness(g9, tgt, wm, 512, 512, precision=prec) * denom
+        parts = sum(rc.fitness_partial(g9, tgt[y:y + 256], w_eff[y:y + 256], 512, 512, y,
+                                       precision=prec) for y in (0, 256))
+        sums[prec] = allclose_excess(parts, full, SLAB_SUM_RTOL, SLAB_SUM_ATOL)
+        check(sums[prec] <= 0, f"{prec}: the slab partials' sum is off the full fitness")
+    for prec in ("exact-tight", "highest", "fast"):
+        img = rc.render(g9, 512, 512, precision=prec, corner_cull=True)
+        got = torch.cat([rc.render_rows(g9, 512, 512, y, 256, precision=prec, corner_cull=True)
+                         for y in (0, 256)], 1)
+        rows[prec] = {"max_abs": float((got - img).abs().max()), "bits": torch.equal(got, img)}
+        check(rows[prec]["max_abs"] <= CANVAS_ATOL, f"{prec}: render_rows is off the canvas")
+    # the 2048x2048 GA's chained passes (N=10,000) from slabs of tile 2 (K5)
+    # and tile 4 (dense), B=4
+    tgt_b, wm_b, pop_b = shard_inputs(GA_SIDE, 4, BIG_N, 67)
+    g9b = codec.genome_to_renderer(pop_b)
+    w_b, denom_b = fitness.weff_denom(wm_b, False, 1.0, GA_SIDE, GA_SIDE)
+    full = rc.fitness(g9b, tgt_b, wm_b, GA_SIDE, GA_SIDE, precision="exact-tight") * denom_b
+    for nt in (2, 4):
+        hs = GA_SIDE // nt
+        parts = sum(rc.fitness_partial(g9b, tgt_b[y:y + hs], w_b[y:y + hs], GA_SIDE, GA_SIDE, y,
+                                       precision="exact-tight") for y in range(0, GA_SIDE, hs))
+        sums[f"ga2048_tile{nt}"] = allclose_excess(parts, full, SLAB_SUM_RTOL, SLAB_SUM_ATOL)
+        check(sums[f"ga2048_tile{nt}"] <= 0, f"2048 GA tile {nt}: slab partials off the fitness")
+    del tgt_b, wm_b, pop_b, g9b, w_b
+    # run_grad's defaults: the slab gradients summed against the full canvas's
+    g1 = adam_genome()
+
+    def grads(**kw):
+        g = g1.detach().requires_grad_(True)
+        img = rg.render_diff(codec.genome_to_renderer(g), 512, 512, box="tight", **kw)
+        y0 = kw.get("y_origin", 0)
+        d2 = torch.sum((img - tgt[y0:y0 + img.shape[1]]) ** 2, -1) * wm[y0:y0 + img.shape[1]]
+        (gr,) = torch.autograd.grad(torch.sum(d2) / denom, g)
+        return gr
+
+    full_g = grads()
+    slab_g = sum(grads(y_origin=y, out_rows=256) for y in (0, 256))
+    scale = full_g.abs().amax(dim=(0, 1)).clamp_min(1e-30)
+    grad_rows = ((slab_g - full_g).abs().amax(dim=(0, 1)) / scale).tolist()
+    check(max(grad_rows) <= GRAD_ROW_REL, f"slab gradients off the full canvas's: {grad_rows}")
+    out.update({"slab_sum_excess": sums, "rows": rows, "grad_rows": grad_rows})
+    print("SLABS " + json.dumps({k: out[k] for k in ("slab_sum_excess", "rows", "grad_rows")}),
+          flush=True)
+    return out
+
+
+def shard_worker(argv) -> int:
+    """One rank of a gloo world of ranks sharing the one card:
+    `python3 chip_smoke.py --shard-worker WORLD RANK STORE OUT_DIR`. Joins
+    the world through a FileStore, loads the kernels the parent built, runs
+    the sharded paths and their unsharded references and writes what it
+    found to OUT_DIR/rank<RANK>.json for the parent to check."""
+    world, rank, store, out_dir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    import torch
+
+    sys.path.insert(0, HERE)
+    from ggs_tpu_torch import run_ga, run_grad
+    from ggs_tpu_torch.config import GAConfig, GenomeConfig
+    from ggs_tpu_torch.models import ga
+    from ggs_tpu_torch.models import gradient
+    from ggs_tpu_torch.ops import objective, render_cuda as rc
+    from ggs_tpu_torch.parallel import comm, island, mesh as mesh_mod
+    from ggs_tpu_torch.utils import checkpoint
+
+    rc.build()  # loads the libraries the parent built
+    init = dict(init_method="file://" + store, world_size=world, rank=rank)
+    grids = {"1x2": (1, 2), "2x1": (2, 1)} if world == 2 else {"2x2": (2, 2), "1x4": (1, 4)}
+    meshes = {k: mesh_mod.make_mesh(p, t, device="cuda", **init)
+              for k, (p, t) in grids.items()}
+    counted = kernel_counters()
+    res = {"rank": rank, "world": world, "backend": meshes[next(iter(meshes))].backend,
+           "device": str(meshes[next(iter(meshes))].device), "eval": {}, "ga": {}, "paths": {}}
+    tgt, wm, pop = shard_inputs(512, 32, 512, 70)
+
+    # evaluate over each mesh against the unsharded evaluate on this rank
+    cases = [("mse", p) for p in ("exact-tight", "highest", "fast", "bf16")] + [
+        ("ssim", "exact-tight"), ("mix", "exact-tight"), ("mix", "fast")]
+    for tag, m in meshes.items():
+        for metric, prec in cases:
+            obj = objective.Objective(H=512, W=512, metric=metric, precision=prec)
+            want = objective.evaluate(obj, pop, tgt, wm)
+            got = objective.evaluate(obj._replace(mesh=m), pop, tgt, wm)
+            atol = SHARD_FAST_ATOL if prec == "fast" else SHARD_ATOL
+            res["eval"][f"{tag} {metric} {prec}"] = {
+                "excess": allclose_excess(got, want, SHARD_RTOL, atol), "atol": atol,
+                "max_rel": rel_err(got, want), "hash": tensor_hash(got)}
+    # the 2048x2048 GA's evaluation (N=10,000, P=32): tile 2 (K5), tile 4 (dense)
+    tile_mesh = meshes["1x2"] if world == 2 else meshes["1x4"]
+    tgt_b, wm_b, pop_b = shard_inputs(GA_SIDE, GA_P, BIG_N, 30)
+    for prec in ("exact-tight", "fast"):
+        obj = objective.Objective(H=GA_SIDE, W=GA_SIDE, precision=prec)
+        want = objective.evaluate(obj, pop_b, tgt_b, wm_b)
+        reset_kernel_counts(counted)
+        got = objective.evaluate(obj._replace(mesh=tile_mesh), pop_b, tgt_b, wm_b)
+        torch.cuda.synchronize()
+        atol = SHARD_FAST_ATOL if prec == "fast" else SHARD_ATOL
+        res["eval"][f"ga2048 tile{tile_mesh.tile_shards} {prec}"] = {
+            "excess": allclose_excess(got, want, SHARD_RTOL, atol), "atol": atol,
+            "max_rel": rel_err(got, want), "hash": tensor_hash(got),
+            "launches": read_kernel_counts(counted)}
+    del tgt_b, wm_b, pop_b
+    torch.cuda.empty_cache()
+
+    # GA blocks: the state's hash after each (the parent compares ranks)
+    obj = objective.Objective(H=512, W=512, precision="exact-tight")
+    for tag, m in meshes.items():
+        hashes, best = ga_hashed_blocks(obj._replace(mesh=m), tgt, wm)
+        res["ga"][tag] = {"hashes": hashes, "best": best}
+    gm = meshes["1x2"] if world == 2 else meshes["2x2"]
+    res["rate"] = ga_rate(obj._replace(mesh=gm), tgt, wm, comm.BYTES)
+    if world == 2:
+        res["rate_pop"] = ga_rate(obj._replace(mesh=meshes["2x1"]), tgt, wm, comm.BYTES)
+        # the tile-sharded Adam at run_grad's defaults against the unsharded
+        gnm = GenomeConfig(n_splats=2000)
+        g1 = adam_genome()
+        res["adam"] = {}
+        for metric in ("mse", "mix"):
+            o = objective.Objective(H=512, W=512, metric=metric, precision="exact-tight")
+            (l0, _), g0 = gradient.make_value_and_grad(o, gnm)(g1, tgt, wm)
+            (l1, _), gs = gradient.make_value_and_grad(o._replace(mesh=gm), gnm)(g1, tgt, wm)
+            res["adam"][metric] = {
+                "loss_rel": abs(float(l1) - float(l0)) / abs(float(l0)),
+                "grad_excess": allclose_excess(gs, g0, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL[metric]),
+                "grad_max_abs": float((gs - g0).abs().max()), "hash": tensor_hash(gs)}
+        o = objective.Objective(H=512, W=512, precision="exact-tight")
+        res["adam_steps_per_s"] = adam_rate(o._replace(mesh=gm), tgt, wm, g1)
+    else:
+        # the island GA with migration over the pop shards, and the resume
+        cfg, gnm = GAConfig(**SHARD_GA_CFG), GenomeConfig(n_splats=512)
+        objm = obj._replace(mesh=gm)
+        run = island.make_run_block(objm, cfg, gnm, 4, 5, 2, mesh=gm)
+        st = ga.init(torch.Generator(device="cuda").manual_seed(43), objm, tgt, wm, cfg, gnm)
+        st, mt = run(st, tgt, wm, 20)
+        res["islands"] = {"hash": ga_state_hash(st), "best": mt[:, 0].tolist()}
+        path = os.path.join(out_dir, "ga_ckpt.npz")
+
+        def fresh():
+            return ga.init(torch.Generator(device="cuda").manual_seed(44), objm, tgt, wm, cfg,
+                           gnm)
+
+        full, _ = ga.run_block(fresh(), objm, tgt, wm, cfg, gnm, 20)
+        half, _ = ga.run_block(fresh(), objm, tgt, wm, cfg, gnm, 10)
+        checkpoint.save_checkpoint_distributed(path, half, {"gen": 10}, mesh=gm)
+        loaded, meta = checkpoint.load_checkpoint(path, fresh())
+        resumed, _ = ga.run_block(loaded, objm, tgt, wm, cfg, gnm, 10)
+        res["resume"] = {"same_bits": ga_state_hash(resumed) == ga_state_hash(full),
+                         "gen": meta["gen"], "hash": ga_state_hash(resumed)}
+
+    # the sharded main paths through the runners, counts read on every rank
+    def drive(tag, runner, argv):
+        reset_kernel_counts(counted)
+        t0 = time.perf_counter()
+        out = runner.main(["--image", "synthetic", *argv, "--output-dir",
+                           os.path.join(out_dir, tag), "--device", "cuda"])
+        torch.cuda.synchronize()
+        entry = {"launches": read_kernel_counts(counted), "seconds": time.perf_counter() - t0}
+        if "curves" in out:
+            best = out["curves"]["best"]
+            entry.update(best_first=best[0], best_last=best[-1], n=len(best) - 1,
+                         best_fit=out["best_fit"])
+        else:
+            entry.update(loss_first=out["curve"][0], loss_last=out["curve"][-1],
+                         n=len(out["curve"]), best_loss=out["best_loss"])
+        res["paths"][tag] = entry
+
+    if world == 2:
+        g = str(SHARD_PATH_GENS // 2)
+        drive("run_ga_ssim_1x2", run_ga, ["--tile-shards", "2", "--metric", "ssim",
+                                          "--generations", g, "--log-every", g, "--no-video"])
+        drive("run_grad_1x2", run_grad, ["--tile-shards", "2", "--steps", str(SHARD_GRAD_STEPS),
+                                         "--log-every", str(SHARD_GRAD_STEPS)])
+        drive("run_grad_mix_1x2", run_grad, ["--tile-shards", "2", "--metric", "mix", "--steps",
+                                             str(SHARD_GRAD_STEPS // 2), "--log-every", "5"])
+    else:
+        for tag, gens, argv in (("run_ga_2x2", SHARD_PATH_GENS, []),
+                                ("run_ga_fast_2x2", SHARD_PATH_GENS // 2, ["--precision", "fast"]),
+                                ("run_ga_bf16_2x2", SHARD_PATH_GENS // 2, ["--precision", "bf16"])):
+            drive(tag, run_ga, ["--pop-shards", "2", "--tile-shards", "2", "--generations",
+                                str(gens), "--log-every", str(gens // 2), "--no-video", *argv])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    torch.distributed.destroy_process_group()  # gloo's threads torn down before exit
+    return 0
+
+
+def run_world(n: int, out_dir: str) -> list:
+    """Spawns n shard_worker ranks (gloo, all on cuda:0) and waits for them
+    (killed at SHARD_TIMEOUT) -> each rank's results."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    store = os.path.join(out_dir, "store")
+    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-worker",
+                               str(n), str(r), store, out_dir], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SHARD_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-6000:], flush=True)
+        check(p.returncode == 0, f"rank {r} of the {n}-rank world exited {p.returncode}")
+    out = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def shard_checks_and_times(card) -> dict:
+    """The sharding slice across processes, on the one card: worlds of 2
+    and 4 gloo ranks (shard_worker), the checks on what they found, and
+    `torchrun ... run_ga --pop-shards 2 --tile-shards 2` at run_ga's
+    defaults. Single-process references are run here first, alone on the
+    card."""
+    import torch
+
+    from ggs_tpu_torch.ops import objective
+
+    phase("sharding slice: single-process references")
+    tgt, wm, pop = shard_inputs(512, 32, 512, 70)
+    obj = objective.Objective(H=512, W=512, precision="exact-tight")
+    single_hashes, single_best = ga_hashed_blocks(obj, tgt, wm)
+    single_rate = ga_rate(obj, tgt, wm)
+    single_adam = adam_rate(obj, tgt, wm, adam_genome())
+    del tgt, wm, pop
+    torch.cuda.empty_cache()
+
+    worlds = {}
+    for n in (2, 4):
+        phase(f"sharding slice: a world of {n} gloo ranks on cuda:0")
+        worlds[n] = run_world(n, os.path.join(HERE, "output", f"shard_world{n}"))
+    checks = {}
+    for n, ranks in worlds.items():
+        r0 = ranks[0]
+        check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks),
+              f"world {n}: {[(r['backend'], r['device']) for r in ranks]}")
+        for key, e in r0["eval"].items():
+            same = all(r["eval"][key]["hash"] == e["hash"] for r in ranks)
+            print(f"CHECK sharded evaluate {key} (world {n}): max rel {e['max_rel']:.3e}, excess "
+                  f"over rtol {SHARD_RTOL} atol {e['atol']} {e['excess']:.3e} (<= 0), the same "
+                  f"bits on every rank {same}", flush=True)
+            check(e["excess"] <= 0 and same, f"sharded evaluate {key} (world {n})")
+            checks[f"eval {key}"] = e["max_rel"]
+        for tag, g in r0["ga"].items():
+            same = all(r["ga"][tag]["hashes"] == g["hashes"] for r in ranks)
+            check(same, f"GA blocks over {tag}: the ranks' states differ")
+            checks[f"ga {tag} ranks equal"] = same
+            if tag == "2x1":
+                bits = g["hashes"] == single_hashes
+                gap = max(abs(a - b) / abs(b) for a, b in zip(g["best"], single_best))
+                checks["ga 2x1 equals single process in bits"] = bits
+                checks["ga 2x1 best max rel gap"] = gap
+                check(bits or gap <= SHARD_RTOL, f"pop-only GA off the single process: {gap}")
+            else:  # reported: a rounding apart in a fit can change a selection
+                checks[f"ga {tag} best max rel gap to single"] = max(
+                    abs(a - b) / abs(b) for a, b in zip(g["best"], single_best))
+        for tag, p in r0["paths"].items():
+            c = p["launches"]
+            first, last = (p["best_first"], p["best_last"]) if "best_first" in p else (
+                p["loss_first"], p["loss_last"])
+            print(f"MAIN PATH {tag} (rank 0 of {n}) " + json.dumps(p), flush=True)
+            check(last < first, f"{tag}: did not fall ({first} -> {last})")
+            check(all(r["paths"][tag]["launches"] == c for r in ranks),
+                  f"{tag}: the ranks launched different kernels")
+            gens = p["n"]
+            if tag.startswith("run_grad"):
+                check(c["K6"] == gens and c["K2"] >= gens and c["K7"] == 0,
+                      f"{tag}: K2'/K6 not once a step from the slab: {c}")
+            elif "fast" in tag:
+                check(c["K3"] >= gens and c["K4"] == 0, f"{tag}: K3 not once a generation: {c}")
+            elif "bf16" in tag:
+                check(c["K1-bf16"] >= gens, f"{tag}: K1-bf16 not once a generation: {c}")
+            elif "ssim" in tag:
+                check(c["K2"] >= gens and c["K1"] == 0, f"{tag}: K2 not once a generation: {c}")
+            else:
+                check(c["K1"] >= gens, f"{tag}: K1 not once a generation: {c}")
+    w2, w4 = worlds[2][0], worlds[4][0]
+    for metric, a in w2["adam"].items():
+        print(f"CHECK tile-sharded Adam {metric} (1x2): loss rel {a['loss_rel']:.3e} (<= "
+              f"{SHARD_RTOL}), gradient excess over rtol {SHARD_GRAD_RTOL} atol "
+              f"{SHARD_GRAD_ATOL[metric]} {a['grad_excess']:.3e} (<= 0), max abs "
+              f"{a['grad_max_abs']:.3e}", flush=True)
+        check(a["loss_rel"] <= SHARD_RTOL and a["grad_excess"] <= 0, f"tile-sharded Adam {metric}")
+        check(all(r["adam"][metric]["hash"] == a["hash"] for r in worlds[2]),
+              f"tile-sharded Adam {metric}: the ranks' gradients differ")
+    check(all(r["islands"]["hash"] == w4["islands"]["hash"] for r in worlds[4]),
+          "the 2x2 island GA: the ranks' states differ")
+    check(all(r["resume"]["same_bits"] and r["resume"]["gen"] == 10 for r in worlds[4]),
+          "save_checkpoint_distributed -> resume is not the uninterrupted run in bits")
+    k5 = w2["eval"]["ga2048 tile2 exact-tight"]["launches"]
+    k5_t4 = w4["eval"]["ga2048 tile4 exact-tight"]["launches"]
+    check(k5["K5"] >= 2 and k5_t4["K5"] == 0,
+          f"2048 GA: K5 {k5['K5']} launches at tile 2, {k5_t4['K5']} at tile 4 (dense)")
+
+    phase("sharding slice: torchrun run_ga --pop-shards 2 --tile-shards 2")
+    out_tr = os.path.join(HERE, "output", "shard_torchrun")
+    shutil.rmtree(out_tr, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+         "-m", "ggs_tpu_torch.run_ga", "--image", "synthetic", "--pop-shards", "2",
+         "--tile-shards", "2", "--generations", str(SHARD_TORCHRUN_GENS), "--log-every", "50",
+         "--no-video", "--output-dir", out_tr],
+        env=dict(os.environ, PYTHONPATH=HERE), capture_output=True, text=True,
+        timeout=SHARD_TIMEOUT, cwd=HERE)
+    torchrun_s = time.perf_counter() - t0
+    print(proc.stdout[-3000:], flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], flush=True)
+    check(proc.returncode == 0, f"torchrun run_ga exited {proc.returncode}")
+    written = sorted(os.listdir(out_tr))
+    check(proc.stdout.count("Saved full resolution result") == 1
+          and proc.stdout.count("mesh: pop=2 x tile=2 over 4 ranks, backend gloo") == 1
+          and {"ga_splats.png", "ga_best_genome.npy", "ga_loss.csv"} <= set(written),
+          f"torchrun run_ga: artifacts {written}")
+
+    rates = {"single": single_rate["gens_per_s"], "2x1": w2["rate_pop"]["gens_per_s"],
+             "1x2": w2["rate"]["gens_per_s"], "2x2": w4["rate"]["gens_per_s"]}
+    times = {
+        "card": card, "ga_generations_per_s": rates,
+        "adam_steps_per_s": {"single": single_adam, "1x2": w2["adam_steps_per_s"]},
+        "collective_bytes_per_generation_per_rank": {
+            "2x1": w2["rate_pop"]["collective_bytes_per_gen"],
+            "1x2": w2["rate"]["collective_bytes_per_gen"],
+            "2x2": w4["rate"]["collective_bytes_per_gen"]},
+        "torchrun_run_ga_seconds": torchrun_s, "torchrun_generations": SHARD_TORCHRUN_GENS,
+    }
+    print("SHARD TIMES " + json.dumps(times), flush=True)
+    print("SHARD CHECKS " + json.dumps(checks), flush=True)
+    launches = {tag: p["launches"] for w in (w2, w4) for tag, p in w["paths"].items()}
+    launches["eval_ga2048_tile2"] = k5
+    launches["eval_ga2048_tile4"] = k5_t4
+    return {"times": times, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2261,27 +2846,13 @@ def main() -> int:
     check(scatter_errs["c4k_overflow"]["overflow"], "the coincident splats did not overflow cap_s")
     check(not scatter_errs["c4k_fast"]["overflow"], "canvas-4k's band lists overflowed")
 
-    counted = {"K1": rc.fitness_tiles, "K2": rc.render_tiles, "K3": rc.fitness_tiles_fast,
-               "K3-canvas": rc.render_tiles_fast, "K4": rc.prep_fast,
-               "K1-bf16": rc.fitness_tiles_bf16, "K5": rc.bin_splats_scatter,
-               "K6": rg.bwd_tiles, "K7": rg.lossgrad_tiles}
+    counted = kernel_counters()
 
     def reset_counts():
-        for fn in counted.values():
-            for attr in ("launches", "init_launches", "band_launches", "fallback_launches"):
-                if hasattr(fn, attr):
-                    setattr(fn, attr, 0)
+        reset_kernel_counts(counted)
 
     def read_counts():
-        """Launches per kernel, as "<kernel>-init" those from an init canvas,
-        as "K5-band" K5's band stages and as "K5-fallback" K5's calls that
-        also launched its fallback."""
-        out = {k: fn.launches for k, fn in counted.items()}
-        out.update({f"{k}-init": fn.init_launches for k, fn in counted.items()
-                    if hasattr(fn, "init_launches")})
-        out["K5-band"] = rc.bin_splats_scatter.band_launches
-        out["K5-fallback"] = rc.bin_splats_scatter.fallback_launches
-        return out
+        return read_kernel_counts(counted)
 
     # 4. the main paths, each driven with every launch count set to 0 just
     # before and read just after
@@ -2839,6 +3410,8 @@ def main() -> int:
     pipe_times = pipeline_checks_and_times(tgt, wm, card)
     pipe_times["pipeline_seconds"] = pipe_out["pipeline_seconds"]
     sa_checks_and_times(tgt, wm, card)
+    slab_out = slab_checks()
+    shard_out = shard_checks_and_times(card)
 
     kernels = [
         {
@@ -3014,7 +3587,15 @@ def main() -> int:
             "library_ms": None,
         },
     ]
-    # each kernel's launches on the SA slice's main paths
+    # each kernel's launches on the SA slice's main paths, and against its
+    # plain version from a row slab (K4 and K7 are on no slab path; K7's
+    # error is its check beside K6's on the slab)
+    slab_errs = {
+        "K1": slab_out["K1_K2_exact-tight"]["partials"], "K2": slab_out["K2_top"]["canvas"],
+        "K3": slab_out["K3"]["partials"], "K4": None,
+        "K1-bf16": slab_out["K1-bf16"]["partials"],
+        "K5": max(slab_out["K5_exact"]["max_abs_err"], slab_out["K5_fast"]["max_abs_err"]),
+        "K6": slab_out["K6"]["K6"], "K7": slab_out["K6"]["K7"]}
     for entry in kernels:
         key = entry["name"].split()[0]
         entry["launches_sa_slice"] = {tag: c[key] for tag, c in sa_out["launches"].items()}
@@ -3022,6 +3603,10 @@ def main() -> int:
                                             for tag, c in pipe_out["launches"].items()}
         entry["launches_checkpoint_island_slice"] = {tag: c[key]
                                                      for tag, c in slice_out["launches"].items()}
+        # rank 0's launches on the sharded paths (each rank launches the same)
+        entry["launches_sharding_slice"] = {tag: c[key]
+                                            for tag, c in shard_out["launches"].items()}
+        entry["slab_max_abs_err"] = slab_errs[key]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3032,4 +3617,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--shard-worker":
+        sys.exit(shard_worker(sys.argv[2:]))
     sys.exit(main())

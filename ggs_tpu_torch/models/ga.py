@@ -14,9 +14,12 @@ differentiable renderer every that many generations (`run_memetic_block`).
 `genetic_approx` also runs scale-space annealing (`blur_sigma`, ops/anneal.py),
 the densify+prune recycle (models/grow.py), stall-ended stages for growth,
 warm starts from a population, video frames, the island model
-(parallel/island.py), checkpoints and resume (utils/checkpoint.py) and a
-torch.profiler trace of one block (utils/profiling.py). Not ported yet:
-meshes.
+(parallel/island.py), checkpoints and resume (utils/checkpoint.py), a
+torch.profiler trace of one block (utils/profiling.py) and meshes
+(`mesh`, ga.py:366-389): every rank of a (pop, tile) grid of processes runs
+the whole GA on the whole population with the same seeded generator, and
+only the evaluation is split over the grid (parallel/shard.py); rank 0
+alone prints and writes the frames, curves and checkpoints.
 """
 from __future__ import annotations
 
@@ -295,6 +298,7 @@ def genetic_approx(
     migrate_every: int = 0,
     migrate_k: int = 1,
     profile_dir: str = "",
+    mesh=None,
 ):
     """Host loop: a full GA run with loss curves and frames (algorithm.py:17-195).
 
@@ -326,7 +330,11 @@ def genetic_approx(
     block that crosses a multiple of it; resume_from continues such a run
     from its file, bit for bit (frames from generation 0 are not written
     again). profile_dir writes a torch.profiler trace of the first block
-    after the starting one.
+    after the starting one. mesh (parallel/mesh.Mesh) evaluates over its
+    (pop, tile) grid of processes (shard.sharded_objective): the state stays
+    replicated and identical on every rank, rank 0 alone prints and writes
+    the frames, curves and checkpoints (save_checkpoint_distributed), and
+    the island model migrates over the pop shards (shard.migrate_ring).
     Returns (best_genome [N, 9] np, best_fit float, curves dict), and the
     final population [P, N, 9] np too with return_state."""
     from ..utils import checkpoint as ckpt_mod
@@ -340,7 +348,14 @@ def genetic_approx(
     if n_islands > 1 and (memetic_every > 0 or anneal_sigma0 > 0.0):
         raise ValueError("memetic refinement and scale-space annealing are single-deme only "
                          "(n_islands must be 1)")
-    dev = resolve_device(device)
+    main = mesh is None or mesh.is_main
+    if mesh is not None:
+        from ..parallel import shard
+
+        obj = shard.sharded_objective(obj, mesh)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     mask_cfg = mask_cfg if mask_cfg is not None else MaskConfig()
     target = io_mod.ensure_hw(target_img, H, W, device=dev)
     if weight_mask is None:
@@ -354,7 +369,8 @@ def genetic_approx(
     if n_islands > 1:
         from ..parallel import island
 
-        run_islands = island.make_run_block(obj, ga, gnm, n_islands, migrate_every, migrate_k)
+        run_islands = island.make_run_block(obj, ga, gnm, n_islands, migrate_every, migrate_k,
+                                            mesh=mesh)
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
     state = init(rng, obj, target, weight_mask, ga, gnm, init_pop=init_pop)
@@ -372,7 +388,10 @@ def genetic_approx(
         curves = meta.get("curves", curves)
 
     pad = len(str(ga.generations))
-    if save_video and start_gen == 0:
+    # every rank keeps the same blocks (the frame cadence shrinks them);
+    # rank 0 alone writes the frames
+    write_frames = save_video and main
+    if write_frames and start_gen == 0:
         io_mod.save_frame_png(0, state.best, pad, prefix, video_dir, H, W, obj.k_sigma,
                               impl=obj.impl)
     radius = anneal_mod.default_radius(anneal_sigma0)
@@ -398,7 +417,7 @@ def genetic_approx(
             t_block = time.perf_counter()
             # the first block after the starting one is traced (the first
             # builds the kernels)
-            traced = not profiled and gen > start_gen
+            traced = not profiled and gen > start_gen and main
             profiled = profiled or traced
             with profiling.trace(profile_dir if traced else None), \
                     profiling.named_scope(f"{prefix} block {gen}-{gen + block}"):
@@ -420,7 +439,7 @@ def genetic_approx(
             no_improve_now = int(metrics[-1, 3])
             gen += block
 
-            if save_video and gen // max(1, frame_every) > last_frame_bucket:
+            if write_frames and gen // max(1, frame_every) > last_frame_bucket:
                 last_frame_bucket = gen // max(1, frame_every)
                 io_mod.save_frame_png(gen, state.best, pad, prefix, video_dir, H, W,
                                       obj.k_sigma, impl=obj.impl)
@@ -442,9 +461,10 @@ def genetic_approx(
                     state = state._replace(no_improve=torch.zeros_like(state.no_improve))
                     no_improve_now = 0
             if checkpoint_path and checkpoint_every and gen % checkpoint_every < block:
-                ckpt_mod.save_checkpoint(checkpoint_path, state,
-                                         meta={"gen": gen, "curves": curves})
-            if gen % max(1, log_every) < block or gen >= ga.generations:
+                ckpt_mod.save_checkpoint_distributed(checkpoint_path, state,
+                                                     meta={"gen": gen, "curves": curves},
+                                                     mesh=mesh)
+            if main and (gen % max(1, log_every) < block or gen >= ga.generations):
                 print(
                     f"{prefix} gen {gen}/{ga.generations} best {metrics[-1, 0]:.6f} "
                     f"stale {no_improve_now} sigma {cur_sigma:.3g} {gens_per_s:.1f} gen/s",
@@ -458,11 +478,12 @@ def genetic_approx(
         print("\n[Interrupted] Returning current best individual…", flush=True)
 
     try:
-        curves_mod.save_loss_curve_png(
-            curves, loss_png_path, title=f"{prefix} fitness", xlabel="Generation",
-            ylabel="MSE", log_y=True,
-        )
-        curves_mod.save_curves_csv(curves, loss_csv_path)
+        if main:
+            curves_mod.save_loss_curve_png(
+                curves, loss_png_path, title=f"{prefix} fitness", xlabel="Generation",
+                ylabel="MSE", log_y=True,
+            )
+            curves_mod.save_curves_csv(curves, loss_csv_path)
     except Exception as e:  # a plot must not lose the run's result
         print(f"[warn] Could not save loss curves: {e}")
 

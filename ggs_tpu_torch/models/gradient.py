@@ -20,9 +20,15 @@ up to rounding); the optimizer updates the state's genome tensor in place
 and the projection follows under `torch.no_grad()`. The blur homotopy
 (`blur_sigma`, `anneal_sigma0`; ops/anneal.py) scores the blurred genome on
 the objective's usual path (K7 under "mse") and chains its gradient back to
-the raw genome through the blur by autograd. Not ported yet (raises
-NotImplementedError): the tile-sharded loss. Precision "bf16" is a
-fitness-only tier and is refused here, as runners/run_grad.py refuses it.
+the raw genome through the blur by autograd. Under `obj.mesh` the loss is
+tile-sharded (`_make_sharded_loss_fn`, gradient.py:135-216): each rank
+renders its row slab by render_diff (K2' forward, K6 backward; never the
+fused K7, :247-249), the slab energies are summed over the tile group
+(ops/objective.sharded_energy_rows) and the genome gradient is all-reduced
+over it once after the backward; a batch that divides the pop axis is
+split over it, any other (run_grad's single genome) runs replicated there.
+Precision "bf16" is a fitness-only tier and is refused here, as
+runners/run_grad.py refuses it.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from ..ops import anneal as anneal_mod
 from ..ops import codec, oracle, render_cuda, render_grad
 from ..ops import objective as objective_mod
 from ..ops.objective import Objective
+from ..parallel import comm, shard
 from . import genome as genome_mod
 
 
@@ -74,8 +81,14 @@ def make_loss_fn(obj: Objective, gnm: GenomeConfig):
     energies [B]) in obj's metric. impl "cuda" renders with
     render_grad.render_diff (forward K2, backward K6; eps-culled under
     "fast"); impl "oracle" with the dense renderer and autograd (always
-    exact)."""
+    exact). Under obj.mesh (impl "cuda", shapes that divide it) the
+    tile-sharded loss, whose fits are the whole batch's on every rank;
+    its gradients come from make_value_and_grad."""
     _check_objective(obj)
+    if obj.mesh is not None and obj.impl == "cuda":
+        sharded = _make_sharded_loss_fn(obj)
+        if sharded is not None:
+            return sharded
     bg = tuple(float(c) for c in obj.background)
 
     def loss_fn(g_axes, target, weight_mask):
@@ -96,8 +109,78 @@ def make_loss_fn(obj: Objective, gnm: GenomeConfig):
     return loss_fn
 
 
+def _make_sharded_local(obj: Objective):
+    """-> local(g_axes [B, N, 9], target, weight_mask) -> (this rank's
+    energies, the rows of g they score, split): the rank's pop rows of g
+    when B divides the pop axis (split), else all of them, rendered on its
+    row slab (render_diff with y_origin and out_rows) and scored by
+    sharded_energy_rows, summed over the tile group by comm.psum. None
+    where the canvas does not divide the mesh or a slab is shorter than the
+    SSIM halo (gradient.py:168-171)."""
+    if not objective_mod.sharded_metric_viable(obj):
+        return None
+    mesh = obj.mesh
+    rows = shard.tile_rows(obj.H, mesh)
+    bg = tuple(float(c) for c in obj.background)
+
+    def local(g_axes, target, weight_mask):
+        B = g_axes.shape[0]
+        split = B % mesh.pop_shards == 0
+        sel = shard.pop_rows(B, mesh) if split else slice(0, B)
+        imgs = render_grad.render_diff(
+            codec.genome_to_renderer(g_axes[sel]), obj.H, obj.W, k_sigma=obj.k_sigma,
+            background=bg, bin_capacity=obj.bin_capacity, y_origin=rows.start,
+            out_rows=rows.stop - rows.start, cull_eps=_grad_cull_eps(obj),
+            corner_cull=_grad_corner(obj), box=_grad_box(obj),
+        )
+        fits = objective_mod.sharded_energy_rows(
+            obj, imgs, shard.place_target(target, mesh), shard.place_mask(weight_mask, mesh),
+            rows.start, mesh)
+        return fits, sel, split
+
+    return local
+
+
 def _make_sharded_loss_fn(obj: Objective):
-    raise NotImplementedError("the tile-sharded loss is not ported yet")
+    """The tile-sharded loss over obj.mesh: (g_axes, target, weight_mask) ->
+    (mean energy, energies [B]), the whole batch's on every rank (a split
+    batch's energies gathered over the pop group). None where
+    _make_sharded_local is (the caller then takes the unsharded loss)."""
+    local = _make_sharded_local(obj)
+    if local is None:
+        return None
+
+    def loss_fn(g_axes, target, weight_mask):
+        fits, _, split = local(g_axes, target, weight_mask)
+        if split:
+            fits = comm.pop_gather(fits, obj.mesh)
+        return torch.mean(fits), fits
+
+    return loss_fn
+
+
+def _sharded_value_and_grad(obj: Objective, local):
+    """((loss, fits), grads) of the tile-sharded loss: each rank takes the
+    gradient of its rows' share of the mean, sum(local fits) / B, whose
+    psum passes the cotangent through unchanged; the genome gradient is then
+    all-reduced over the tile group (the other slabs' shares) and, for a
+    split batch, its rows and the fits gathered over the pop group."""
+    mesh = obj.mesh
+
+    def vg(g_axes, target, weight_mask):
+        B = g_axes.shape[0]
+        g = g_axes.detach().to(torch.float32).requires_grad_(True)
+        with torch.enable_grad():
+            fits, sel, split = local(g, target, weight_mask)
+            (grads,) = torch.autograd.grad(torch.sum(fits) / float(B), g)
+        grads = comm.tile_sum(grads[sel] if split else grads, mesh)
+        fits = fits.detach()
+        if split:
+            grads = comm.pop_gather(grads, mesh)
+            fits = comm.pop_gather(fits, mesh)
+        return (torch.mean(fits), fits), grads
+
+    return vg
 
 
 def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
@@ -107,7 +190,14 @@ def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
     step (render_grad.fused_value_and_grad), up to render_cuda.MAX_SPLATS
     splats; above that, for metrics "ssim" and "mix" (K7's loss head is the
     weighted-SSE family only) and for impl "oracle", autograd through
-    make_loss_fn (K2 and K6 once per chained pass; gradient.py:242-257)."""
+    make_loss_fn (K2 and K6 once per chained pass; gradient.py:242-257).
+    Under obj.mesh (impl "cuda") the tile-sharded loss and its gradient
+    (K2' and K6 on each rank's slab, never K7)."""
+    _check_objective(obj)
+    if obj.mesh is not None and obj.impl == "cuda":
+        local = _make_sharded_local(obj)
+        if local is not None:
+            return _sharded_value_and_grad(obj, local)
     loss_fn = make_loss_fn(obj, gnm)
 
     def autograd_vg(g_axes, target, weight_mask):

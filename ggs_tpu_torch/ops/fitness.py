@@ -2,7 +2,8 @@
 
 PyTorch counterpart of `ggs_tpu/ops/fitness.py`: the three scoring modes
 of modules/fitness.py:8-31 (plain mean MSE, normalized weighted MSE, and
-boost-only), and `weff_denom`, their single home for the fused walk.
+boost-only), and `weff_denom`, their single home for the fused walk, with
+`sharded_weff_denom`, its row-slab form for the tile-sharded paths.
 """
 from __future__ import annotations
 
@@ -54,3 +55,21 @@ def weff_denom(weight_mask, boost_only, boost_beta, H, W):
         w_eff = 1.0 + boost_beta * torch.clamp(w, 0.0, 1.0)
         return w_eff, (torch.mean(w_eff) + 1e-12) * hw3
     return w, torch.sum(w) + 1e-12
+
+
+def sharded_weff_denom(w_rows, boost_only, boost_beta, H, W, tile_sum):
+    """(w_eff over this slab's rows [Hs, W] or None, the whole canvas's
+    scalar denominator) for the tile-sharded fitness and loss (fitness.py:
+    68-87): the slab's partials sum(w_eff * sum_ch dif^2), summed over the
+    tile group, divided by it give fitness_from_images. `tile_sum` sums a
+    tensor over the tile group (the identity on one process), so the
+    mask-dependent sums are the whole canvas's."""
+    hw3 = torch.tensor(float(H * W * 3), dtype=torch.float32)
+    if w_rows is None:
+        return None, hw3
+    if boost_only:
+        w_eff = 1.0 + boost_beta * torch.clamp(w_rows.to(torch.float32), 0.0, 1.0)
+        mean_w = tile_sum(torch.sum(w_eff)) / float(H * W)
+        return w_eff, (mean_w + 1e-12) * hw3
+    w_eff = w_rows.to(torch.float32)
+    return w_eff, tile_sum(torch.sum(w_eff)) + 1e-12

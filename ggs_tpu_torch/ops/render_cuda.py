@@ -36,6 +36,11 @@ PyTorch/CUDA counterpart of `ggs_tpu/ops/render_pallas.py`:
   package, and may bin a splat differently. "bf16" fitness walks its
   earlier passes in f32 (K2) and its last in K1-bf16 over the reference
   box; "bf16" renders the exact walk.
+* Row slabs, the building blocks of the tile-sharded paths:
+  `fitness_partial` (`fitness_pallas_partial`, :1491) and `render_rows`
+  (`render_rows_pallas`, :1556) preprocess against the whole canvas and
+  shift into the slab (`shift_rows`) before the tier's boxes and culls;
+  the same kernels then walk the slab's lists.
 """
 from __future__ import annotations
 
@@ -1178,16 +1183,37 @@ def _genomes(g9: torch.Tensor) -> torch.Tensor:
     return g9[..., : codec.GENE_DIM].to(torch.float32)
 
 
-def _screen(g9, H, W, k_sigma, precision, cull_eps) -> codec.SplatScreen:
+def _screen(g9, H, W, k_sigma, precision, cull_eps, y_origin: int = 0) -> codec.SplatScreen:
     """Screen-space splats with the tier's boxes: the eps-tight ones under
-    "fast", the tight k-sigma box under "exact-tight", else preprocess'."""
+    "fast", the tight k-sigma box under "exact-tight", else preprocess'.
+    A row slab (y_origin > 0) preprocesses against the whole (H, W) canvas,
+    shifts cy, y0 and y1 up by y_origin and only then takes the tier's boxes
+    (render_pallas.py:1527-1539)."""
     _check_precision(precision)
-    p = codec.preprocess(g9, H, W, k_sigma)
+    p = shift_rows(codec.preprocess(g9, H, W, k_sigma), y_origin)
     if precision == "fast":
         return _tighten_boxes(p, k_sigma, cull_eps)
     if precision == "exact-tight":
         return codec.tighten_boxes_exact(p, k_sigma)
     return p
+
+
+def shift_rows(p: codec.SplatScreen, y_origin: int) -> codec.SplatScreen:
+    """Screen-space splats in the coordinates of the row slab that starts at
+    global row y_origin: cy - y_origin in f32 (exact for an integer origin
+    while cy >= y_origin), y0 and y1 shifted as integers. Splats wholly above
+    or below the slab get boxes outside [0, slab rows) and bin to no tile.
+    Differentiable: d(cy - y0)/d(cy) = 1."""
+    y_origin = int(y_origin)
+    if y_origin == 0:
+        return p
+    return p._replace(cy=p.cy - float(y_origin), y0=p.y0 - y_origin, y1=p.y1 - y_origin)
+
+
+def slab_tile_h(rows: int) -> Optional[int]:
+    """The walks' tile height on a row slab: the first of 64, 32, 16 and 8
+    that divides its rows (objective.py:361, render_pallas.py:1596), or None."""
+    return next((t for t in (64, 32, 16, 8) if rows % t == 0), None)
 
 
 def _split_screen(p: codec.SplatScreen, lo: int, hi: int) -> codec.SplatScreen:
@@ -1332,3 +1358,79 @@ def fitness(
     walk = {"fast": fitness_tiles_fast, "bf16": fitness_tiles_bf16}.get(precision, fitness_tiles)
     partials = walk(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg, init=init)
     return torch.sum(partials, dim=1) / denom  # a 0-d CPU denom is a scalar: no sync
+
+
+def fitness_partial(
+    g9: torch.Tensor,
+    target_slab: torch.Tensor,
+    w_slab: Optional[torch.Tensor],
+    H: int,
+    W: int,
+    y_origin: int,
+    k_sigma: float = 3.0,
+    background: Sequence[float] = (1.0, 1.0, 1.0),
+    bin_capacity: Optional[int] = None,
+    tile_h: int = 64,
+    tile_w: int = 128,
+    precision: str = "highest",
+    cull_eps: Optional[float] = None,
+    corner_cull: bool = False,
+) -> torch.Tensor:
+    """Row-slab partial of the fused fitness (fitness_pallas_partial,
+    render_pallas.py:1491): renderer genomes [B, N, 9] -> [B] sums of
+    w * sum_ch (C - target)^2 over the slab's rows [y_origin, y_origin + Hs),
+    Hs = target_slab.shape[0]; w_slab [Hs, W] (None = ones) holds the
+    effective weights. The splats are preprocessed against the whole (H, W)
+    canvas and shifted into the slab (shift_rows) before the tier's boxes,
+    the corner cull and the table are taken, so the walks (K1, K3, K1-bf16,
+    and K2/K3's canvas for the passes before the last) run the full canvas's
+    arithmetic on the slab's tiles. The binning route follows the slab's
+    tile count (dense below SCATTER_TILES, K5 from it). The fast tier takes
+    no K4 here: its table comes from the shifted screen, as in JAX's partial.
+    Summed over the slabs of a canvas, the partials give fitness() * denom."""
+    _check_precision(precision)
+    g9 = _genomes(g9)
+    Hs = target_slab.shape[0]
+    n_tx, n_ty = _cdiv(W, tile_w), _cdiv(Hs, tile_h)
+    bg = tuple(float(c) for c in background)
+    corner_eps = _corner_eps(precision, corner_cull, cull_eps)
+    p = _screen(g9, H, W, k_sigma, precision, cull_eps, y_origin)
+    init, p_last = _chunked_passes(p, Hs, W, tile_h, tile_w, bg, bin_capacity, True, precision,
+                                   corner_eps)
+    cnt, idx, feats = _pass_lists(p_last, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
+                                  corner_eps)
+    target_p, w_p = pad_planes(target_slab, w_slab, n_ty * tile_h, n_tx * tile_w)
+    walk = {"fast": fitness_tiles_fast, "bf16": fitness_tiles_bf16}.get(precision, fitness_tiles)
+    return torch.sum(walk(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg, init=init),
+                     dim=1)
+
+
+def render_rows(
+    g9: torch.Tensor,
+    H: int,
+    W: int,
+    y_origin: int,
+    out_rows: int,
+    k_sigma: float = 3.0,
+    background: Sequence[float] = (1.0, 1.0, 1.0),
+    bin_capacity: Optional[int] = None,
+    tile_h: int = 8,
+    tile_w: int = 128,
+    precision: str = "highest",
+    cull_eps: Optional[float] = None,
+    corner_cull: bool = False,
+) -> torch.Tensor:
+    """Render out_rows canvas rows from global row y_origin -> [B, out_rows,
+    W, 3] (render_rows_pallas, render_pallas.py:1556): the image-producing
+    sibling of fitness_partial, with the same shift. The tile is the first of
+    64, 32, 16, 8 rows that divides out_rows, else tile_h. Rows past H render
+    as background (no box reaches them)."""
+    squeeze = g9.dim() == 2
+    p = _screen(_genomes(g9), H, W, k_sigma, precision, cull_eps, y_origin)
+    tile_h = slab_tile_h(out_rows) or tile_h
+    out, _ = _chunked_passes(
+        p, out_rows, W, tile_h, tile_w, tuple(float(c) for c in background), bin_capacity, False,
+        precision, _corner_eps(precision, corner_cull, cull_eps),
+    )
+    img = out[:, :, :out_rows, :W].permute(0, 2, 3, 1).contiguous()
+    return img[0] if squeeze else img

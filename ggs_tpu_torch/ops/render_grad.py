@@ -36,8 +36,10 @@ no kernel of their own: with `cull_eps` the boxes are the eps-tight ones
 corner-culled pairs, and the exact walks (K2', K6, K7) run over them,
 giving the exact gradients of the culled render (render_grad.py:687-701,
 791-814); from 256 tiles the cull is band-level
-(render_cuda.scatter_binning). Not ported yet: row slabs (`y_origin`,
-`out_rows`), which raise NotImplementedError.
+(render_cuda.scatter_binning). A row slab (`y_origin`, `out_rows`; the
+tile-sharded loss's building block) preprocesses against the whole canvas,
+shifts into the slab before the culls (render_cuda.shift_rows) and walks
+list tiles that divide its rows (render_grad.py:725-790).
 """
 from __future__ import annotations
 
@@ -366,29 +368,38 @@ class _FusedNum(torch.autograd.Function):
         return tuple(g[:, i] for i in range(NGRAD)) + (None,) * 7
 
 
-def list_tile_h(cap: int) -> int:
+def list_tile_h(cap: int, out_rows: Optional[int] = None) -> int:
     """JAX's gradient list tile height for a list capacity cap: the tallest
     of 64, 32, 16 rows whose backward scratch fits its VMEM budget, else 8
     (render_grad.py:670-678 in fused_value_and_grad, :766-780 in
-    render_pallas_diff on the full canvas, there from the whole cap)."""
+    render_pallas_diff, there from the whole cap); on a row slab of out_rows
+    rows only the heights that divide it (:770-772)."""
     mc = _cdiv(cap, CHUNK)
     for th in (64, 32, 16):
+        if out_rows is not None and (out_rows < th or out_rows % th):
+            continue
         if th * GRAD_TILE_W * 4 * ((mc + 1) * 3 + 3 * CHUNK + CHUNK) <= JAX_VMEM_BUDGET:
             return th
     return 8
 
 
-def _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull, n_total=None):
+def _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull, n_total=None,
+              out_rows=None):
     """The walks' geometry (n_tx, n_ty, tile_h, tile_w, cap, background,
-    corner_eps) of a pass of N splats out of n_total (default N): the
-    corner cull runs at cull_eps, and only with it. Under the corner cull
-    the lists depend on the tile, so its height is JAX's (list_tile_h of
-    the whole cap); otherwise the port's GRAD_TILE_H."""
+    corner_eps) of a pass of N splats out of n_total (default N) over H
+    canvas rows, or a slab of out_rows: the corner cull runs at cull_eps,
+    and only with it. Under the corner cull the lists depend on the tile, so
+    its height is JAX's (list_tile_h of the whole cap); otherwise the port's
+    GRAD_TILE_H, or 8 rows on a slab that 16 does not divide."""
     n_total = N if n_total is None else n_total
     cap, whole = (n if bin_capacity is None else min(bin_capacity, n) for n in (N, n_total))
     corner_eps = float(cull_eps) if (corner_cull and cull_eps is not None) else None
-    tile_h = GRAD_TILE_H if corner_eps is None else list_tile_h(whole)
-    return (_cdiv(W, GRAD_TILE_W), _cdiv(H, tile_h), tile_h, GRAD_TILE_W, cap,
+    rows = H if out_rows is None else out_rows
+    if corner_eps is not None:
+        tile_h = list_tile_h(whole, out_rows)
+    else:
+        tile_h = GRAD_TILE_H if rows % GRAD_TILE_H == 0 or out_rows is None else 8
+    return (_cdiv(W, GRAD_TILE_W), _cdiv(rows, tile_h), tile_h, GRAD_TILE_W, cap,
             tuple(float(c) for c in background), corner_eps)
 
 
@@ -400,12 +411,14 @@ def _bin(p: codec.SplatScreen, geom):
                                   pad_slots=GRAD_SCATTER_PAD)
 
 
-def _screen_params(g9, H, W, k_sigma, box, cull_eps=None):
+def _screen_params(g9, H, W, k_sigma, box, cull_eps=None, y_origin: int = 0):
     """Screen-space parameters with the boxes the walks use: eps-tight when
-    cull_eps is set (it subsumes the tight box), else the box tier's."""
+    cull_eps is set (it subsumes the tight box), else the box tier's; on a
+    row slab, taken after the shift into it (render_grad.py:781-800)."""
     if box not in ("reference", "tight"):
         raise ValueError(f"unknown box {box!r}")
     p = codec.preprocess(g9[..., : codec.GENE_DIM].to(torch.float32), H, W, k_sigma)
+    p = render_cuda.shift_rows(p, y_origin)
     if cull_eps is not None:
         return render_cuda._tighten_boxes(p, k_sigma, cull_eps)
     return codec.tighten_boxes_exact(p, k_sigma) if box == "tight" else p
@@ -430,21 +443,26 @@ def render_diff(
     each binned with cap = min(bin_capacity, its N) (render_grad.py:808-826).
     cull_eps: the fast tier's eps-tight boxes; corner_cull (with cull_eps):
     its corner cull at binning. The gradients are the exact gradients of
-    that culled render; a splat with alpha <= eps gets exactly zero."""
-    if y_origin is not None or out_rows is not None:
-        raise NotImplementedError("row slabs (y_origin, out_rows) are not ported yet")
+    that culled render; a splat with alpha <= eps gets exactly zero.
+    (y_origin, out_rows): only the out_rows canvas rows from global row
+    y_origin -> [B, out_rows, W, 3], the splats shifted into the slab before
+    the culls (d(cy - y_origin)/d(cy) = 1) and walked on list tiles that
+    divide out_rows; summed over a canvas's slabs, the gradients of a loss
+    of the rows are those of the whole canvas."""
     squeeze = g9.dim() == 2
     if squeeze:
         g9 = g9[None]
-    p = _screen_params(g9, H, W, k_sigma, box, cull_eps)
+    y_origin = 0 if y_origin is None else int(y_origin)
+    rows = H if out_rows is None else int(out_rows)
+    p = _screen_params(g9, H, W, k_sigma, box, cull_eps, y_origin)
     bounds = render_cuda._chunk_bounds(g9.shape[1])
     canvas = None
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         pc = render_cuda._split_screen(p, lo, hi) if len(bounds) > 2 else p
         geom = _geometry(H, W, hi - lo, bin_capacity, background, cull_eps, corner_cull,
-                         n_total=g9.shape[1])
+                         n_total=g9.shape[1], out_rows=out_rows)
         canvas = RenderDiff.apply(canvas, *pc, geom)
-    img = canvas[:, :, :H, :W].permute(0, 2, 3, 1)
+    img = canvas[:, :, :rows, :W].permute(0, 2, 3, 1)
     return img[0] if squeeze else img
 
 

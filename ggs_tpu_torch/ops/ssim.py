@@ -17,7 +17,8 @@ exploited the pole. Every operation is an elementwise multiply or add, so
 the card and the CPU round alike. The separable order rounds differently
 from JAX's 2-D conv; tests/test_torch_ssim.py states the gap.
 
-`ssim_sum_rows`, the row-slab partial of the sharded paths, is not ported.
+`ssim_sum_rows` is the row-slab partial of the tile-sharded paths
+(ops/objective.sharded_energy_rows).
 """
 from __future__ import annotations
 
@@ -95,6 +96,33 @@ def _ssim_map(imgs: torch.Tensor, t: torch.Tensor, taps, data_range: float) -> t
     return ((2 * mu_xy + c1) * (2 * sig_xy + c2)) / (
         (mu_xx + mu_yy + c1) * (sig_xx + sig_yy + c2)
     )
+
+
+def ssim_sum_rows(
+    imgs_ext: torch.Tensor,
+    target_ext: torch.Tensor,
+    y0: int,
+    H: int,
+    window_size: int = 11,
+    sigma: float = 1.5,
+    data_range: float = 1.0,
+) -> torch.Tensor:
+    """Row-slab SSIM partial (ssim.py:86-115): the sum of the SSIM map over
+    this slab's valid window rows -> [B]. imgs_ext [B, rows + w - 1, W, 3]
+    and target_ext [rows + w - 1, W, 3] hold the slab's rows and the
+    window_size - 1 halo rows below them (the next slab's first rows). Window
+    row r is valid iff y0 + r <= H - window_size; the rows past that (only
+    the bottom slab has any, whose halo wrapped around) are left out of the
+    sum, so the partials summed over a canvas's slabs divided by
+    (H-w+1)(W-w+1)C give the canvas's mean SSIM (window sums never cross a
+    slab boundary thanks to the halo)."""
+    taps = _gaussian_window(window_size, sigma)
+    rows = imgs_ext.shape[1] - window_size + 1
+    n_valid = max(0, min(rows, H - window_size - int(y0) + 1))
+    # the valid rows' windows read rows [0, n_valid + w - 1) of the slab
+    keep = n_valid + window_size - 1
+    s = _ssim_map(imgs_ext[:, :keep], target_ext[None, :keep], taps, data_range)
+    return torch.sum(s, dim=(1, 2, 3))
 
 
 def dssim(imgs: torch.Tensor, target: torch.Tensor, **kw) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Island-model GA: deme-local evolution with ring migration, on one device.
+"""Island-model GA: deme-local evolution with ring migration.
 
-PyTorch counterpart of `ggs_tpu/parallel/island.py` without its mesh
-branch. The population [P, N, 9] is split into `n_islands` demes of S = P / I
+PyTorch counterpart of `ggs_tpu/parallel/island.py`. The population [P, N, 9] is split into `n_islands` demes of S = P / I
 candidates; selection, crossover and elitism stay within a deme (batched
 over a leading [I, S] island axis with S-bounded indices), and every
 `migrate_every` generations each deme's `migrate_k` best ride a ring to the
-next deme, replacing its `migrate_k` worst (`_migrate_roll`).
+next deme, replacing its `migrate_k` worst (`_migrate_roll`); under a
+mesh the ring runs over the pop shards instead (shard.migrate_ring,
+island.py:126-133), while the evaluation splits over the mesh.
 
 As in models/ga.py, a step takes its random numbers from the state's
 torch.Generator, or from `draws` when given (the tests hand it the JAX
@@ -97,10 +98,11 @@ def step(
     migrate_k: int = 1,
     draws: Optional[Dict] = None,
     blur_sigma: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[GAState, torch.Tensor]:
     """One island-GA generation over the [P, N, 9] population. Returns
     (state, [best, mean, median, no_improve]) as ga.step does; blur_sigma
-    as in ga.step."""
+    as in ga.step; with mesh the migration ring runs over its pop shards."""
     P, N, _ = state.pop.shape
     I = n_islands
     S = P // I
@@ -145,7 +147,12 @@ def step(
     fits = torch.cat([elite_fits, offf_i[:, : S - E]], dim=1).reshape(P)
 
     if migrate_every and I > 1 and gen % migrate_every == 0:
-        pop, fits = _migrate_roll(pop, fits, migrate_k, I)
+        if mesh is not None:
+            from .shard import migrate_ring
+
+            pop, fits = migrate_ring(pop, fits, migrate_k, mesh)
+        else:
+            pop, fits = _migrate_roll(pop, fits, migrate_k, I)
 
     gb = torch.argmin(fits).reshape(1)  # a [1] index: no host sync
     cand, cand_fit = pop[gb][0], fits[gb][0]
@@ -169,9 +176,10 @@ def make_run_block(
     migrate_k: int = 1,
     sig_max: Optional[MutSigma] = None,
     sig_min: Optional[MutSigma] = None,
+    mesh=None,
 ):
     """-> run(state, target, weight_mask, num_gens) -> (state, metrics
-    [num_gens, 4]): island steps without a host sync.
+    [num_gens, 4]): island steps without a host sync (mesh: see step).
     Raises ValueError when the population does not split into demes of an
     even size, or migrate_k does not fit a deme."""
     if ga.pop_size % n_islands:
@@ -191,7 +199,7 @@ def make_run_block(
         rows = []
         for _ in range(num_gens):
             state, m = step(state, obj, target, weight_mask, ga, gnm, sig_max_d, sig_min_d,
-                            n_islands, migrate_every, migrate_k)
+                            n_islands, migrate_every, migrate_k, mesh=mesh)
             rows.append(m)
         return state, torch.stack(rows)
 

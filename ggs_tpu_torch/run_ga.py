@@ -25,7 +25,17 @@ and `--resume PATH` continues from such a file, bit for bit; with
 `--profile-dir DIR` the first block after the start is traced with
 torch.profiler into DIR. All three act on the last stage only, as in
 runners/run_ga.py (a resumed staged run runs its earlier stages again).
-Not ported yet: meshes (`--pop-shards`, `--tile-shards`).
+`--pop-shards P --tile-shards T` evaluates over a (pop, tile) grid of P*T
+processes launched by torchrun (one rank a process; parallel/mesh.py):
+
+    torchrun --standalone --nproc-per-node 4 -m ggs_tpu_torch.run_ga \
+        --pop-shards 2 --tile-shards 2
+
+Every rank runs the GA on the whole population; each scores its pop
+shard's candidates on its row slab of the canvas. Rank 0 alone prints and
+writes the artifacts. Ranks that share one card talk over gloo, ranks with
+a card each over NCCL. Without a process group, or with a world of another
+size, the flags raise.
 """
 from __future__ import annotations
 
@@ -120,6 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="migrants each island sends to the next")
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace of the first block after the start here")
+    p.add_argument("--pop-shards", type=int, default=1,
+                   help="mesh pop axis: ranks that split the population (under torchrun)")
+    p.add_argument("--tile-shards", type=int, default=1,
+                   help="mesh tile axis: ranks that split the canvas rows (under torchrun)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     return p
 
@@ -138,6 +152,14 @@ def main(argv=None) -> dict:
         parser.error("--grow-auto replaces --grow-stages' fixed schedule; "
                      "pass only one of them")
 
+    from .parallel import mesh as mesh_mod
+
+    # a process group made for these flags is destroyed when the run ends
+    with mesh_mod.runner_mesh(args.pop_shards, args.tile_shards, args.device) as mesh:
+        return _run(args, mesh)
+
+
+def _run(args, mesh) -> dict:
     import numpy as np
     import torch
 
@@ -147,14 +169,16 @@ def main(argv=None) -> dict:
     from .ops import codec, mask as mask_mod, objective, render
     from .utils import io as io_mod
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    main = mesh is None or mesh.is_main
+    log = print if main else (lambda *a, **k: None)
     os.makedirs(args.output_dir, exist_ok=True)
     video_dir = os.path.join(args.output_dir, "video_frames")
     save_video = not args.no_video
     target = io_mod.load_image(args.image)
     H_out, W_out = target.shape[0], target.shape[1]
     H, W = codec.choose_work_size(H_out, W_out, max_side=args.work_max_side)
-    print(f"target {H_out}x{W_out} -> work {H}x{W} on {dev}")
+    log(f"target {H_out}x{W_out} -> work {H}x{W} on {dev}")
 
     obj = objective.Objective(
         H=H, W=W, k_sigma=args.k_sigma, boost_only=args.boost_only, impl=args.impl,
@@ -188,7 +212,7 @@ def main(argv=None) -> dict:
             checkpoint_every=args.checkpoint_every if last else 0,
             resume_from=args.resume if last else "", n_islands=args.islands,
             migrate_every=args.migrate_every, migrate_k=args.migrate_k,
-            profile_dir=args.profile_dir if last else "",
+            profile_dir=args.profile_dir if last else "", mesh=mesh,
         )
         stages.append({"n_splats": n_splats, "work": (Hs, Ws),
                        "generations": len(out[2]["best"]) - 1, "best_fit": out[1],
@@ -227,7 +251,7 @@ def main(argv=None) -> dict:
             else:
                 _, stage_fit, _, pop0 = out
                 prev = (Hs, Ws)
-                print(f"stage {i} ({Hs}x{Ws}): best MSE {stage_fit:.6f}")
+                log(f"stage {i} ({Hs}x{Ws}): best MSE {stage_fit:.6f}")
         H, W = Hs, Ws
     elif args.grow_auto:
         # stall-triggered growth: each stage runs until the best has stalled
@@ -253,8 +277,8 @@ def main(argv=None) -> dict:
             used = max(1, len(curves_s["best"]) - 1)  # the curve's gen-0 entry is no run
             gens_left = max(1, gens_left - used)
             n_next = min(2 * n_i, args.n_splats)
-            print(f"grow-auto stage {stage} (N={n_i}): best {stage_fit:.6f} "
-                  f"after {used} gens -> growing to {n_next}")
+            log(f"grow-auto stage {stage} (N={n_i}): best {stage_fit:.6f} "
+                f"after {used} gens -> growing to {n_next}")
             pop0 = grow.grow_population(torch.as_tensor(pop0, device=dev), n_next - n_i, t_work,
                                         obj, weight_mask=wm, rng=grow_rng).cpu().numpy()
             n_i = n_next
@@ -277,7 +301,7 @@ def main(argv=None) -> dict:
                 best, best_fit, _ = out
             else:
                 _, stage_fit, _, pop0 = out
-                print(f"grow stage {i} (N={n_i}): best MSE {stage_fit:.6f}")
+                log(f"grow stage {i} (N={n_i}): best MSE {stage_fit:.6f}")
                 pop0 = grow.grow_population(torch.as_tensor(pop0, device=dev),
                                             sizes[i + 1] - n_i, t_work, obj, weight_mask=wm,
                                             rng=grow_rng).cpu().numpy()
@@ -296,11 +320,11 @@ def main(argv=None) -> dict:
                 wm, device=dev,
             )[0]
         )
-        print(f"Best {label} (exact rescore):", best_fit)
+        log(f"Best {label} (exact rescore):", best_fit)
     else:
-        print(f"Best {label}:", best_fit)
+        log(f"Best {label}:", best_fit)
     if best_fit > 0 and args.metric == "mse":
-        print(f"PSNR: {-10.0 * math.log10(best_fit):.2f} dB")
+        log(f"PSNR: {-10.0 * math.log10(best_fit):.2f} dB")
 
     # full-resolution export (run_ggs.py:64-77): rescale the genome, render once
     best_t = torch.as_tensor(best, device=dev)
@@ -308,10 +332,11 @@ def main(argv=None) -> dict:
     g9 = codec.genome_to_renderer(best_full)
     final = render.render_splats(g9[None], H_out, W_out, k_sigma=args.k_sigma, impl=args.impl)[0]
     out_path = os.path.join(args.output_dir, "ga_splats.png")
-    io_mod.save_image_u8(final, out_path)
-    np.save(os.path.join(args.output_dir, "ga_best_genome.npy"), best)
-    print(f"Saved full resolution result as {out_path}")
-    if save_video:
+    if main:
+        io_mod.save_image_u8(final, out_path)
+        np.save(os.path.join(args.output_dir, "ga_best_genome.npy"), best)
+        print(f"Saved full resolution result as {out_path}")
+    if save_video and main:
         anim = io_mod.assemble_apng(video_dir, "ga", os.path.join(args.output_dir, "ga_anim.apng"),
                                     fps=args.fps)
         if anim:

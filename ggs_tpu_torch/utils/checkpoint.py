@@ -1,7 +1,7 @@
 """Checkpoint / resume: bit-exact restart points for long runs.
 
 PyTorch counterpart of `ggs_tpu/utils/checkpoint.py` (save_checkpoint,
-load_checkpoint; the multi-process save goes with sharding). A state is one
+save_checkpoint_distributed, load_checkpoint). A state is one
 of the port's NamedTuples (GAState, SAState, PTState, GradState); each field
 is a tensor, a python int (`gen`, `it`, `step`), the torch.Generator its
 steps draw from, or GradState's torch.optim.Adam. All of it goes into one
@@ -96,6 +96,24 @@ def save_checkpoint(path: str, state: NamedTuple, meta: Dict[str, Any] | None = 
         "meta": meta or {},
     }
     _write_npz(path, arrays, payload)
+
+
+def save_checkpoint_distributed(path: str, state: NamedTuple, meta: Dict[str, Any] | None = None,
+                                mesh=None) -> None:
+    """The save of a run over a mesh (checkpoint.py:56-88): every rank holds
+    the same replicated state, so rank 0 writes it (save_checkpoint, atomic)
+    and then every rank waits at a barrier, so that no rank goes on (or
+    reads the file) before it is written. Resume loads on every rank with
+    load_checkpoint. Without a mesh (or outside a process group) it is
+    save_checkpoint."""
+    import torch.distributed as dist
+
+    if mesh is None or not dist.is_initialized():
+        save_checkpoint(path, state, meta)
+        return
+    if mesh.is_main:
+        save_checkpoint(path, state, meta)
+    dist.barrier()
 
 
 def _mismatch(what: str, stored, template) -> ValueError:

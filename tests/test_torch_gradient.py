@@ -34,6 +34,7 @@ from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import objective as tobjective
 from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render_grad as trg
+from ggs_tpu_torch.parallel import mesh as tmesh
 from torch_inputs import axes_genomes, image, weights
 from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -177,16 +178,24 @@ def test_loss_fns_agree_and_unported_raise():
         tgradient.make_fit_step(OBJ._replace(precision="bf16"), GNM, GradConfig())
     with pytest.raises(ValueError):
         tgradient.make_fit_step(OBJ._replace(metric="psnr"), GNM, GradConfig())
-    with pytest.raises(NotImplementedError):
-        tgradient._make_sharded_loss_fn(OBJ)
+    # the tile-sharded loss is ported (tests/test_torch_sharding.py); where a
+    # slab is shorter than the SSIM halo it declines (None) and make_loss_fn
+    # takes the unsharded loss, as gradient.py:168-171 does
+    mesh = tmesh.Mesh(1, 4, 0, 0, 0, None, None, torch.device("cpu"), "gloo")
+    short = OBJ._replace(H=24, W=24, metric="ssim", mesh=mesh)
+    assert tgradient._make_sharded_loss_fn(short) is None
 
 
 @pytest.mark.parametrize(
     "extra",
     [["--pop-shards", "2"], ["--pop-shards", "2", "--tile-shards", "2"], ["--tile-shards", "2"]],
 )
-def test_run_grad_unported_flags_raise(extra, tmp_path):
-    with pytest.raises(NotImplementedError):
+def test_run_grad_unported_flags_raise(extra, tmp_path, monkeypatch):
+    # sharding is ported (tests/test_torch_sharding.py); without a process
+    # group the flags raise and name the torchrun launch
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         run_grad.main([
             "--image", "synthetic:24x24", "--work-max-side", "24", "--n-splats", "4",
             "--steps", "1", "--device", "cpu", "--output-dir", str(tmp_path), *extra,

@@ -264,9 +264,12 @@ def test_plain_walks_agree_and_cpu_takes_plain():
 
 def test_unported_options_raise(monkeypatch):
     g9 = tcodec.genome_to_renderer(torch.from_numpy(axes_genomes(6, 1, 8, H, W)))
+    # row slabs are ported (tests/test_torch_slabs.py): the top slab is the
+    # full canvas's first rows, bit for bit (no shift, the same 16-row lists)
+    full = trg.render_diff(g9, H, W).detach()
     for kw in ({"y_origin": 0, "out_rows": 16}, {"out_rows": 16}):
-        with pytest.raises(NotImplementedError):
-            trg.render_diff(g9, H, W, **kw)
+        np.testing.assert_array_equal(trg.render_diff(g9, H, W, **kw).detach().numpy(),
+                                      full[:, :16].numpy())
     # the fast tier's culls are ported (tests/test_torch_fast_grad.py); the
     # corner cull runs only with cull_eps, as in the JAX package
     np.testing.assert_array_equal(
