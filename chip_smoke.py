@@ -178,6 +178,30 @@ run_grad (mse, mix) at 1x2 through the runners, with launch counts; and
 (exit 0, the artifacts written once); a `SHARD TIMES` line (generations/s
 of one process against 2x1, 1x2 and 2x2, Adam steps/s against 1x2, the
 bytes a rank puts into collectives a generation).
+The flagship slice (`flagship_checks_and_times`, last) runs the JAX
+package's multi-host headline (BASELINE.json configs[4]: pop 4096, 10,000
+splats, 1024x1024) through `run_ga --image natural:1024x1024
+--work-max-side 1024 --n-splats 10000 --pop-size 4096 --eval-chunk 1024
+--no-video` for FLAG_GENS generations, exact-tight with one checkpoint and
+`--precision fast --cull-eps 8e-2` (K1 / K3 once a chunk from the first
+pass's canvas, K2 / K3's canvas once a chunk, K2 exactly once more for
+the rescore and once a pass for the export; the best falls); scores the
+saved population again at B=4096 in chunks of 1024 (CUDA events, the peak
+memory) equal in bits to the fits it was saved with, 8 of its candidates
+at B=8 and 1000 in chunks of 512 equal in bits, 2 through the plain walks
+within FITNESS_RTOL; the same in the fast tier at eps 8e-2 (8 candidates
+at B=8 equal in bits to B=4096's, 2 through the plain K3 walks within
+FITNESS_RTOL); sums the 512-row slab partials at B_loc = 1024 against the
+whole (rtol 1e-6, atol 1e-7); resumes the checkpoint for one generation
+equal in bits to the run's; profiles one generation; and runs the
+tile-sharded 10k Adam step in a world of 2 gloo ranks on cuda:0
+(`chip_smoke.py --shard-worker 2 RANK STORE OUT flagship`) against one
+process (rtol 2e-4, atol 1e-6; loss 2e-5; each gene row within
+GRAD_ROW_REL of its largest magnitude), the ranks' states equal by hash;
+a `FLAGSHIP` line (renders/s at B=4096, generations/s in
+both tiers, the peak bytes at chunks 1024 and 512, the sort's ms a pass,
+K1's and K2's ms a chunk, launches a generation, the checkpoint's bytes and
+ms).
 Prints a `GRAD KERNELS` line (K6/K7 times, bounds and launches, blocks a
 SM, Adam steps/s at both gradient configurations, beside the card), one
 `kernels` JSON line, the card line, and last the device line.
@@ -2346,8 +2370,11 @@ def shard_worker(argv) -> int:
     `python3 chip_smoke.py --shard-worker WORLD RANK STORE OUT_DIR`. Joins
     the world through a FileStore, loads the kernels the parent built, runs
     the sharded paths and their unsharded references and writes what it
-    found to OUT_DIR/rank<RANK>.json for the parent to check."""
+    found to OUT_DIR/rank<RANK>.json for the parent to check. With a fifth
+    argument "flagship" the rank runs flagship_worker instead."""
     world, rank, store, out_dir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    if argv[4:] == ["flagship"]:
+        return flagship_worker(world, rank, store, out_dir)
     import torch
 
     sys.path.insert(0, HERE)
@@ -2480,15 +2507,17 @@ def shard_worker(argv) -> int:
     return 0
 
 
-def run_world(n: int, out_dir: str) -> list:
-    """Spawns n shard_worker ranks (gloo, all on cuda:0) and waits for them
-    (killed at SHARD_TIMEOUT) -> each rank's results."""
+def run_world(n: int, out_dir: str, *mode: str) -> list:
+    """Spawns n shard_worker ranks (gloo, all on cuda:0; `mode` "flagship"
+    runs flagship_worker instead) and waits for them (killed at
+    SHARD_TIMEOUT) -> each rank's results."""
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     store = os.path.join(out_dir, "store")
     env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-worker",
-                               str(n), str(r), store, out_dir], env=env, stdout=subprocess.PIPE,
+                               str(n), str(r), store, out_dir, *mode], env=env,
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(n)]
     logs = []
     try:
@@ -2634,6 +2663,372 @@ def shard_checks_and_times(card) -> dict:
     launches = {tag: p["launches"] for w in (w2, w4) for tag, p in w["paths"].items()}
     launches["eval_ga2048_tile2"] = k5
     launches["eval_ga2048_tile4"] = k5_t4
+    return {"times": times, "launches": launches}
+
+
+# ------------------------------------------------------------ the flagship slice
+
+# BASELINE.json configs[4], the JAX package's multi-host headline
+# (tests/test_flagship_aot.py:30): pop 4096, 10,000 splats (two 5,000-splat
+# passes), 1024x1024 (128 tiles of 64x128: the dense binning), scored in
+# chunks of FLAG_CHUNK, the JAX flagship's per-device batch
+# (tests/test_tpu_exactness.py:229). Only depth is cut: FLAG_GENS
+# generations in each tier.
+FLAG_P, FLAG_N, FLAG_SIDE, FLAG_CHUNK, FLAG_SMALL_CHUNK = 4096, 10_000, 1024, 1024, 512
+FLAG_GENS, FLAG_FAST_EPS = 3, 8e-2
+FLAG_SAMPLE = (0, 1, 1023, 1024, 2047, 2048, 3071, 4095)  # scored again at B=8
+FLAG_PLAIN_B = 2  # candidates scored through the plain walks
+FLAG_SMALL_B = 1000  # chunks of 512: the last padded
+FLAG_SLAB_B = 1024  # B_loc of the pop 4 x tile 2 flagship mesh, on 512-row slabs
+FLAG_ADAM_STEPS = 2  # the tile-sharded 10k Adam steps a rank takes
+
+
+def flagship_inputs():
+    """run_ga's target and importance mask at the flagship's canvas, as
+    `run_ga --image natural:1024x1024` builds them."""
+    from ggs_tpu_torch.config import MaskConfig
+    from ggs_tpu_torch.ops import mask
+    from ggs_tpu_torch.utils import io
+
+    S = FLAG_SIDE
+    tgt = io.ensure_hw(io.load_image(f"natural:{S}x{S}"), S, S, device="cuda")
+    return tgt, mask.mask_from_config(tgt, S, S, MaskConfig())
+
+
+@contextlib.contextmanager
+def plain_walks():
+    """K1, K2 and both epilogues of K3 replaced by their plain PyTorch
+    versions (on the card's tensors, from the same lists, tables and init
+    canvases) while the block runs."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    names = ("fitness_tiles", "render_tiles", "fitness_tiles_fast", "render_tiles_fast")
+    saved = {n: getattr(rc, n) for n in names}
+    for mode, sfx in (("exact", ""), ("fast", "_fast")):
+        setattr(rc, "fitness_tiles" + sfx,
+                lambda cnt, idx, feats, tp, wp, n_tx, th, tw, bg, init=None, mode=mode: (
+                    rc.fitness_tiles_plain(cnt, idx, feats, tp, wp, n_tx, th, tw, bg, mode=mode,
+                                           init=init)))
+        setattr(rc, "render_tiles" + sfx,
+                lambda cnt, idx, feats, n_tx, th, tw, bg, init=None, mode=mode: (
+                    rc.render_tiles_plain(cnt, idx, feats, n_tx, th, tw, bg, mode=mode,
+                                          init=init)))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(rc, n, fn)
+
+
+def flagship_worker(world: int, rank: int, store: str, out_dir: str) -> int:
+    """One rank of the tile-sharded 10k Adam step (the counterpart of
+    tests/test_flagship_aot.py:65-86) in a gloo world of `world` ranks on
+    cuda:0: one genome [1, FLAG_N, 9] at the flagship's canvas, its loss and
+    gradient over 1024 / world-row slabs (K5 on the shifted boxes of 256
+    16x128 gradient tiles, then K2' and K6 with d(init)) against the
+    unsharded ones on this rank, then FLAG_ADAM_STEPS Adam steps whose state
+    the parent compares across ranks by hash."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from ggs_tpu_torch.config import GenomeConfig, GradConfig
+    from ggs_tpu_torch.models import genome, gradient
+    from ggs_tpu_torch.ops import objective, render_cuda as rc
+    from ggs_tpu_torch.parallel import mesh as mesh_mod
+
+    rc.build()  # loads the libraries the parent built
+    m = mesh_mod.make_mesh(1, world, device="cuda", init_method="file://" + store,
+                           world_size=world, rank=rank)
+    S = FLAG_SIDE
+    tgt, wm = flagship_inputs()
+    g1 = genome.new_population(torch.Generator(device="cuda").manual_seed(69), 1, FLAG_N, S, S,
+                               device="cuda")
+    gnm = GenomeConfig(n_splats=FLAG_N)
+    obj = objective.Objective(H=S, W=S, precision="exact-tight")
+    (l0, _), g0 = gradient.make_value_and_grad(obj, gnm)(g1, tgt, wm)
+    counted = kernel_counters()
+    reset_kernel_counts(counted)
+    (l1, _), gs = gradient.make_value_and_grad(obj._replace(mesh=m), gnm)(g1, tgt, wm)
+    torch.cuda.synchronize()
+    launches = read_kernel_counts(counted)
+    make_opt, step = gradient.make_fit_step(obj._replace(mesh=m), gnm, GradConfig())
+    st, fits = gradient.run_block(gradient.init_state(make_opt, g1), step, tgt, wm,
+                                  FLAG_ADAM_STEPS)
+    moments = st.opt.state[st.g]
+    # each of the 9 gene rows against its largest unsharded magnitude
+    scale = g0.abs().amax(dim=(0, 1))
+    res = {"rank": rank, "backend": m.backend, "device": str(m.device), "launches": launches,
+           "loss_rel": abs(float(l1) - float(l0)) / abs(float(l0)),
+           "grad_excess": allclose_excess(gs, g0, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL["mse"]),
+           "grad_max_abs": float((gs - g0).abs().max()), "grad_scale": float(scale.max()),
+           "grad_rows": ((gs - g0).abs().amax(dim=(0, 1)) / scale.clamp_min(1e-30)).tolist(),
+           "grad_hash": tensor_hash(gs),
+           "state_hash": tensor_hash(st.g, *(moments[k] for k in sorted(moments))),
+           "fits": fits[:, 0].tolist()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def flagship_checks_and_times(card) -> dict:
+    """The flagship population on the one card: `run_ga --image
+    natural:1024x1024 --work-max-side 1024 --n-splats 10000 --pop-size 4096
+    --eval-chunk 1024 --no-video` for FLAG_GENS generations, exact-tight
+    (with `--checkpoint-every`, saving once) and `--precision fast
+    --cull-eps 8e-2` (the chained K3 route: N > MAX_SPLATS keeps K4 off),
+    each generation host-timed and the best falling; the saved population
+    scored again at B=4096 in chunks of 1024 (CUDA events, the peak memory)
+    equal in bits to the fits it was saved with, 8 of its candidates at B=8
+    and 1000 in chunks of 512 (the last padded; that peak) equal in bits, 2
+    through the plain walks within FITNESS_RTOL, and the fast tier's chunked
+    evaluate timed (K3 once a chunk; its peak), 8 of its candidates at B=8
+    equal in bits and 2 through the plain K3 walks within FITNESS_RTOL (no
+    walk kernel launched there); the 512-row slab partials of
+    its first 1024 (B_loc of the pop 4 x tile 2 mesh) summed against the
+    whole (rtol 1e-6, atol 1e-7); the resume: the checkpoint loaded and one
+    generation run, equal in bits to the run's own last generation; one
+    generation under torch.profiler (the sort, K1, K2 and the rest); and
+    the tile-sharded 10k Adam step in a world of 2 gloo ranks
+    (flagship_worker) against one process (each gene row within
+    GRAD_ROW_REL), the ranks' states equal by hash. Prints a `FLAGSHIP`
+    line."""
+    import statistics
+
+    import torch
+
+    from ggs_tpu_torch import run_ga
+    from ggs_tpu_torch.config import GAConfig, GenomeConfig
+    from ggs_tpu_torch.models import ga
+    from ggs_tpu_torch.ops import codec, fitness, objective, render_cuda as rc
+    from ggs_tpu_torch.utils import checkpoint
+
+    S, n_chunks = FLAG_SIDE, FLAG_P // FLAG_CHUNK
+    n_passes = -(-FLAG_N // rc.MAX_SPLATS)  # the chained passes of each render
+    out_dir = os.path.join(HERE, "output", "flagship")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    counted = kernel_counters()
+    argv = ["--image", f"natural:{S}x{S}", "--work-max-side", str(S), "--n-splats", str(FLAG_N),
+            "--pop-size", str(FLAG_P), "--eval-chunk", str(FLAG_CHUNK), "--no-video",
+            "--generations", str(FLAG_GENS), "--log-every", "1", "--device", "cuda"]
+    tiers = {"exact-tight": ["--checkpoint-every", str(FLAG_GENS - 1)],
+             "fast": ["--precision", "fast", "--cull-eps", str(FLAG_FAST_EPS)]}
+    runs, launches = {}, {}
+    for tier, extra in tiers.items():
+        phase(f"flagship: run_ga --pop-size {FLAG_P} --n-splats {FLAG_N} {S}x{S} "
+              f"--eval-chunk {FLAG_CHUNK} {' '.join(extra)}")
+        gen_s, saves, last = [], [], {}
+        plain_block, plain_save = ga.run_block, checkpoint.save_checkpoint
+
+        def timed_block(*a, **kw):
+            t0 = time.perf_counter()
+            st, m = plain_block(*a, **kw)
+            torch.cuda.synchronize()
+            gen_s.append(time.perf_counter() - t0)
+            last["state"] = st
+            return st, m
+
+        def timed_save(path, *a, **kw):
+            t0 = time.perf_counter()
+            plain_save(path, *a, **kw)
+            saves.append({"ms": 1e3 * (time.perf_counter() - t0), "bytes": os.path.getsize(path),
+                          "path": path})
+
+        ga.run_block, checkpoint.save_checkpoint = timed_block, timed_save
+        try:
+            reset_kernel_counts(counted)
+            t0 = time.perf_counter()
+            res = run_ga.main(argv + extra + ["--output-dir", os.path.join(out_dir, tier)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ga.run_block, checkpoint.save_checkpoint = plain_block, plain_save
+        c = launches[f"run_ga_{tier}"] = read_kernel_counts(counted)
+        best = res["curves"]["best"]
+        runs[tier] = {"seconds": wall, "generation_seconds": gen_s,
+                      "gens_per_s": 1.0 / statistics.median(gen_s), "best_first": best[0],
+                      "best_last": best[-1], "exact_rescore": res["best_fit"], "saves": saves,
+                      "state": last["state"]}
+        print(f"MAIN PATH flagship {tier} " + json.dumps(
+            {k: v for k, v in runs[tier].items() if k != "state"} | {"launches": c}), flush=True)
+        final = res["final"]
+        check(len(best) == FLAG_GENS + 1 and len(gen_s) == FLAG_GENS, f"flagship {tier}: curve")
+        check(all(math.isfinite(b) for b in best) and best[-1] < best[0],
+              f"flagship {tier}: the best did not fall ({best[0]} -> {best[-1]})")
+        check(math.isfinite(res["best_fit"]) and res["best_fit"] > 0,
+              f"flagship {tier}: rescored fitness")
+        check(tuple(final.shape) == (S, S, 3) and bool(torch.isfinite(final).all())
+              and float(final.min()) >= 0.0 and float(final.max()) <= 1.0,
+              f"flagship {tier}: export render")
+        evals = (FLAG_GENS + 1) * n_chunks  # the init and each generation, in chunks
+        # after the run, both tiers: the exact-tight rescore of the best
+        # (K2 then K1) and the export render (K2 for each pass, the last from
+        # an init canvas)
+        tail_k2 = 1 + n_passes
+        if tier == "fast":
+            check(c["K3"] == c["K3-init"] == evals and c["K3-canvas"] == evals and c["K4"] == 0
+                  and c["K1"] == c["K1-init"] == 1 and c["K2"] == tail_k2
+                  and c["K2-init"] == n_passes - 1 and c["K5"] == 0,
+                  f"flagship fast: K3 not once a chunk from K3's canvas: {c}")
+        else:
+            check(c["K1"] == c["K1-init"] == evals + 1 and c["K2"] == evals + tail_k2
+                  and c["K2-init"] == n_passes - 1 and c["K5"] == 0,
+                  f"flagship exact-tight: K1 not once a chunk from K2's canvas: {c}")
+            check(len(saves) == 1, f"flagship: {len(saves)} checkpoints saved, not one")
+    ref_state = runs["exact-tight"].pop("state")
+    del runs["fast"]["state"], res, final
+    torch.cuda.empty_cache()
+
+    phase("flagship: the saved population scored again; the slabs; the resume")
+    tgt, wm = flagship_inputs()
+    obj = objective.Objective(H=S, W=S, chunk=FLAG_CHUNK, precision="exact-tight")
+    cfg, gnm = GAConfig(pop_size=FLAG_P, generations=FLAG_GENS), GenomeConfig(n_splats=FLAG_N)
+    save = runs["exact-tight"]["saves"][0]
+    template = ga.GAState(
+        pop=torch.empty_like(ref_state.pop), fits=torch.empty_like(ref_state.fits),
+        best=torch.empty_like(ref_state.best), best_fit=torch.empty_like(ref_state.best_fit),
+        no_improve=torch.empty_like(ref_state.no_improve), rng=torch.Generator(device="cuda"),
+        gen=0)
+    t0 = time.perf_counter()
+    loaded, meta = checkpoint.load_checkpoint(save["path"], template)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    check(loaded.gen == meta["gen"] == FLAG_GENS - 1, f"the checkpoint holds generation {meta}")
+    pop = loaded.pop
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), torch.cuda.max_memory_allocated(), base
+
+    reset_kernel_counts(counted)
+    fits, eval_ms, peak_1024, base_1024 = peak_of(lambda: objective.evaluate(obj, pop, tgt, wm))
+    c = read_kernel_counts(counted)
+    check(c["K1"] == c["K1-init"] == n_chunks and c["K2"] == n_chunks,
+          f"the chunked evaluate: K1 and K2 not once a chunk: {c}")
+    same_saved = torch.equal(fits, loaded.fits)
+    idx = torch.tensor(FLAG_SAMPLE, device="cuda")
+    same_b8 = torch.equal(objective.evaluate(obj, pop[idx], tgt, wm), fits[idx])
+    small, _, peak_512, base_512 = peak_of(lambda: objective.evaluate(
+        obj._replace(chunk=FLAG_SMALL_CHUNK), pop[:FLAG_SMALL_B], tgt, wm))
+    same_512 = torch.equal(small, fits[:FLAG_SMALL_B])
+    fast_obj = obj._replace(precision="fast", cull_eps=FLAG_FAST_EPS)
+    reset_kernel_counts(counted)
+    fits_fast, fast_ms, peak_fast, base_fast = peak_of(lambda: objective.evaluate(
+        fast_obj, pop, tgt, wm))
+    c = read_kernel_counts(counted)
+    check(c["K3"] == c["K3-init"] == c["K3-canvas"] == n_chunks and c["K4"] == 0
+          and tuple(fits_fast.shape) == (FLAG_P,) and bool(torch.isfinite(fits_fast).all()),
+          f"the chunked fast evaluate: K3 not once a chunk from K3's canvas: {c}")
+    same_b8_fast = torch.equal(objective.evaluate(fast_obj, pop[idx], tgt, wm), fits_fast[idx])
+    reset_kernel_counts(counted)
+    with plain_walks():
+        plain_rel = rel_err(objective.evaluate(obj, pop[:FLAG_PLAIN_B], tgt, wm),
+                            fits[:FLAG_PLAIN_B])
+        plain_fast_rel = rel_err(objective.evaluate(fast_obj, pop[:FLAG_PLAIN_B], tgt, wm),
+                                 fits_fast[:FLAG_PLAIN_B])
+    c = read_kernel_counts(counted)
+    print(f"CHECK flagship evaluate B={FLAG_P} chunk {FLAG_CHUNK}: the saved fits in bits "
+          f"{same_saved}; {len(FLAG_SAMPLE)} candidates at B=8 in bits {same_b8}, fast "
+          f"{same_b8_fast}; {FLAG_SMALL_B} in chunks of {FLAG_SMALL_CHUNK} in bits {same_512}; "
+          f"{FLAG_PLAIN_B} through the plain walks max rel {plain_rel:.3e}, fast eps "
+          f"{FLAG_FAST_EPS} {plain_fast_rel:.3e} (each <= {FITNESS_RTOL})", flush=True)
+    check(same_saved and same_b8 and same_512 and same_b8_fast,
+          "flagship fits depend on the batch they are in")
+    check(plain_rel <= FITNESS_RTOL, f"flagship fits off the plain walks by {plain_rel}")
+    check(plain_fast_rel <= FITNESS_RTOL,
+          f"flagship fast fits off the plain walks by {plain_fast_rel}")
+    check(not any(c[k] for k in ("K1", "K2", "K3", "K3-canvas")),
+          f"a walk kernel launched under plain_walks: {c}")
+
+    # one rank's share of the pop 4 x tile 2 mesh: B_loc = 1024 on 512-row slabs
+    g9 = codec.genome_to_renderer(pop[:FLAG_SLAB_B])
+    w_eff, denom = fitness.weff_denom(wm, False, 1.0, S, S)
+    hs = S // 2
+    reset_kernel_counts(counted)
+    parts = sum(rc.fitness_partial(g9, tgt[y:y + hs], w_eff[y:y + hs], S, S, y,
+                                   precision="exact-tight") for y in (0, hs))
+    launches["slabs_B1024"] = read_kernel_counts(counted)
+    slab_excess = allclose_excess(parts, fits[:FLAG_SLAB_B] * denom, SLAB_SUM_RTOL,
+                                  SLAB_SUM_ATOL)
+    print(f"CHECK flagship slabs B={FLAG_SLAB_B}, rows 0-{hs - 1} and {hs}-{S - 1}: excess over "
+          f"rtol {SLAB_SUM_RTOL} atol {SLAB_SUM_ATOL} {slab_excess:.3e} (<= 0), max rel "
+          f"{rel_err(parts, fits[:FLAG_SLAB_B] * denom):.3e}; launches "
+          f"{launches['slabs_B1024']}", flush=True)
+    check(slab_excess <= 0, "the flagship's slab partials are off the whole fitness")
+    check(launches["slabs_B1024"]["K1-init"] == 2 and launches["slabs_B1024"]["K5"] == 0,
+          f"flagship slabs: {launches['slabs_B1024']}")
+    del g9, parts
+
+    reset_kernel_counts(counted)
+    resumed, _ = ga.run_block(loaded, obj, tgt, wm, cfg, gnm, 1)
+    launches["resumed_generation"] = read_kernel_counts(counted)
+    same_resume = _same_state(resumed, ref_state)
+    print(f"CHECK flagship resume: generation {FLAG_GENS - 1} saved ({save['bytes']} bytes, "
+          f"{save['ms']:.1f} ms), loaded ({load_ms:.1f} ms), one generation run: equal in bits "
+          f"to the run's own {same_resume}", flush=True)
+    check(same_resume, "the flagship's resumed generation differs from the run's")
+    del loaded, pop, ref_state, small, fits_fast
+
+    phase("flagship: one generation under torch.profiler")
+    prof = profile_split(lambda: ga.run_block(resumed, obj, tgt, wm, cfg, gnm, 1)[1].cpu(), 1)
+    print("PROFILE flagship generation " + json.dumps(prof), flush=True)
+    k2_ms = sum(e["ms"] for e in prof["top"] if "render_kernel" in e["name"])
+    del resumed, fits
+    torch.cuda.empty_cache()
+
+    phase("flagship: the tile-sharded 10k Adam step, a world of 2 gloo ranks on cuda:0")
+    ranks = run_world(2, os.path.join(HERE, "output", "flagship_world2"), "flagship")
+    r0 = ranks[0]
+    launches["adam_tile2_rank0"] = r0["launches"]
+    same = all(r["state_hash"] == r0["state_hash"] and r["grad_hash"] == r0["grad_hash"]
+               for r in ranks)
+    print(f"CHECK flagship tile-sharded Adam (1x2, N={FLAG_N}, {S}x{S}): loss rel "
+          f"{r0['loss_rel']:.3e} (<= {SHARD_RTOL}), gradient excess over rtol {SHARD_GRAD_RTOL} "
+          f"atol {SHARD_GRAD_ATOL['mse']} {r0['grad_excess']:.3e} (<= 0), max abs "
+          f"{r0['grad_max_abs']:.3e} of max |g| {r0['grad_scale']:.3e}, per gene row of its "
+          f"largest {max(r0['grad_rows']):.3e} (<= {GRAD_ROW_REL}); the ranks' states after "
+          f"{FLAG_ADAM_STEPS} steps equal by hash {same}; launches {r0['launches']}", flush=True)
+    check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks),
+          f"flagship world: {[(r['backend'], r['device']) for r in ranks]}")
+    check(all(r["loss_rel"] <= SHARD_RTOL and r["grad_excess"] <= 0
+              and max(r["grad_rows"]) <= GRAD_ROW_REL for r in ranks),
+          "the flagship's tile-sharded Adam gradient is off one process's")
+    check(same, "the flagship's tile-sharded Adam: the ranks' states differ")
+    a = r0["launches"]
+    check(a["K5"] == a["K6"] == 2 and a["K6-init"] == 1 and a["K2-init"] == 1 and a["K7"] == 0,
+          f"the flagship's tile-sharded gradient: K5, K2' and K6 not once a pass: {a}")
+
+    gen_prof = prof["device_ms"]
+    times = {
+        "card": card, "pop": FLAG_P, "n_splats": FLAG_N, "side": S, "chunk": FLAG_CHUNK,
+        "renders_per_s_B4096": FLAG_P / eval_ms * 1e3, "evaluate_ms_B4096": eval_ms,
+        f"renders_per_s_B4096_fast_{FLAG_FAST_EPS}": FLAG_P / fast_ms * 1e3,
+        "gens_per_s": {"exact-tight": runs["exact-tight"]["gens_per_s"],
+                       f"fast_{FLAG_FAST_EPS}": runs["fast"]["gens_per_s"]},
+        "generation_seconds": {t: r["generation_seconds"] for t, r in runs.items()},
+        "run_ga_seconds": {t: r["seconds"] for t, r in runs.items()},
+        "peak_bytes": {f"chunk{FLAG_CHUNK}": peak_1024, f"chunk{FLAG_SMALL_CHUNK}": peak_512,
+                       f"chunk{FLAG_CHUNK}_fast": peak_fast},
+        "allocated_before_bytes": {f"chunk{FLAG_CHUNK}": base_1024,
+                                   f"chunk{FLAG_SMALL_CHUNK}": base_512,
+                                   f"chunk{FLAG_CHUNK}_fast": base_fast},
+        "sort_device_ms_per_pass": gen_prof["sort"] / (2 * n_chunks),
+        "K1_device_ms_per_chunk": gen_prof["walk"] / n_chunks,
+        "K2_device_ms_per_chunk": k2_ms / n_chunks,
+        "generation_device_ms": gen_prof, "generation_busy_share": prof["device_busy_share"],
+        "launches_per_generation": {"device_profiler": prof["kernels_per_step"],
+                                    **{k: n for k, n in launches["resumed_generation"].items()
+                                       if n}},
+        "checkpoint": {"bytes": save["bytes"], "save_ms": save["ms"], "load_ms": load_ms},
+    }
+    print("FLAGSHIP " + json.dumps(times), flush=True)
     return {"times": times, "launches": launches}
 
 
@@ -3412,6 +3807,7 @@ def main() -> int:
     sa_checks_and_times(tgt, wm, card)
     slab_out = slab_checks()
     shard_out = shard_checks_and_times(card)
+    flagship_out = flagship_checks_and_times(card)
 
     kernels = [
         {
@@ -3606,6 +4002,8 @@ def main() -> int:
         # rank 0's launches on the sharded paths (each rank launches the same)
         entry["launches_sharding_slice"] = {tag: c[key]
                                             for tag, c in shard_out["launches"].items()}
+        entry["launches_flagship_slice"] = {tag: c[key]
+                                            for tag, c in flagship_out["launches"].items()}
         entry["slab_max_abs_err"] = slab_errs[key]
     print(json.dumps({"kernels": kernels}))
     print(card)

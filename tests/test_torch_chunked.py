@@ -37,7 +37,7 @@ from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
 from torch_inputs import axes_genomes, image, weights
-from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_inputs import chained, one_torch_thread  # noqa: F401 (fixtures)
 
 H, W, TH = 40, 200, 16
 N = 20  # three passes of 6, 7 and 7 splats
@@ -46,21 +46,6 @@ FITNESS_RTOL = {"highest": 5e-5, "exact-tight": 5e-5, "fast": 5e-5, "bf16": 1e-5
 GRAD_TOL = dict(rtol=1e-3, atol=1e-7)
 TGT, WM = image(31, H, W), weights(32, H, W)
 G9 = np.array(jcodec.genome_to_renderer(jnp.asarray(axes_genomes(2, 2, N, H, W))))
-
-
-def _clear():
-    rp.render_pallas.clear_cache()
-    rp.fitness_pallas.clear_cache()
-
-
-@pytest.fixture
-def chained(monkeypatch):
-    """The pass size lowered to 7 in both packages."""
-    monkeypatch.setattr(rp, "_MAX_SMEM_SPLATS", 7)
-    monkeypatch.setattr(rc, "MAX_SPLATS", 7)
-    _clear()
-    yield
-    _clear()  # before monkeypatch restores the sizes: the next trace sees them
 
 
 def _render(precision, cap=None):

@@ -1,7 +1,8 @@
 """Seeded numpy inputs shared by the port's cross-check tests
 (tests/test_torch_*.py): both packages receive the same float32 arrays;
-`pass_lists`, one pass's walk inputs through the port's own steps; and
-`one_torch_thread`, the autouse fixture those files import."""
+`pass_lists`, one pass's walk inputs through the port's own steps;
+`one_torch_thread`, the autouse fixture those files import; and `chained`,
+the fixture that lowers the pass size in both packages."""
 import numpy as np
 import pytest
 
@@ -21,6 +22,25 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def chained(monkeypatch):
+    """The pass size lowered to 7 splats in both packages
+    (render_pallas._MAX_SMEM_SPLATS, render_cuda.MAX_SPLATS), so a small N
+    runs chained passes; JAX's jitted renderers are cleared on both sides."""
+    from ggs_tpu.ops import render_pallas as rp
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    def clear():
+        rp.render_pallas.clear_cache()
+        rp.fitness_pallas.clear_cache()
+
+    monkeypatch.setattr(rp, "_MAX_SMEM_SPLATS", 7)
+    monkeypatch.setattr(rc, "MAX_SPLATS", 7)
+    clear()
+    yield
+    clear()  # before monkeypatch restores the sizes: the next trace sees them
 
 
 def axes_genomes(seed: int, B: int, N: int, H: int, W: int, max_scale: float = 0.3):
