@@ -202,6 +202,25 @@ a `FLAGSHIP` line (renders/s at B=4096, generations/s in
 both tiers, the peak bytes at chunks 1024 and 512, the sort's ms a pass,
 K1's and K2's ms a chunk, launches a generation, the checkpoint's bytes and
 ms).
+The run-block graph slice (`run_block_graphs`, after the profile phase)
+holds ga, gradient, sa and pt.make_run_block, replayed as CUDA graphs, to
+their eager bodies in bits after every block over RBG_BLOCKS (a shorter
+last block): the GA exact-tight, fast, bf16 and annealed (a sigma step
+between blocks), Adam at run_grad's defaults and under --metric mix,
+batched and sequential SA and PT (swaps inside blocks and on their
+boundaries); each replayed graph's kernel, copy and fill nodes equal to
+graph_launches' count of the same eager block; a resume through graphed
+blocks against the unbroken run; run_ga with frames, recycles and
+checkpoints graphed against ga.make_run_block's eager body (best genome,
+curves and launch counts equal); a replay without host sync and a host
+copy refused at capture; a `RUN BLOCK GRAPHS` line (generations/s, Adam
+steps/s and SA / PT iterations/s graphed against eager in turns, each one's
+busy share under torch.profiler). Every runner's GA, Adam, SA and PT
+blocks replay as CUDA graphs, so the main paths above run them graphed,
+and their launch counts add each replay's kernels (block_graph.TALLIES
+lists chip_smoke's evaluate counts the same way); the flagship's chunked
+evaluate stays eager, and a `FLAGSHIP GRAPH` line gives one generation's
+graph peak in each tier, or its capture that does not fit.
 Prints a `GRAD KERNELS` line (K6/K7 times, bounds and launches, blocks a
 SM, Adam steps/s at both gradient configurations, beside the card), one
 `kernels` JSON line, the card line, and last the device line.
@@ -211,6 +230,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1277,32 +1297,7 @@ def check_no_sync(fn, what: str) -> None:
     print(f"CHECK {what}: no host sync", flush=True)
 
 
-GRAPH_NODE_KINDS = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "GRAPH", "EMPTY", "WAIT_EVENT",
-                    "EVENT_RECORD", "EXT_SEMAS_SIGNAL", "EXT_SEMAS_WAIT", "MEM_ALLOC", "MEM_FREE",
-                    "BATCH_MEM_OP", "CONDITIONAL")  # CUgraphNodeType 0-13
-
-
-def _graph_nodes(raw: int) -> list:
-    """The CUgraphNodeType names of a captured graph's nodes (the driver
-    API's cuGraphGetNodes and cuGraphNodeGetType)."""
-    import ctypes
-
-    cu = ctypes.CDLL("libcuda.so.1")
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(n)) == 0, "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes")
-    kinds = []
-    for node in nodes:
-        t = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0,
-              "cuGraphNodeGetType")
-        kinds.append(GRAPH_NODE_KINDS[t.value] if 0 <= t.value < len(GRAPH_NODE_KINDS)
-                     else f"TYPE_{t.value}")
-    return kinds
-
-
-def graph_launches(fn, steps: int, generators=(), optimizers=()) -> dict:
+def graph_launches(fn, steps: int, generators=(), optimizers=(), prepare=None) -> dict:
     """The device work of one fn() (`steps` generations or Adam steps) as the
     nodes of a CUDA graph that captures it: kernels, copies and fills, each
     a node, so no profiler trace can drop or add one. fn runs once first on
@@ -1311,15 +1306,23 @@ def graph_launches(fn, steps: int, generators=(), optimizers=()) -> dict:
     with the graph, and each optimizer's capture check is lifted for the
     capture (torch.optim refuses a graph of a non-capturable step, which
     launches the same kernels as the eager step counted here; the graph is
-    never replayed). Returns the nodes by kind and the kernels, copies and
-    fills a step ("per_step")."""
+    never replayed). prepare(), when given, runs before each fn() outside
+    the capture (a run block's counter fill). Returns the nodes by kind and
+    the kernels, copies and fills a step ("per_step")."""
     import torch
 
+    from ggs_tpu_torch.utils import block_graph
+
     s = torch.cuda.Stream()
+    if prepare is not None:
+        prepare()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
         fn()
     torch.cuda.synchronize()
+    if prepare is not None:
+        prepare()
+        torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
     for gen in generators:
         g.register_generator_state(gen)
@@ -1334,7 +1337,7 @@ def graph_launches(fn, steps: int, generators=(), optimizers=()) -> dict:
     finally:
         for opt, name in lifted:
             delattr(opt, name)
-    kinds = collections.Counter(_graph_nodes(g.raw_cuda_graph()))
+    kinds, _ = block_graph.graph_nodes(g.raw_cuda_graph())
     del g
     work = kinds["KERNEL"] + kinds["MEMCPY"] + kinds["MEMSET"]
     check(work > 0, f"the captured graph holds no device work: {dict(kinds)}")
@@ -1345,7 +1348,11 @@ def graph_launches(fn, steps: int, generators=(), optimizers=()) -> dict:
 def count_calls(module, name: str, key=None):
     """Counts the calls of module.name while the block runs, by key(*args,
     **kw) when given (callers that look the name up on the module at call
-    time are counted)."""
+    time are counted). A run block replayed as a CUDA graph makes no call:
+    the count is listed in block_graph.TALLIES, so each replay adds the
+    calls its capture made."""
+    from ggs_tpu_torch.utils import block_graph
+
     seen = collections.Counter()
     plain = getattr(module, name)
 
@@ -1354,10 +1361,12 @@ def count_calls(module, name: str, key=None):
         return plain(*args, **kw)
 
     setattr(module, name, counted)
+    block_graph.TALLIES.append(seen)
     try:
         yield seen
     finally:
         setattr(module, name, plain)
+        block_graph.TALLIES.remove(seen)
 
 
 def evaluate_batches(by_n: bool = False):
@@ -2111,6 +2120,287 @@ def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
     }
 
 
+# ------------------------------------------------------------ the run-block graph slice
+
+# make_run_block's CUDA graphs against the eager body from equal states:
+# three blocks of one length (the first runs eagerly and is captured, the
+# next two replay), then shorter ones (the first captured, then replays).
+# A fresh Adam's first block makes its moments eagerly, so Adam runs one
+# block more. PT at run_sa's swap_every 10: its 20-iteration blocks swap
+# inside (iteration 9) and on their boundary (19), at both parities; its
+# graphs are kept per it % 20, so the 10-iteration blocks at 60, 70 and 80
+# make two graphs and replay one.
+RBG_BLOCKS = {"ga": (10, 10, 10, 5, 5), "adam": (5, 5, 5, 5, 2, 2),
+              "sa": (10, 10, 10, 5, 5), "sa_sequential": (4, 4, 4, 2, 2),
+              "pt": (20, 20, 20, 10, 10, 10)}
+RBG_SIGMAS = (4.0, 4.0, 2.0, 2.0, 1.0)  # the annealed GA's blur sigma a block: 2 steps between
+RBG_RESUME_BLOCKS, RBG_RESUME_GENS = 3, 20  # GA blocks before and after the checkpoint
+# run_ga at its defaults with frames (every 50 generations), recycles and
+# checkpoints (every 100), graphed against ga.make_run_block's eager body
+RBG_GA_ARGV = ["--generations", "300", "--log-every", "50", "--fps", "2", "--video-len", "3",
+               "--recycle-every", "100", "--recycle-k", "16", "--checkpoint-every", "100"]
+RBG_RATE_STEPS = {"ga": 20, "ga_fast": 20, "adam": 20, "sa": 20, "pt": 20}  # a timed block
+RBG_RATE_BLOCKS = 5
+RBG_PROFILE_STEPS = 10  # an eager block under torch.profiler (a graphed one: RBG_RATE_STEPS)
+
+
+def run_block_graphs(tgt, wm, card) -> dict:
+    """RUN BLOCK GRAPHS: ga, gradient, sa and pt.make_run_block replayed as
+    CUDA graphs against their eager bodies (`run.eager`) from equal states
+    and equal generator states, in bits after every block (genomes, fits,
+    best, the stall count, Adam's moments and step, the metrics and the
+    generator's get_state()), over RBG_BLOCKS (a shorter last block): the GA
+    exact-tight, fast, bf16 and annealed (a sigma step, the target blurred
+    again and the state rescored, between blocks), Adam at run_grad's
+    defaults (K7) and under --metric mix (K2' and K6), batched and
+    sequential SA and PT. Each replayed graph's kernel, copy and fill nodes
+    equal graph_launches' count of the same eager block. One GA resume
+    through graphed blocks (a fresh run block after the load, as a resumed
+    process has) equal in bits to the unbroken run; run_ga at its defaults
+    with frames, recycles and checkpoints equal (best genome and curves in
+    bits) to the same run with ga.make_run_block's eager body; a replay
+    issues no host sync; a block that copies from host memory is refused at
+    its capture. Then generations/s, Adam steps/s and SA / PT iterations/s
+    graphed against eager in turns (medians of RBG_RATE_BLOCKS host-timed
+    blocks) and each one's device busy share under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from ggs_tpu_torch import run_ga
+    from ggs_tpu_torch.config import GAConfig, GenomeConfig, GradConfig, SAConfig
+    from ggs_tpu_torch.models import ga, genome, gradient, pt, sa
+    from ggs_tpu_torch.ops import anneal, objective
+    from ggs_tpu_torch.utils import block_graph, checkpoint
+
+    H, W = tgt.shape[:2]
+    dev = tgt.device
+    phase("run block graphs: replays against the eager body")
+    obj = objective.Objective(H=H, W=W, precision="exact-tight")
+    cfg, gnm = GAConfig(pop_size=32, generations=500_000), GenomeConfig(n_splats=512)
+    sa_gnm, adam_gnm = GenomeConfig(), GenomeConfig(n_splats=ADAM_N)
+    out = {"card": card, "replays": {}, "nodes_per_step": {}, "graph_nodes": {}}
+
+    def rng(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def work(kinds) -> int:
+        return kinds["KERNEL"] + kinds["MEMCPY"] + kinds["MEMSET"]
+
+    def held(tag, run, st_g, st_e, blocks, call, between=None, fresh=None):
+        """The graphed and the eager blocks from equal states, equal in bits
+        after each; the first replay's nodes against graph_launches' count
+        of the eager block from a throwaway state fresh(n)."""
+        replays, eager_work = 0, {}
+        for i, n in enumerate(blocks):
+            known = run.graphs.replays
+            st_g, m_g = call(run, st_g, n, i)
+            st_e, m_e = call(run.eager, st_e, n, i)
+            check(_same_state(st_g, st_e) and torch.equal(m_g, m_e),
+                  f"{tag}: block {i} ({n} steps) graphed differs from eager")
+            if run.graphs.replays > known:
+                replays += 1
+                kinds = run.graphs.last.nodes
+                out["nodes_per_step"][f"{tag}_{n}"] = work(kinds) / n
+                out["graph_nodes"][f"{tag}_{n}"] = dict(kinds)
+                if not eager_work:
+                    st_x, gens, opts = fresh(n)
+                    eager_work[n] = graph_launches(
+                        lambda: call(run.loop, st_x, n, i), n, generators=gens,
+                        optimizers=opts, prepare=lambda: run.prepare(st_x, n))
+                    check(work(kinds) == round(eager_work[n]["per_step"] * n),
+                          f"{tag}: the replayed {n}-step graph holds {dict(kinds)}, the eager "
+                          f"block {eager_work[n]['nodes']}")
+            if between is not None:
+                st_g, st_e = between(i, st_g), between(i, st_e)
+        check(replays >= 2, f"{tag}: {replays} replays")
+        out["replays"][tag] = replays
+        print(f"CHECK {tag}: {len(blocks)} blocks {list(blocks)} replayed ({replays} replays) "
+              "equal in bits to the eager body", flush=True)
+        return st_g
+
+    # the GA in three tiers, and annealed
+    def ga_call(target_of=lambda i: tgt, sigma_of=lambda i: None):
+        return lambda run, st, n, i: run(st, target_of(i), wm, n, blur_sigma=sigma_of(i))
+
+    for tier in ("exact-tight", "fast", "bf16"):
+        o = obj._replace(precision=tier)
+        st0 = ga.init(rng(70), o, tgt, wm, cfg, gnm)
+        run = ga.make_run_block(o, cfg, gnm)
+        held(f"ga_{tier}", run, st0._replace(rng=rng(71)), st0._replace(rng=rng(71)),
+             RBG_BLOCKS["ga"], ga_call(),
+             fresh=lambda n: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(72))))
+    sigmas = [torch.full((), s, dtype=torch.float32, device=dev) for s in RBG_SIGMAS]
+    blurred = [anneal.blur_image(tgt, s, anneal.default_radius(float(s))) for s in sigmas]
+
+    def rescore(i, st):  # the sigma step genetic_approx takes between blocks
+        if i + 1 < len(RBG_SIGMAS) and RBG_SIGMAS[i + 1] != RBG_SIGMAS[i]:
+            return ga._rescore(st, obj, blurred[i + 1], wm, sigmas[i + 1])
+        return st
+
+    st0 = ga._rescore(ga.init(rng(73), obj, tgt, wm, cfg, gnm), obj, blurred[0], wm, sigmas[0])
+    run = ga.make_run_block(obj, cfg, gnm)
+    held("ga_annealed", run, st0._replace(rng=rng(74)), st0._replace(rng=rng(74)),
+         RBG_BLOCKS["ga"], ga_call(lambda i: blurred[i], lambda i: sigmas[i]), between=rescore,
+         fresh=lambda n: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(75))))
+
+    # Adam: run_grad's defaults (K7) and --metric mix (K2' forward, K6 backward)
+    def adam_call(run, st, n, i):
+        return run(st, tgt, wm, n)
+
+    for tag, o in (("adam", obj), ("adam_mix", obj._replace(metric="mix"))):
+        run = gradient.make_run_block(o, adam_gnm, GradConfig(lr=1e-2))
+        g0 = adam_genome()
+
+        def fresh(n, run=run, g0=g0):
+            st = gradient.init_state(run.make_opt, g0)
+            st, _ = run.eager(st, tgt, wm, 1)  # the moments exist, as in a graphed block
+            return st, [], [st.opt]
+
+        held(tag, run, gradient.init_state(run.make_opt, g0), gradient.init_state(run.make_opt, g0),
+             RBG_BLOCKS["adam"], adam_call, fresh=fresh)
+
+    # SA (batched, sequential) and PT at run_sa's defaults
+    def sa_call(run, st, n, i):
+        return run(st, tgt, wm, n)
+
+    for tag, c in (("sa", SAConfig()), ("sa_sequential", SAConfig(proposal_mode="sequential"))):
+        st0 = sa.init(rng(76), obj, tgt, wm, sa_gnm)
+        run = sa.make_run_block(obj, c, sa_gnm)
+        held(tag, run, st0._replace(rng=rng(77)), st0._replace(rng=rng(77)), RBG_BLOCKS[tag],
+             sa_call, fresh=lambda n: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(78))))
+    st0 = pt.init(rng(79), obj, tgt, wm, sa_gnm, PT_K, 1e-3, 1e-1)
+    run = pt.make_run_block(obj, SAConfig(), sa_gnm, swap_every=10)
+    held("pt", run, st0._replace(rng=rng(80)), st0._replace(rng=rng(80)), RBG_BLOCKS["pt"],
+         sa_call, fresh=lambda n: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(81))))
+
+    # a replay issues no host sync; a block copying from host memory is refused
+    run = ga.make_run_block(obj, cfg, gnm)
+    st = ga.init(rng(82), obj, tgt, wm, cfg, gnm)
+    for _ in range(2):
+        st, _ = run(st, tgt, wm, 5)
+    check_no_sync(lambda: run(st, tgt, wm, 5), "a replayed 5-generation GA block")
+    one = torch.ones(1, pin_memory=True)
+    refused = block_graph.BlockGraphs(
+        lambda inp, n, host, r: inp["x"] + one.to(dev, non_blocking=True))
+    try:  # the first call runs the body eagerly, then captures it
+        refused({"x": torch.zeros(1, device=dev)}, 1, 0)
+        check(False, "a block copying from pinned host memory was captured")
+    except RuntimeError as e:
+        check("copies from host memory" in str(e), f"the host-copy refusal: {e}")
+    print("CHECK a replay issues no host sync; a captured host copy is refused", flush=True)
+    del refused
+
+    # one resume through graphed blocks against the unbroken run
+    phase("run block graphs: resume, run_ga graphed against eager")
+    path = os.path.join(HERE, "output", "run_block_graphs", "ga_ckpt.npz")
+    st0 = ga.init(rng(83), obj, tgt, wm, cfg, gnm)
+    run = ga.make_run_block(obj, cfg, gnm)
+    whole = st0._replace(rng=rng(84))
+    for _ in range(2 * RBG_RESUME_BLOCKS):
+        whole, _ = run(whole, tgt, wm, RBG_RESUME_GENS)
+    run = ga.make_run_block(obj, cfg, gnm)
+    half = st0._replace(rng=rng(84))
+    for _ in range(RBG_RESUME_BLOCKS):
+        half, _ = run(half, tgt, wm, RBG_RESUME_GENS)
+    checkpoint.save_checkpoint(path, half, meta={"gen": half.gen})
+    loaded, _ = checkpoint.load_checkpoint(path, ga.init(rng(85), obj, tgt, wm, cfg, gnm))
+    run = ga.make_run_block(obj, cfg, gnm)
+    for _ in range(RBG_RESUME_BLOCKS):
+        loaded, _ = run(loaded, tgt, wm, RBG_RESUME_GENS)
+    check(_same_state(loaded, whole),
+          "a resume through graphed blocks differs from the unbroken graphed run")
+    print(f"CHECK a graphed GA resumed after {RBG_RESUME_BLOCKS} blocks of {RBG_RESUME_GENS} "
+          "equals the unbroken run in bits", flush=True)
+
+    # run_ga at its defaults: graphed against make_run_block's eager body
+    plain_make = ga.make_run_block
+    counted = kernel_counters()
+    res, out["launches"] = {}, {}
+    for mode in ("graphed", "eager"):
+        if mode == "eager":
+            ga.make_run_block = lambda *a, **kw: plain_make(*a, **kw).eager
+        try:
+            reset_kernel_counts(counted)
+            res[mode] = run_ga.main(["--image", "synthetic", *RBG_GA_ARGV, "--output-dir",
+                                     os.path.join(HERE, "output", f"rbg_run_ga_{mode}"),
+                                     "--device", str(dev)])
+            torch.cuda.synchronize()
+            out["launches"][f"run_ga {mode}"] = read_kernel_counts(counted)
+        finally:
+            ga.make_run_block = plain_make
+    bg, be = np.asarray(res["graphed"]["best"]), np.asarray(res["eager"]["best"])
+    check(bg.shape == be.shape and bool((bg.view(np.uint32) == be.view(np.uint32)).all())
+          and res["graphed"]["curves"] == res["eager"]["curves"],
+          "run_ga with frames, recycles and checkpoints: graphed and eager runs differ")
+    cg, ce = out["launches"]["run_ga graphed"], out["launches"]["run_ga eager"]
+    check(cg == ce and cg["K1"] >= 300, f"run_ga's launch counts: graphed {cg}, eager {ce}")
+    print("CHECK run_ga (frames, recycles, checkpoints) graphed equals eager: best genome, "
+          f"curves and launch counts ({cg['K1']} K1, {cg['K2']} K2)", flush=True)
+
+    # rates, graphed against eager in turns, and the device's busy share
+    phase("run block graphs: graphed against eager, rates and busy shares")
+    obj_fast = obj._replace(precision="fast")
+    fams = {}
+    for tag, o in (("ga", obj), ("ga_fast", obj_fast)):
+        st0 = ga.init(rng(86), o, tgt, wm, cfg, gnm)
+        fams[tag] = (ga.make_run_block(o, cfg, gnm), st0, st0._replace(rng=rng(87)),
+                     lambda run, st, n: run(st, tgt, wm, n))
+    run = gradient.make_run_block(obj, adam_gnm, GradConfig(lr=1e-2))
+    fams["adam"] = (run, gradient.init_state(run.make_opt, adam_genome()),
+                    gradient.init_state(run.make_opt, adam_genome(69)),
+                    lambda run, st, n: run(st, tgt, wm, n))
+    st0 = sa.init(rng(88), obj, tgt, wm, sa_gnm)
+    fams["sa"] = (sa.make_run_block(obj, SAConfig(), sa_gnm), st0, st0._replace(rng=rng(89)),
+                  lambda run, st, n: run(st, tgt, wm, n))
+    st0 = pt.init(rng(90), obj, tgt, wm, sa_gnm, PT_K, 1e-3, 1e-1)
+    fams["pt"] = (pt.make_run_block(obj, SAConfig(), sa_gnm, swap_every=10), st0,
+                  st0._replace(rng=rng(91)), lambda run, st, n: run(st, tgt, wm, n))
+    rates, busy = {}, {}
+    for tag, (run, st_g, st_e, call) in fams.items():
+        n = RBG_RATE_STEPS[tag]
+        box = {"graphed": st_g, "eager": st_e}
+        fn = {"graphed": run, "eager": run.eager}
+        for mode in ("graphed", "graphed", "graphed", "eager"):  # the graph's capture, replays
+            box[mode], m = call(fn[mode], box[mode], n)
+            m.cpu()
+        torch.cuda.synchronize()
+        got = {"graphed": [], "eager": []}
+        for i in range(RBG_RATE_BLOCKS):
+            for mode in (("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")):
+                t0 = time.perf_counter()
+                box[mode], m = call(fn[mode], box[mode], n)
+                m.cpu()
+                torch.cuda.synchronize()
+                got[mode].append(n / (time.perf_counter() - t0))
+        rates[tag] = {mode: {"median": sorted(r)[RBG_RATE_BLOCKS // 2], "blocks": r}
+                      for mode, r in got.items()}
+
+        def profiled(mode, p):
+            def fn_once():
+                box[mode], m = call(fn[mode], box[mode], p)
+                m.cpu()
+            return profile_split(fn_once, p)
+
+        # a replay of the timed length; the eager share barely depends on it
+        busy[tag] = {"graphed": profiled("graphed", n), "eager": profiled("eager", RBG_PROFILE_STEPS)}
+    out["steps_per_s"] = {t: {m: r[m]["median"] for m in r} for t, r in rates.items()}
+    out["steps_per_s_blocks"] = {t: {m: r[m]["blocks"] for m in r} for t, r in rates.items()}
+    out["speedup"] = {t: r["graphed"]["median"] / r["eager"]["median"] for t, r in rates.items()}
+    out["device_busy_share"] = {t: {m: p["device_busy_share"] for m, p in b.items()}
+                                for t, b in busy.items()}
+    out["device_ms_per_step"] = {t: {m: sum(p["device_ms"].values()) / p["steps"]
+                                     for m, p in b.items()} for t, b in busy.items()}
+    out["profiler_kernels_per_step"] = {t: {m: p["kernels_per_step"] for m, p in b.items()}
+                                        for t, b in busy.items()}
+    out["rate_steps"] = RBG_RATE_STEPS
+    print("RUN BLOCK GRAPHS " + json.dumps(out), flush=True)
+    limit, key = LAUNCH_LIMITS["ga_exact_tight"], f"ga_exact-tight_{RBG_BLOCKS['ga'][0]}"
+    check(out["nodes_per_step"][key] <= limit,
+          f"the replayed GA graph holds {out['nodes_per_step'][key]} launches a generation, "
+          f"above {limit}")
+    return out
+
+
 # ------------------------------------------------------------ the sharding slice
 
 
@@ -2818,15 +3108,22 @@ def flagship_checks_and_times(card) -> dict:
         phase(f"flagship: run_ga --pop-size {FLAG_P} --n-splats {FLAG_N} {S}x{S} "
               f"--eval-chunk {FLAG_CHUNK} {' '.join(extra)}")
         gen_s, saves, last = [], [], {}
-        plain_block, plain_save = ga.run_block, checkpoint.save_checkpoint
+        plain_make, plain_save = ga.make_run_block, checkpoint.save_checkpoint
 
-        def timed_block(*a, **kw):
-            t0 = time.perf_counter()
-            st, m = plain_block(*a, **kw)
-            torch.cuda.synchronize()
-            gen_s.append(time.perf_counter() - t0)
-            last["state"] = st
-            return st, m
+        def timed_make(*a, **kw):
+            """ga.make_run_block whose blocks (eager: the chunked evaluate)
+            are each host-timed."""
+            run = plain_make(*a, **kw)
+
+            def timed_block(*ra, **rkw):
+                t0 = time.perf_counter()
+                st, m = run(*ra, **rkw)
+                torch.cuda.synchronize()
+                gen_s.append(time.perf_counter() - t0)
+                last["state"] = st
+                return st, m
+
+            return timed_block
 
         def timed_save(path, *a, **kw):
             t0 = time.perf_counter()
@@ -2834,21 +3131,26 @@ def flagship_checks_and_times(card) -> dict:
             saves.append({"ms": 1e3 * (time.perf_counter() - t0), "bytes": os.path.getsize(path),
                           "path": path})
 
-        ga.run_block, checkpoint.save_checkpoint = timed_block, timed_save
+        ga.make_run_block, checkpoint.save_checkpoint = timed_make, timed_save
         try:
             reset_kernel_counts(counted)
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = run_ga.main(argv + extra + ["--output-dir", os.path.join(out_dir, tier)])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            ga.run_block, checkpoint.save_checkpoint = plain_block, plain_save
+            ga.make_run_block, checkpoint.save_checkpoint = plain_make, plain_save
         c = launches[f"run_ga_{tier}"] = read_kernel_counts(counted)
         best = res["curves"]["best"]
+        # a copy: a graphed run's last state would lie in its output buffers
+        st = last.pop("state")
         runs[tier] = {"seconds": wall, "generation_seconds": gen_s,
                       "gens_per_s": 1.0 / statistics.median(gen_s), "best_first": best[0],
                       "best_last": best[-1], "exact_rescore": res["best_fit"], "saves": saves,
-                      "state": last["state"]}
+                      "run_peak_bytes": torch.cuda.max_memory_allocated(),
+                      "state": st._replace(**{f: getattr(st, f).clone() for f in st._fields[:5]})}
+        del st
         print(f"MAIN PATH flagship {tier} " + json.dumps(
             {k: v for k, v in runs[tier].items() if k != "state"} | {"launches": c}), flush=True)
         final = res["final"]
@@ -2976,6 +3278,30 @@ def flagship_checks_and_times(card) -> dict:
     check(same_resume, "the flagship's resumed generation differs from the run's")
     del loaded, pop, ref_state, small, fits_fast
 
+    # a CUDA graph of one flagship generation in each tier, though the rule
+    # (block_graph.stays_eager) keeps the chunked evaluate eager: the peak
+    # with its private pool, or the capture that does not fit
+    phase("flagship: one generation captured as a CUDA graph, each tier")
+    graph_peak = {}
+    for tier, o in (("exact-tight", obj), ("fast", fast_obj)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = ga.make_run_block(o, cfg, gnm)
+        check(not run.use_graphs, f"flagship {tier}: the chunked evaluate's block is not eager")
+        try:
+            st, _ = run.graphed(resumed, tgt, wm, 1)  # the eager warm-up, then the capture
+            graph_peak[tier] = {"captured": True, "peak_bytes": torch.cuda.max_memory_allocated()}
+            del st
+        except RuntimeError as e:
+            check("out of memory" in str(e), f"flagship {tier}: the capture failed: {e}")
+            graph_peak[tier] = {"captured": False, "peak_bytes": torch.cuda.max_memory_allocated(),
+                                "error": str(e)[:300]}
+        del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("FLAGSHIP GRAPH " + json.dumps(graph_peak), flush=True)
+
     phase("flagship: one generation under torch.profiler")
     prof = profile_split(lambda: ga.run_block(resumed, obj, tgt, wm, cfg, gnm, 1)[1].cpu(), 1)
     print("PROFILE flagship generation " + json.dumps(prof), flush=True)
@@ -3014,6 +3340,10 @@ def flagship_checks_and_times(card) -> dict:
                        f"fast_{FLAG_FAST_EPS}": runs["fast"]["gens_per_s"]},
         "generation_seconds": {t: r["generation_seconds"] for t, r in runs.items()},
         "run_ga_seconds": {t: r["seconds"] for t, r in runs.items()},
+        # run_ga's whole run (its blocks eager: the chunked evaluate), and
+        # one generation captured as a CUDA graph in each tier
+        "run_peak_bytes": {t: r["run_peak_bytes"] for t, r in runs.items()},
+        "graph_of_a_generation": graph_peak,
         "peak_bytes": {f"chunk{FLAG_CHUNK}": peak_1024, f"chunk{FLAG_SMALL_CHUNK}": peak_512,
                        f"chunk{FLAG_CHUNK}_fast": peak_fast},
         "allocated_before_bytes": {f"chunk{FLAG_CHUNK}": base_1024,
@@ -3801,6 +4131,7 @@ def main() -> int:
     print("LAUNCHES per GA generation / Adam step " + json.dumps(
         {"measured": launch_rates, "limit": LAUNCH_LIMITS}), flush=True)
 
+    rbg_out = run_block_graphs(tgt, wm, card)
     slice_checks_and_times(tgt, wm, card)
     pipe_times = pipeline_checks_and_times(tgt, wm, card)
     pipe_times["pipeline_seconds"] = pipe_out["pipeline_seconds"]
@@ -4004,6 +4335,10 @@ def main() -> int:
                                             for tag, c in shard_out["launches"].items()}
         entry["launches_flagship_slice"] = {tag: c[key]
                                             for tag, c in flagship_out["launches"].items()}
+        # run_ga with frames, recycles and checkpoints, its blocks replayed
+        # as CUDA graphs and run eagerly (the counts must be equal)
+        entry["launches_run_block_graph_slice"] = {tag: c[key]
+                                                   for tag, c in rbg_out["launches"].items()}
         entry["slab_max_abs_err"] = slab_errs[key]
     print(json.dumps({"kernels": kernels}))
     print(card)

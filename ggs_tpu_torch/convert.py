@@ -127,8 +127,11 @@ def grad_state_from_jax(g, mu, nu, count, cfg: GradConfig = GradConfig(), device
         raise ValueError(f"g must be [B, N, 9], got {tuple(g_t.shape)}")
     state = gradient.init_state(functools.partial(gradient.make_adam, cfg=cfg), g_t)
     n = int(np.asarray(count))
+    group = state.opt.param_groups[0]
     state.opt.state[state.g] = {
-        "step": torch.tensor(float(n), dtype=torch.float32),
+        # a capturable or fused Adam (a card's) keeps its step count there
+        "step": torch.tensor(float(n), dtype=torch.float32,
+                             device=dev if group["capturable"] or group["fused"] else "cpu"),
         "exp_avg": f32(mu).reshape(g_t.shape),
         "exp_avg_sq": f32(nu).reshape(g_t.shape),
     }

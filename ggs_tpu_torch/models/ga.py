@@ -7,8 +7,12 @@ sigmas, elite_k best carried over (fitness cached, as in the JAX package),
 
 `lax.scan` becomes a Python loop over generations: `run_block` keeps every
 value on the device and the caller syncs once per block when it reads the
-metrics. A step takes its random numbers from the state's torch.Generator,
-or from `draws` when given (the tests hand it the JAX package's own draws).
+metrics; `make_run_block`, JAX's jitted block, captures that loop into a
+CUDA graph once and replays it (utils/block_graph.py). The step's mutation
+sigmas are then read on the card from a table of the whole run
+(genome.StepRows), as JAX computes them from its traced `gen`. A step takes
+its random numbers from the state's torch.Generator, or from `draws` when
+given (the tests hand it the JAX package's own draws).
 With `memetic_every` set, the elites get a few Adam steps through the
 differentiable renderer every that many generations (`run_memetic_block`).
 `genetic_approx` also runs scale-space annealing (`blur_sigma`, ops/anneal.py),
@@ -23,6 +27,7 @@ alone prints and writes the frames, curves and checkpoints.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -102,9 +107,10 @@ def draw_offspring(rng: torch.Generator, P: int, N: int, tour_k: int, device) ->
 
 def _offspring(
     pop: torch.Tensor, fits: torch.Tensor, draws: dict, ga: GAConfig, gen: int,
-    obj: Objective, gnm: GenomeConfig, sig_max: dict, sig_min: dict,
+    obj: Objective, gnm: GenomeConfig, sig_max: dict, sig_min: dict, sig=None,
 ) -> torch.Tensor:
-    """Selection + crossover + mutation -> [P, N, 9] offspring."""
+    """Selection + crossover + mutation -> [P, N, 9] offspring; `sig`, a
+    device sigma row, replaces build_mut_sigma(gen, ...)'s floats."""
     P, N, _ = pop.shape
     # Tournament parents, then shuffle (algorithm.py:87-91)
     sel = operators.apply_tournament(fits, draws["sel"])
@@ -120,7 +126,8 @@ def _offspring(
     c2 = torch.where(m_eff, b, a)
     offspring = torch.stack([c1, c2], dim=1).reshape(P, N, 9)
 
-    sig = genome_mod.build_mut_sigma(gen, ga.generations, ga.schedule, sig_max, sig_min)
+    if sig is None:
+        sig = genome_mod.build_mut_sigma(gen, ga.generations, ga.schedule, sig_max, sig_min)
     return operators.apply_mutation(
         offspring, draws["mut"], sig, ga.mutpb, obj.H, obj.W, gnm.min_scale, gnm.max_scale
     )
@@ -146,12 +153,16 @@ def step(
     sig_min: dict,
     draws: Optional[dict] = None,
     blur_sigma: Optional[torch.Tensor] = None,
+    rows: Optional[genome_mod.StepRows] = None,
 ) -> Tuple[GAState, torch.Tensor]:
     """One generation. Returns (state, [best, mean, median, no_improve]).
 
     With `blur_sigma` (a 0-d tensor), candidates are evaluated at scale sigma
     (anneal.blur_genome_axes) against a caller-blurred target; the
-    population itself evolves unblurred."""
+    population itself evolves unblurred. With `rows` (a mut_sigma_table's
+    StepRows whose counter holds state.gen) the sigmas are the table's row
+    of the new generation, read on the device, the counter advanced; else
+    build_mut_sigma's floats from sig_max and sig_min."""
     P, N, _ = state.pop.shape
     # elitism always leaves at least one offspring slot
     E = max(1, min(ga.elite_k, P - 1)) if P > 1 else 1
@@ -162,7 +173,11 @@ def step(
     def at_scale(g):
         return g if blur_sigma is None else anneal_mod.blur_genome_axes(g, blur_sigma)
 
-    offspring = _offspring(state.pop, state.fits, draws, ga, gen, obj, gnm, sig_max, sig_min)
+    sig = None
+    if rows is not None:
+        rows.advance()
+        sig = rows.row()
+    offspring = _offspring(state.pop, state.fits, draws, ga, gen, obj, gnm, sig_max, sig_min, sig)
     off_fits = _evaluate(obj, at_scale(offspring), target, weight_mask)
 
     # Elitism: the E best of the current population, ties to the lower
@@ -191,20 +206,102 @@ def step(
     return GAState(pop, fits, best, best_fit, no_improve, state.rng, gen), metrics
 
 
+_SIGMA_ROWS: dict = {}
+
+
+def _sigma_rows(ga: GAConfig, sig_max: dict, sig_min: dict, device) -> genome_mod.StepRows:
+    """The run's mutation-sigma table (a row a generation) on `device`."""
+    return genome_mod.StepRows(
+        functools.partial(genome_mod.mut_sigma_table, ga.generations, ga.schedule, sig_max,
+                          sig_min), ga.generations + 1, device)
+
+
 def run_block(
     state: GAState, obj: Objective, target, weight_mask, ga: GAConfig, gnm: GenomeConfig,
     num_gens: int, blur_sigma: Optional[torch.Tensor] = None,
+    rows: Optional[genome_mod.StepRows] = None,
 ) -> Tuple[GAState, torch.Tensor]:
-    """num_gens generations with the default mutation sigmas, without a host
-    sync -> (state, metrics [num_gens, 4]); blur_sigma as in step."""
-    sig_max = MutSigma.max_defaults().__dict__
-    sig_min = MutSigma.min_defaults().__dict__
-    rows = []
+    """num_gens generations, without a host sync -> (state, metrics
+    [num_gens, 4]); blur_sigma as in step. The eager body of make_run_block:
+    the sigmas are read from `rows` (its counter holding state.gen), or,
+    without rows, from the default sigmas' table (uploaded once a process
+    and device) with its counter filled from state.gen."""
+    if rows is None:
+        key = (ga.generations, ga.schedule, str(state.pop.device))
+        rows = _SIGMA_ROWS.get(key)
+        if rows is None:
+            rows = _SIGMA_ROWS[key] = _sigma_rows(ga, MutSigma.max_defaults().__dict__,
+                                                  MutSigma.min_defaults().__dict__,
+                                                  state.pop.device)
+        rows.cover(state.gen + num_gens)
+        rows.start(state.gen)
+    out = []
     for _ in range(num_gens):
-        state, m = step(state, obj, target, weight_mask, ga, gnm, sig_max, sig_min,
-                        blur_sigma=blur_sigma)
-        rows.append(m)
-    return state, torch.stack(rows)
+        state, m = step(state, obj, target, weight_mask, ga, gnm, {}, {}, blur_sigma=blur_sigma,
+                        rows=rows)
+        out.append(m)
+    return state, torch.stack(out)
+
+
+def make_run_block(
+    obj: Objective,
+    ga: GAConfig,
+    gnm: GenomeConfig,
+    sig_max: Optional[MutSigma] = None,
+    sig_min: Optional[MutSigma] = None,
+):
+    """-> run(state, target, weight_mask, num_gens, blur_sigma=None) ->
+    (state, metrics [num_gens, 4]): ga.make_run_block. On a card the block
+    is a CUDA graph captured at the first call of each (length, shapes,
+    blur on/off, generator) and replayed after (utils/block_graph.py): the
+    state is donated, so read the returned state and metrics before the
+    next call and never reuse a state passed in. The sigma table is
+    uploaded once; its counter is filled from state.gen before each block.
+    Under obj.mesh or obj.chunk the block stays eager
+    (block_graph.stays_eager; `run.graphed` is the graphed block all the
+    same, for measuring it). A block_graph.RunBlock: `run.eager` is the
+    same block run eagerly (chip_smoke holds replays to it),
+    run.prepare(state, n) and run.loop(state, target, weight_mask, n,
+    blur_sigma) its two parts, `run.graphs` the BlockGraphs."""
+    from ..utils.block_graph import BlockGraphs, RunBlock, stays_eager
+
+    sig_max_d = (sig_max or MutSigma.max_defaults()).__dict__
+    sig_min_d = (sig_min or MutSigma.min_defaults()).__dict__
+    tables: Dict[str, genome_mod.StepRows] = {}
+
+    def prepare(state: GAState, num_gens: int) -> genome_mod.StepRows:
+        dev = str(state.pop.device)
+        if dev not in tables:
+            tables[dev] = _sigma_rows(ga, sig_max_d, sig_min_d, state.pop.device)
+        tables[dev].cover(state.gen + num_gens)
+        tables[dev].start(state.gen)
+        return tables[dev]
+
+    def loop(state: GAState, target, weight_mask, num_gens: int, blur_sigma=None):
+        return run_block(state, obj, target, weight_mask, ga, gnm, num_gens,
+                         blur_sigma=blur_sigma, rows=tables[str(state.pop.device)])
+
+    def body(inp, n, gen0, rng):
+        st = GAState(inp["pop"], inp["fits"], inp["best"], inp["best_fit"], inp["no_improve"],
+                     rng, gen0)
+        st, metrics = loop(st, inp["target"], inp["weight_mask"], n, inp["blur_sigma"])
+        return tuple(st[:5]), metrics
+
+    graphs = BlockGraphs(body)
+
+    def eager(state: GAState, target, weight_mask, num_gens: int, blur_sigma=None):
+        prepare(state, num_gens)
+        return loop(state, target, weight_mask, num_gens, blur_sigma)
+
+    def graphed(state: GAState, target, weight_mask, num_gens: int, blur_sigma=None):
+        rows = prepare(state, num_gens)
+        inputs = {"pop": state.pop, "fits": state.fits, "best": state.best,
+                  "best_fit": state.best_fit, "no_improve": state.no_improve, "target": target,
+                  "weight_mask": weight_mask, "blur_sigma": blur_sigma}
+        out, metrics = graphs(inputs, num_gens, state.gen, rng=state.rng, epoch=rows.version)
+        return GAState(*out, state.rng, state.gen + num_gens), metrics
+
+    return RunBlock(eager, graphed, graphs, prepare, loop, not stays_eager(obj))
 
 
 def _refine(state: GAState, obj, target, weight_mask, gnm, grad_cfg, refine_steps, E) -> GAState:
@@ -371,6 +468,7 @@ def genetic_approx(
 
         run_islands = island.make_run_block(obj, ga, gnm, n_islands, migrate_every, migrate_k,
                                             mesh=mesh)
+    run_ga = make_run_block(obj, ga, gnm)
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
     state = init(rng, obj, target, weight_mask, ga, gnm, init_pop=init_pop)
@@ -429,8 +527,8 @@ def genetic_approx(
                         memetic_every, memetic_steps, block,
                     )
                 else:
-                    state, metrics = run_block(state, obj, cur_target, weight_mask, ga, gnm,
-                                               block, blur_sigma=sigma_t)
+                    state, metrics = run_ga(state, cur_target, weight_mask, block,
+                                            blur_sigma=sigma_t)
                 metrics = metrics.cpu().numpy()  # the block's one host sync
             gens_per_s = block / max(1e-9, time.perf_counter() - t_block)
             curves["best"].extend(metrics[:, 0].tolist())

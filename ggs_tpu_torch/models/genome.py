@@ -116,6 +116,94 @@ def build_mut_sigma(gen: int, total: int, kind: str, sig_max: dict, sig_min: dic
     }
 
 
+# The columns of a mutation-sigma row: the sigma that scales each gene column
+# of [x, y | a_log, b_log | theta | r, g, b, alpha] (x and y share one)
+SIG_COLS = ("xy", "alog", "blog", "theta", "rgb", "rgb", "rgb", "alpha")
+
+
+def _anneal_factors(gens: np.ndarray, total: int, kind: str) -> np.ndarray:
+    """anneal_factor of every gen in `gens`, with its float32 operations in
+    the same order (cos and pow by _f32_op's float64 route)."""
+    f32 = np.float32
+    g = np.clip(gens, 0, total).astype(f32)
+    p = g / f32(max(1, total))
+    if kind == "cosine":
+        raw = f32(0.5) * (f32(1.0) + np.cos((f32(math.pi) * p).astype(np.float64)).astype(f32))
+    elif kind == "exp":
+        decay = f32(0.2 ** (1.0 / max(1, total)))
+        raw = np.power(np.float64(decay), g.astype(np.float64)).astype(f32)
+    else:
+        raw = f32(1.0) - p
+    return np.maximum(raw, f32(0.0))
+
+
+def mut_sigma_table(total: int, kind: str, sig_max: dict, sig_min: dict,
+                    rows: int = 0) -> np.ndarray:
+    """[rows, 8] float32 (rows defaults to total + 1): row g holds
+    build_mut_sigma(g, total, kind, sig_max, sig_min) in SIG_COLS order, bit
+    for bit. A run uploads it once and a step reads its row on the card."""
+    f32 = np.float32
+    f = _anneal_factors(np.arange(rows or total + 1), total, kind)
+    cols = {k: f32(sig_min[k]) + f * f32(sig_max[k] - sig_min[k]) for k in sig_max}
+    return np.stack([cols[k] for k in SIG_COLS], axis=1).astype(f32)
+
+
+def temp_table(kind: str, T0: float, total: int, rows: int = 0) -> np.ndarray:
+    """[rows] float32 (rows defaults to total + 1): entry i is
+    temp_schedule(kind, T0, i, total), bit for bit."""
+    f32 = np.float32
+    it = np.arange(rows or total + 1).astype(f32)
+    p = it / f32(max(1, total))
+    floor = f32(1e-12)
+    if kind == "linear":
+        t = f32(T0) * (f32(1.0) - p)
+    elif kind == "cosine":
+        t = f32(T0 * 0.5) * (f32(1.0) + np.cos((f32(math.pi) * p).astype(np.float64)).astype(f32))
+    elif kind == "log":
+        t = f32(T0) / (f32(1.0) + np.log((f32(1.0) + f32(9.0) * it).astype(np.float64)).astype(f32))
+    elif kind == "cauchy":
+        t = f32(T0) / (f32(1.0) + it)
+    else:
+        r = f32(0.01 ** (1.0 / max(1, total)))
+        return f32(T0) * np.power(np.float64(r), it.astype(np.float64)).astype(f32)
+    return np.maximum(floor, t).astype(f32)
+
+
+class StepRows:
+    """A run's per-step float32 table on the device and the counter that
+    picks a step's row: the port's form of the JAX package's traced `gen` /
+    `it`, from which its jitted step computes the sigmas and temperature on
+    the device. `start(n)` fills the counter (before a block, outside any
+    graph); `row()` reads the row at the counter as [1, C] through a [1]
+    index (a 0-d CUDA index would make the host wait), `advance()` adds 1.
+    The table covers rows 0..len-1 and is rebuilt longer by `cover` when a
+    block would read past it (make(rows) builds it on the host); `version`
+    counts the rebuilds (a graph that read the old table is stale)."""
+
+    def __init__(self, make, rows: int, device):
+        self.make, self.device = make, torch.device(device)
+        self.table = torch.from_numpy(np.ascontiguousarray(make(rows))).to(self.device)
+        self.count = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.version = 0
+
+    def cover(self, last: int) -> None:
+        """Make row `last` readable."""
+        n = self.table.shape[0]
+        if last >= n:
+            self.table = torch.from_numpy(
+                np.ascontiguousarray(self.make(max(last + 1, 2 * n)))).to(self.device)
+            self.version += 1
+
+    def start(self, n: int) -> None:
+        self.count.fill_(n)
+
+    def row(self) -> torch.Tensor:
+        return self.table.index_select(0, self.count)
+
+    def advance(self) -> None:
+        self.count.add_(1)
+
+
 def temp_schedule(kind: str, T0: float, i: int, total: int) -> np.float32:
     """SA temperature at iteration i (modules/annealing.py:29-44).
 

@@ -27,6 +27,10 @@ fused K7, :247-249), the slab energies are summed over the tile group
 (ops/objective.sharded_energy_rows) and the genome gradient is all-reduced
 over it once after the backward; a batch that divides the pop axis is
 split over it, any other (run_grad's single genome) runs replicated there.
+`make_run_block` (JAX's jitted Adam block) replays `run_block` as a CUDA
+graph on a card (utils/block_graph.py); there the Adam is torch.optim's
+capturable fused one, whose step count and bias corrections live on the
+card.
 Precision "bf16" is a fitness-only tier and is refused here, as
 runners/run_grad.py refuses it.
 """
@@ -230,8 +234,13 @@ class GradState(NamedTuple):
 
 
 def make_adam(g: torch.Tensor, cfg: GradConfig) -> torch.optim.Adam:
-    """optax.adam(cfg.lr, b1, b2) (eps 1e-8) over the genome tensor g."""
-    return torch.optim.Adam([g], lr=cfg.lr, betas=(cfg.b1, cfg.b2), eps=1e-8)
+    """optax.adam(cfg.lr, b1, b2) (eps 1e-8) over the genome tensor g. On a
+    card it is capturable (its step count and bias corrections on the card,
+    so a CUDA graph can replay it) and fused (one kernel for the update);
+    on the CPU the step count stays on the host."""
+    on_card = g.device.type == "cuda"
+    return torch.optim.Adam([g], lr=cfg.lr, betas=(cfg.b1, cfg.b2), eps=1e-8,
+                            capturable=on_card, fused=on_card or None)
 
 
 def make_fit_step(obj: Objective, gnm: GenomeConfig, cfg: GradConfig):
@@ -281,6 +290,69 @@ def run_block(state: GradState, step, target, weight_mask, num_steps: int, blur_
     return state, torch.stack(rows)
 
 
+def _adam_tensors(state: GradState) -> dict:
+    """The genomes and the Adam moments and step count, each updated in place."""
+    st = state.opt.state[state.g]
+    return {"g": state.g, "exp_avg": st["exp_avg"], "exp_avg_sq": st["exp_avg_sq"],
+            "step": st["step"]}
+
+
+def make_run_block(obj: Objective, gnm: GenomeConfig, cfg: GradConfig):
+    """-> run(state, target, weight_mask, num_steps, blur_sigma=None) ->
+    (state, fits [num_steps, B]): gradient.make_run_block over
+    make_fit_step's step, with init_state(run.make_opt, g0) as its state.
+    On a card the block is a CUDA graph captured at the first call of each
+    (length, shapes, blur on/off) and replayed (utils/block_graph.py). Adam
+    updates its genomes and moments in place, so the graph's inputs are the
+    state the first call was given (after its first step has made the
+    moments); a later call with another state copies its tensors into them
+    and returns that first state. The state is donated: read the fits
+    before the next call and never reuse a state passed in. Under obj.mesh
+    the block stays eager (block_graph.stays_eager: the collectives sync
+    through host memory).
+    A block_graph.RunBlock: `run.eager` (also `run.loop`; `run.prepare`
+    does nothing) is the block run eagerly, `run.graphs` the BlockGraphs
+    and `run.make_opt` the Adam its state takes."""
+    from ..utils.block_graph import BlockGraphs, RunBlock, stays_eager
+
+    make_opt, step = make_fit_step(obj, gnm, cfg)
+    owner: dict = {}  # the state whose tensors the graphs read
+
+    def body(inp, n, step0, _rng):
+        st, fits = run_block(owner["state"], step, inp["target"], inp["weight_mask"], n,
+                             blur_sigma=inp["blur_sigma"])
+        return fits
+
+    def static(inp):
+        """The Adam tensors themselves; new buffers for target, mask and sigma."""
+        return {k: v if k in ("g", "exp_avg", "exp_avg_sq", "step") or v is None
+                else torch.empty_like(v) for k, v in inp.items()}
+
+    graphs = BlockGraphs(body, static=static)
+
+    def eager(state: GradState, target, weight_mask, num_steps: int, blur_sigma=None):
+        return run_block(state, step, target, weight_mask, num_steps, blur_sigma=blur_sigma)
+
+    def graphed(state: GradState, target, weight_mask, num_steps: int, blur_sigma=None):
+        if state.g not in state.opt.state:  # a fresh Adam: its first step makes the moments
+            return eager(state, target, weight_mask, num_steps, blur_sigma)
+        key = (tuple(state.g.shape), state.opt.param_groups[0]["lr"])
+        own = owner.get(key)
+        if own is None:
+            own = owner[key] = state
+        tensors = _adam_tensors(own)
+        if state is not own:
+            for k, v in _adam_tensors(state).items():
+                tensors[k].copy_(v)
+        owner["state"] = own
+        fits = graphs(dict(tensors, target=target, weight_mask=weight_mask,
+                           blur_sigma=blur_sigma), num_steps, state.step, phase=key)
+        return GradState(own.g, own.opt, state.step + num_steps), fits
+
+    return RunBlock(eager, graphed, graphs, lambda state, num_steps: None, eager,
+                    not stays_eager(obj), make_opt=make_opt)
+
+
 def fit_adam(
     target,
     H: int,
@@ -322,8 +394,8 @@ def fit_adam(
     if weight_mask is not None:
         weight_mask = torch.as_tensor(weight_mask, dtype=torch.float32, device=dev)
 
-    make_opt, step = make_fit_step(obj, gnm, cfg)
-    state = init_state(make_opt, init_genomes)
+    run = make_run_block(obj, gnm, cfg)
+    state = init_state(run.make_opt, init_genomes)
 
     pbar = None
     if progress:
@@ -345,7 +417,7 @@ def fit_adam(
                 done, cfg.steps, anneal_sigma0, anneal_frac, cur_sigma, target, radius)
             if stepped:
                 cur_sigma, sigma_t, cur_target = stepped
-            state, fits = run_block(state, step, cur_target, weight_mask, block, blur_sigma=sigma_t)
+            state, fits = run(state, cur_target, weight_mask, block, blur_sigma=sigma_t)
             curve.extend(fits.min(dim=1).values.cpu().tolist())  # the block's one host sync
             done += block
             if pbar is not None:

@@ -98,10 +98,22 @@ def _sig_cols(vals, dev) -> torch.Tensor:
     return row.to(dev, non_blocking=True)
 
 
+def _sig_factors(sig, dev):
+    """The factors of the xy, a/b, theta and rgba groups of [P, N, 9]. `sig`
+    is a dict (floats, or [P] tensors) or a sigma row already on the device,
+    [1 or P, 8] in genome.SIG_COLS order (a run block's table row, or PT's
+    per-row scaled rows), whose slices are views: no launch, no copy."""
+    if torch.is_tensor(sig):
+        s = sig[:, None, :]
+        return s[..., 0:1], s[..., 1:3], s[..., 3:4], s[..., 4:8]
+    return (_sig_row(sig["xy"]), _sig_cols([sig["alog"], sig["blog"]], dev),
+            _sig_row(sig["theta"]), _sig_cols([sig["rgb"]] * 3 + [sig["alpha"]], dev))
+
+
 def apply_mutation(
     pop: torch.Tensor,
     draws: Dict[str, torch.Tensor],
-    sig: Dict[str, Union[float, torch.Tensor]],
+    sig: Union[Dict[str, Union[float, torch.Tensor]], torch.Tensor],
     mutpb: float,
     H: int,
     W: int,
@@ -113,7 +125,7 @@ def apply_mutation(
     Gaussian steps scaled by the annealed sigmas, clamping, z-order swap.
     The sigmas are all floats, or all [P] tensors giving each row its own
     (parallel tempering scales a replica's sigmas by sqrt(T_k / T_0),
-    pt.py:116-122)."""
+    pt.py:116-122), or a device row [1 or P, 8] (_sig_factors)."""
     P, N, _ = pop.shape
     d = draws
     m_xy = d["u_xy"] < mutpb
@@ -132,12 +144,10 @@ def apply_mutation(
     m_ab = _ensure_one_true(m_ab, d["r_ab"])
     m_t = _ensure_one_true(m_t, d["r_t"])
 
-    dev = pop.device
-    sig_ab = _sig_cols([sig["alog"], sig["blog"]], dev)
-    sig_rgba = _sig_cols([sig["rgb"]] * 3 + [sig["alpha"]], dev)
-    xy = pop[:, :, 0:2] + d["n_xy"] * _sig_row(sig["xy"]) * m_xy
+    sig_xy, sig_ab, sig_t, sig_rgba = _sig_factors(sig, pop.device)
+    xy = pop[:, :, 0:2] + d["n_xy"] * sig_xy * m_xy
     ab = pop[:, :, 2:4] + d["n_ab"] * sig_ab * m_ab
-    th = codec.wrap_angle(pop[:, :, 4:5] + d["n_t"] * _sig_row(sig["theta"]) * m_t)
+    th = codec.wrap_angle(pop[:, :, 4:5] + d["n_t"] * sig_t * m_t)
     rgba = pop[:, :, 5:9] + d["n_rgba"] * sig_rgba * m_rgba
 
     out = torch.cat([xy, ab, th, rgba], dim=2)

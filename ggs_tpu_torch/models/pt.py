@@ -25,7 +25,7 @@ from ..config import GenomeConfig, MutSigma, SAConfig
 from ..ops.objective import Objective
 from . import genome as genome_mod
 from . import operators
-from .sa import _evaluate, _keep_best, _metropolis, run_block
+from .sa import _evaluate, _keep_best, _metropolis, graph_blocks, run_block
 
 
 class PTState(NamedTuple):
@@ -131,26 +131,36 @@ def step(
     sig_min: dict,
     swap_every: int,
     draws: Optional[Dict] = None,
+    rows: Optional[genome_mod.StepRows] = None,
 ) -> Tuple[PTState, torch.Tensor]:
     """One PT iteration: tries x K proposals (one batch), K Metropolis
     chains and, when (it + 1) % swap_every == 0, a neighbour swap sweep.
-    Returns (state, [best_fit, coldest_fit])."""
+    Returns (state, [best_fit, coldest_fit]). With `rows` (sa.step_table's
+    StepRows with ratio, its counter holding state.it) the sigmas and the
+    ladder factor are the table's row, read on the device."""
     K, N, _ = state.reps.shape
     it = state.it
     tries = sa.tries_per_iter
     dev = state.reps.device
-    sig = genome_mod.build_mut_sigma(it, sa.iterations, sa.sigma_schedule, sig_max, sig_min)
+    if rows is None:
+        sig = genome_mod.build_mut_sigma(it, sa.iterations, sa.sigma_schedule, sig_max, sig_min)
+    else:
+        row = rows.row()
+        rows.advance()
     if draws is None:
         draws = draw_step(state.rng, tries, K, N, dev)
 
     # the whole ladder anneals with the SA schedule (slot 0 follows the
-    # single-chain SA temperature); the ladder fixes the slots' ratios
-    t_base = genome_mod.temp_schedule(sa.temp_schedule, sa.t0, it, sa.iterations)
-    temps_now = state.temps * float(t_base / np.float32(sa.t0))
-
-    # row t * K + k mutates replica k with its sigmas scaled by sqrt(T_k / T_0)
+    # single-chain SA temperature); the ladder fixes the slots' ratios.
+    # Row t * K + k mutates replica k with its sigmas scaled by sqrt(T_k / T_0)
     row_scale = torch.sqrt(state.temps / state.temps[0]).repeat(tries)
-    sig_rows = {name: row_scale * v for name, v in sig.items()}
+    if rows is None:
+        t_base = genome_mod.temp_schedule(sa.temp_schedule, sa.t0, it, sa.iterations)
+        temps_now = state.temps * float(t_base / np.float32(sa.t0))
+        sig_rows = {name: row_scale * v for name, v in sig.items()}
+    else:
+        temps_now = state.temps * row[:, 8]
+        sig_rows = row_scale[:, None] * row[:, :8]
     props = operators.apply_mutation(
         state.reps.repeat(tries, 1, 1), draws["mut"], sig_rows, sa.mutpb, obj.H, obj.W,
         gnm.min_scale, gnm.max_scale,
@@ -180,6 +190,13 @@ def make_run_block(
     sig_min: Optional[MutSigma] = None,
     swap_every: int = 10,
 ):
-    """-> run(state, target, weight_mask, num_iters): PT steps (sa.run_block)."""
-    return run_block(functools.partial(step, swap_every=swap_every), obj, sa, gnm, sig_max,
-                     sig_min)
+    """-> run(state, target, weight_mask, num_iters) -> (state, metrics
+    [num_iters, 2]): pt.make_run_block, PT steps replayed as a CUDA graph on
+    a card (sa.graph_blocks). Which iterations of a block swap, and with
+    which parity, is decided on the host from state.it, so a graph is kept
+    per it % (2 * swap_every) at the block's start: a swap may fall inside
+    a block or on its boundary, and no iteration draws more than the eager
+    step does."""
+    eager = run_block(functools.partial(step, swap_every=swap_every), obj, sa, gnm, sig_max,
+                      sig_min, ratio=True)
+    return graph_blocks(obj, eager, PTState, phase=lambda it: it % (2 * swap_every))

@@ -9,11 +9,15 @@ Two proposal modes (modules/annealing.py:48-190):
 Temperature schedules, the 1e-12 best epsilon and the [best, current]
 metrics row are the JAX package's (sa.py:84-107).
 
-`lax.scan` becomes a Python loop: `make_run_block` keeps every value on
-the device (acceptance by torch.where on 0-d tensors, the temperature a 0-d
+`lax.scan` becomes a Python loop: `run_block` keeps every value on the
+device (acceptance by torch.where on 0-d tensors, the temperature a 0-d
 device tensor), so the caller syncs once per block when it reads the
-metrics. A step takes its random numbers from the state's torch.Generator,
-or from `draws` when given (the tests hand it the JAX package's own draws).
+metrics; `make_run_block`, JAX's jitted block, captures that loop into a
+CUDA graph once and replays it (utils/block_graph.py). A block's sigmas
+and temperatures are read on the card from a table of the whole run
+(genome.StepRows), as JAX computes them from its traced `it`. A step takes
+its random numbers from the state's torch.Generator, or from `draws` when
+given (the tests hand it the JAX package's own draws).
 `simulated_annealing(replicas=K>1)` runs parallel tempering (models/pt.py);
 it also writes video frames and checkpoints, and resumes from them.
 """
@@ -62,10 +66,14 @@ def init(
     return SAState(curr, fit, curr.clone(), fit.clone(), rng, 0)
 
 
-def temperature(T: float, device) -> torch.Tensor:
+def temperature(T, device=None) -> torch.Tensor:
     """max(T, 1e-30) in float32 as a 0-d tensor on `device`, made by a fill
-    (no copy to the card). A tensor, not a Python float: the card divides by
-    a CPU scalar as a multiply by its reciprocal, which rounds differently."""
+    (no copy to the card); T a [1] device row (a temp_table's entry, read on
+    the card) is clamped there. A tensor, not a Python float: the card
+    divides by a CPU scalar as a multiply by its reciprocal, which rounds
+    differently."""
+    if torch.is_tensor(T):
+        return torch.clamp_min(T, 1e-30).reshape(())
     t = np.maximum(np.float32(T), np.float32(1e-30))
     return torch.full((), float(t), dtype=torch.float32, device=device)
 
@@ -108,14 +116,23 @@ def step(
     sig_max: dict,
     sig_min: dict,
     draws: Optional[Dict] = None,
+    rows: Optional[genome_mod.StepRows] = None,
 ) -> Tuple[SAState, torch.Tensor]:
-    """One SA iteration (= tries_per_iter proposals). Returns (state, [best, current])."""
+    """One SA iteration (= tries_per_iter proposals). Returns (state, [best, current]).
+    With `rows` (step_table's StepRows, its counter holding state.it) the
+    sigmas and temperature are the table's row, read on the device, and the
+    counter advances; else they are computed on the host."""
     it = state.it
     dev = state.curr.device
     N = state.curr.shape[0]
     tries = sa.tries_per_iter
-    T = temperature(genome_mod.temp_schedule(sa.temp_schedule, sa.t0, it, sa.iterations), dev)
-    sig = genome_mod.build_mut_sigma(it, sa.iterations, sa.sigma_schedule, sig_max, sig_min)
+    if rows is None:
+        T = temperature(genome_mod.temp_schedule(sa.temp_schedule, sa.t0, it, sa.iterations), dev)
+        sig = genome_mod.build_mut_sigma(it, sa.iterations, sa.sigma_schedule, sig_max, sig_min)
+    else:
+        row = rows.row()
+        rows.advance()
+        sig, T = row[:, :8], temperature(row[:, 8])
     if draws is None:
         draws = draw_step(state.rng, tries, N, dev)
     u_acc = draws["u_acc"]
@@ -147,21 +164,87 @@ def step(
     return new_state, torch.stack([best_fit, curr_fit])
 
 
-def run_block(step_fn, obj, sa, gnm, sig_max=None, sig_min=None):
+def step_table(sa: SAConfig, sig_max: dict, sig_min: dict, rows: int = 0,
+               ratio: bool = False) -> np.ndarray:
+    """[rows, 9] float32 (rows defaults to sa.iterations + 1): iteration i's
+    mutation sigmas (genome.mut_sigma_table) and its temperature
+    (genome.temp_table), or with `ratio` PT's ladder factor, the
+    temperature over f32(t0) (pt.step)."""
+    sig = genome_mod.mut_sigma_table(sa.iterations, sa.sigma_schedule, sig_max, sig_min, rows)
+    t = genome_mod.temp_table(sa.temp_schedule, sa.t0, sa.iterations, rows)
+    if ratio:
+        t = t / np.float32(sa.t0)
+    return np.concatenate([sig, t[:, None]], axis=1)
+
+
+def run_block(step_fn, obj, sa, gnm, sig_max=None, sig_min=None, ratio: bool = False):
     """-> run(state, target, weight_mask, num_iters) -> (state, metrics
     [num_iters, 2]): num_iters calls of step_fn (this module's step or
-    PT's) without a host sync."""
+    PT's, `ratio` for PT's table) without a host sync, the sigmas and
+    temperatures read on the device from step_table (uploaded once, its
+    counter filled from state.it before the block). run.prepare(state, n)
+    does that filling (and returns the StepRows) and run.loop(state,
+    target, weight_mask, n) the steps: make_run_block's eager body."""
     sig_max_d = (sig_max or MutSigma.max_defaults()).__dict__
     sig_min_d = (sig_min or MutSigma.min_defaults()).__dict__
+    tables: Dict[str, genome_mod.StepRows] = {}
+
+    def prepare(state, num_iters: int) -> genome_mod.StepRows:
+        dev = str(state.best.device)
+        if dev not in tables:
+            tables[dev] = genome_mod.StepRows(
+                lambda r: step_table(sa, sig_max_d, sig_min_d, r, ratio), sa.iterations + 1,
+                state.best.device)
+        tables[dev].cover(state.it + num_iters)
+        tables[dev].start(state.it)
+        return tables[dev]
+
+    def loop(state, target, weight_mask, num_iters: int):
+        rows = tables[str(state.best.device)]
+        out = []
+        for _ in range(num_iters):
+            state, m = step_fn(state, obj, target, weight_mask, sa, gnm, sig_max_d, sig_min_d,
+                               rows=rows)
+            out.append(m)
+        return state, torch.stack(out)
 
     def run(state, target, weight_mask, num_iters: int):
-        rows = []
-        for _ in range(num_iters):
-            state, m = step_fn(state, obj, target, weight_mask, sa, gnm, sig_max_d, sig_min_d)
-            rows.append(m)
-        return state, torch.stack(rows)
+        prepare(state, num_iters)
+        return loop(state, target, weight_mask, num_iters)
 
+    run.prepare, run.loop = prepare, loop
     return run
+
+
+def graph_blocks(obj, eager, state_type, phase=lambda it: ()):
+    """The run of make_run_block: `eager` (run_block's run) captured as a
+    CUDA graph per (length, phase(state.it), shapes, generator) and replayed
+    (utils/block_graph.py; on the CPU the eager loop), or `eager` itself
+    where obj's blocks stay eager (block_graph.stays_eager). The state is donated:
+    read the returned state and metrics before the next call and never
+    reuse a state passed in. A block_graph.RunBlock: `run.eager` is the
+    eager block (chip_smoke holds replays to it), run.prepare and run.loop
+    its two parts (see run_block), `run.graphs` the BlockGraphs."""
+    from ..utils.block_graph import BlockGraphs, RunBlock, stays_eager
+
+    fields = [f for f in state_type._fields if f not in ("rng", "it")]
+
+    def body(inp, n, it0, rng):
+        st = state_type(*(inp[f] for f in fields), rng, it0)
+        st, metrics = eager.loop(st, inp["target"], inp["weight_mask"], n)
+        return tuple(getattr(st, f) for f in fields), metrics
+
+    graphs = BlockGraphs(body)
+
+    def graphed(state, target, weight_mask, num_iters: int):
+        rows = eager.prepare(state, num_iters)
+        inp = {f: getattr(state, f) for f in fields}
+        inp.update(target=target, weight_mask=weight_mask)
+        out, metrics = graphs(inp, num_iters, state.it, rng=state.rng, phase=phase(state.it),
+                              epoch=rows.version)
+        return state_type(*out, state.rng, state.it + num_iters), metrics
+
+    return RunBlock(eager, graphed, graphs, eager.prepare, eager.loop, not stays_eager(obj))
 
 
 def make_run_block(
@@ -171,8 +254,10 @@ def make_run_block(
     sig_max: Optional[MutSigma] = None,
     sig_min: Optional[MutSigma] = None,
 ):
-    """-> run(state, target, weight_mask, num_iters): SA steps (run_block)."""
-    return run_block(step, obj, sa, gnm, sig_max, sig_min)
+    """-> run(state, target, weight_mask, num_iters) -> (state, metrics
+    [num_iters, 2]): sa.make_run_block, SA steps replayed as a CUDA graph
+    on a card (graph_blocks)."""
+    return graph_blocks(obj, run_block(step, obj, sa, gnm, sig_max, sig_min), SAState)
 
 
 def simulated_annealing(

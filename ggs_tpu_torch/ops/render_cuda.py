@@ -1006,13 +1006,17 @@ def _render_launch(mode, what, cnt, idx, feats, n_tx, tile_h, tile_w, background
 # Per (device, stream): walk.cu's per-tile ticket counters for the fitness
 # epilogue's sum over sub-tiles, zeroed once where allocated; every launch
 # leaves them 0 again, so a launch on the GA path adds no zeroing launch.
+# A buffer outgrown is kept: a captured CUDA graph may still launch on it.
 _TICKETS: dict = {}
+_RETIRED: list = []
 
 
 def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     key = (dev, stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=dev)
     return buf
 
