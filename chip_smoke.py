@@ -203,20 +203,26 @@ both tiers, the peak bytes at chunks 1024 and 512, the sort's ms a pass,
 K1's and K2's ms a chunk, launches a generation, the checkpoint's bytes and
 ms).
 The run-block graph slice (`run_block_graphs`, after the profile phase)
-holds ga, gradient, sa and pt.make_run_block, replayed as CUDA graphs, to
-their eager bodies in bits after every block over RBG_BLOCKS (a shorter
-last block): the GA exact-tight, fast, bf16 and annealed (a sigma step
-between blocks), Adam at run_grad's defaults and under --metric mix,
-batched and sequential SA and PT (swaps inside blocks and on their
-boundaries); each replayed graph's kernel, copy and fill nodes equal to
-graph_launches' count of the same eager block; a resume through graphed
+holds ga, gradient, sa and pt.make_run_block, ga.make_memetic_run_block
+and island.make_run_block, replayed as CUDA graphs, to their eager bodies
+in bits after every block over RBG_BLOCKS (a shorter last block): the GA
+exact-tight, fast, bf16 and annealed (a sigma step between blocks), Adam
+at run_grad's defaults and under --metric mix, batched and sequential SA
+and PT (swaps inside blocks and on their boundaries), the memetic block
+(K7 refinements; under --metric mix K2' and K6; fast) and the island block
+at ISLAND_ARGV (exact-tight and fast), refinements and migrations inside
+blocks and on their boundaries; each replayed graph's kernel, copy and
+fill nodes equal to graph_launches' count of the same eager block (for
+the memetic and island blocks, of each phase); a resume through graphed
 blocks against the unbroken run; run_ga with frames, recycles and
-checkpoints graphed against ga.make_run_block's eager body (best genome,
-curves and launch counts equal); a replay without host sync and a host
+checkpoints, run_ga --memetic-every and run_ga with ISLAND_ARGV graphed
+against the eager body of their run block (best genome, curves and launch
+counts equal); a replay without host sync (GA and memetic) and a host
 copy refused at capture; a `RUN BLOCK GRAPHS` line (generations/s, Adam
-steps/s and SA / PT iterations/s graphed against eager in turns, each one's
-busy share under torch.profiler). Every runner's GA, Adam, SA and PT
-blocks replay as CUDA graphs, so the main paths above run them graphed,
+steps/s, SA / PT iterations/s, memetic and island generations/s graphed
+against eager in turns, each one's busy share under torch.profiler).
+Every runner's GA, memetic, island, Adam, SA and PT blocks replay as CUDA
+graphs, so the main paths above run them graphed,
 and their launch counts add each replay's kernels (block_graph.TALLIES
 lists chip_smoke's evaluate counts the same way); the flagship's chunked
 evaluate stays eager, and a `FLAGSHIP GRAPH` line gives one generation's
@@ -368,6 +374,7 @@ RATE_PAIRS, RATE_GA_GENS, RATE_ADAM_STEPS = 3, 50, 20  # annealed vs plain, in t
 GROW_P, GROW_N_NEW = 32, 256  # grow_population's time: the 256 -> 512 growth
 # the checkpoint / island / profile slice
 ISLAND_ARGV = ["--islands", "4", "--migrate-every", "10", "--migrate-k", "2"]
+ISLANDS, ISLAND_EVERY, ISLAND_K = (int(x) for x in ISLAND_ARGV[1::2])
 ISLAND_GENS, ISLAND_FAST_GENS = 200, 50  # run_ga --islands 4, exact-tight and fast
 RESUME_GENS, RESUME_EVERY = 200, 50  # run_ga stopped after its RESUME_GENS // 2 checkpoint
 RESUME_K = 5  # block resumes: run(2k) == run(k) -> save -> load -> run(k)
@@ -1866,9 +1873,12 @@ def slice_checks_and_times(tgt, wm, card) -> dict:
     print("CHECK one island equals ga.step on the same draws, bit for bit (3 generations)",
           flush=True)
 
-    run_isl = island.make_run_block(obj, cfg, gnm, 4, migrate_every=10, migrate_k=2)
-    st_i, _ = run_isl(fresh_ga(obj, 82), tgt, wm, 3)  # warm-up
-    check_no_sync(lambda: run_isl(st_i, tgt, wm, 3), "a 3-generation island block (I=4)")
+    run_isl = island.make_run_block(obj, cfg, gnm, ISLANDS, ISLAND_EVERY, ISLAND_K)
+    st_i, _ = run_isl(fresh_ga(obj, 82), tgt, wm, 3)  # warm-up and capture
+    st_e = fresh_ga(obj, 82)
+    check_no_sync(lambda: run_isl.eager(st_e, tgt, wm, 3),
+                  "an eager 3-generation island block (I=4)")
+    check_no_sync(lambda: run_isl(st_i, tgt, wm, 3), "a replayed 3-generation island block")
 
     # resumes on the card: run(2k) == run(k) -> save -> load into a fresh template -> run(k)
     sa_cfg, sa_gnm = SAConfig(), GenomeConfig()
@@ -1922,7 +1932,7 @@ def slice_checks_and_times(tgt, wm, card) -> dict:
     plain = {"st": fresh_ga(obj, 86)}
     isl = {"st": fresh_ga(obj, 87)}
     plain["st"], _ = ga.run_block(plain["st"], obj, tgt, wm, cfg, gnm, 5)
-    isl["st"], _ = run_isl(isl["st"], tgt, wm, 5)
+    isl["st"], _ = run_isl.eager(isl["st"], tgt, wm, 5)
     rates = {"plain": [], "islands": []}
     for i in range(RATE_PAIRS):
         for mode in (("plain", "islands") if i % 2 == 0 else ("islands", "plain")):
@@ -1931,12 +1941,13 @@ def slice_checks_and_times(tgt, wm, card) -> dict:
             if mode == "plain":
                 plain["st"], m = ga.run_block(plain["st"], obj, tgt, wm, cfg, gnm, RATE_GA_GENS)
             else:
-                isl["st"], m = run_isl(isl["st"], tgt, wm, RATE_GA_GENS)
+                isl["st"], m = run_isl.eager(isl["st"], tgt, wm, RATE_GA_GENS)
             m.cpu()
             torch.cuda.synchronize()
             rates[mode].append(RATE_GA_GENS / (time.perf_counter() - t0))
     st_g = fresh_ga(obj, 88)
-    exact = graph_launches(lambda: run_isl(st_g, tgt, wm, 20), 20, generators=[st_g.rng])
+    exact = graph_launches(lambda: run_isl.loop(st_g, tgt, wm, 20), 20, generators=[st_g.rng],
+                           prepare=lambda: run_isl.prepare(st_g, 20))
     times = {
         "card": card,
         "ga_generations_per_s_P32_N512": {k: sorted(v)[len(v) // 2] for k, v in rates.items()},
@@ -2130,39 +2141,62 @@ def profile_split(fn, n_gens: int, walk: str = "fitness_kernel") -> dict:
 # inside (iteration 9) and on their boundary (19), at both parities; its
 # graphs are kept per it % 20, so the 10-iteration blocks at 60, 70 and 80
 # make two graphs and replay one.
+# The memetic and island blocks refine / migrate every 10 generations
+# (MEMETIC_EVERY, ISLAND_ARGV): their 15-generation blocks start at phases 0
+# and 5 of that cycle, so a refinement or a migration falls inside a block
+# and on a block's last generation, and each of the two graphs replays once;
+# the memetic block under --metric mix, and under --precision fast
+# --cull-eps 8e-2, refines every RBG_MIX_EVERY inside and at the end of its
+# 10-generation blocks, one graph replayed twice.
 RBG_BLOCKS = {"ga": (10, 10, 10, 5, 5), "adam": (5, 5, 5, 5, 2, 2),
               "sa": (10, 10, 10, 5, 5), "sa_sequential": (4, 4, 4, 2, 2),
-              "pt": (20, 20, 20, 10, 10, 10)}
+              "pt": (20, 20, 20, 10, 10, 10), "memetic": (15, 15, 15, 15),
+              "memetic_mix": (10, 10, 10), "memetic_fast": (10, 10, 10),
+              "islands": (15, 15, 15, 15)}
+RBG_MIX_EVERY = 5
 RBG_SIGMAS = (4.0, 4.0, 2.0, 2.0, 1.0)  # the annealed GA's blur sigma a block: 2 steps between
 RBG_RESUME_BLOCKS, RBG_RESUME_GENS = 3, 20  # GA blocks before and after the checkpoint
 # run_ga at its defaults with frames (every 50 generations), recycles and
 # checkpoints (every 100), graphed against ga.make_run_block's eager body
 RBG_GA_ARGV = ["--generations", "300", "--log-every", "50", "--fps", "2", "--video-len", "3",
                "--recycle-every", "100", "--recycle-k", "16", "--checkpoint-every", "100"]
-RBG_RATE_STEPS = {"ga": 20, "ga_fast": 20, "adam": 20, "sa": 20, "pt": 20}  # a timed block
+# run_ga --memetic-every MEMETIC_EVERY --memetic-steps MEMETIC_STEPS and run_ga
+# with ISLAND_ARGV, graphed against their run blocks' eager bodies
+# (without frames: a frame every generation would cut the blocks to one)
+RBG_MEMETIC_ARGV = ["--generations", "100", "--log-every", "25", "--checkpoint-every", "50",
+                    "--no-video", "--memetic-every", str(MEMETIC_EVERY), "--memetic-steps",
+                    str(MEMETIC_STEPS)]
+RBG_ISLAND_ARGV = ["--generations", "100", "--log-every", "25", "--checkpoint-every", "50",
+                   "--no-video", *ISLAND_ARGV]
+RBG_RATE_STEPS = {"ga": 20, "ga_fast": 20, "adam": 20, "sa": 20, "pt": 20, "memetic": 20,
+                  "islands": 20}  # a timed block
 RBG_RATE_BLOCKS = 5
 RBG_PROFILE_STEPS = 10  # an eager block under torch.profiler (a graphed one: RBG_RATE_STEPS)
 
 
 def run_block_graphs(tgt, wm, card) -> dict:
-    """RUN BLOCK GRAPHS: ga, gradient, sa and pt.make_run_block replayed as
-    CUDA graphs against their eager bodies (`run.eager`) from equal states
-    and equal generator states, in bits after every block (genomes, fits,
-    best, the stall count, Adam's moments and step, the metrics and the
+    """RUN BLOCK GRAPHS: ga, gradient, sa and pt.make_run_block,
+    ga.make_memetic_run_block and island.make_run_block replayed as CUDA
+    graphs against their eager bodies (`run.eager`) from equal states and
+    equal generator states, in bits after every block (genomes, fits, best,
+    the stall count, Adam's moments and step, the metrics and the
     generator's get_state()), over RBG_BLOCKS (a shorter last block): the GA
     exact-tight, fast, bf16 and annealed (a sigma step, the target blurred
     again and the state rescored, between blocks), Adam at run_grad's
     defaults (K7) and under --metric mix (K2' and K6), batched and
-    sequential SA and PT. Each replayed graph's kernel, copy and fill nodes
-    equal graph_launches' count of the same eager block. One GA resume
-    through graphed blocks (a fresh run block after the load, as a resumed
-    process has) equal in bits to the unbroken run; run_ga at its defaults
-    with frames, recycles and checkpoints equal (best genome and curves in
-    bits) to the same run with ga.make_run_block's eager body; a replay
-    issues no host sync; a block that copies from host memory is refused at
-    its capture. Then generations/s, Adam steps/s and SA / PT iterations/s
-    graphed against eager in turns (medians of RBG_RATE_BLOCKS host-timed
-    blocks) and each one's device busy share under torch.profiler."""
+    sequential SA and PT, the memetic block (mse, mix and fast) and the
+    island block (exact-tight and fast). Each replayed graph's kernel, copy
+    and fill nodes equal graph_launches' count of the same eager block (of
+    each phase of the memetic and island blocks). One GA resume through
+    graphed blocks (a fresh run block after the load, as a resumed process
+    has) equal in bits to the unbroken run; run_ga at its defaults with
+    frames, recycles and checkpoints, memetic and with islands equal (best
+    genome and curves in bits) to the same run with its run block's eager
+    body; a replay issues no host sync; a block that copies from host
+    memory is refused at its capture. Then generations/s, Adam steps/s, SA /
+    PT iterations/s and memetic and island generations/s graphed against
+    eager in turns (medians of RBG_RATE_BLOCKS host-timed blocks) and each
+    one's device busy share under torch.profiler."""
     import numpy as np
     import torch
 
@@ -2170,6 +2204,7 @@ def run_block_graphs(tgt, wm, card) -> dict:
     from ggs_tpu_torch.config import GAConfig, GenomeConfig, GradConfig, SAConfig
     from ggs_tpu_torch.models import ga, genome, gradient, pt, sa
     from ggs_tpu_torch.ops import anneal, objective
+    from ggs_tpu_torch.parallel import island
     from ggs_tpu_torch.utils import block_graph, checkpoint
 
     H, W = tgt.shape[:2]
@@ -2186,13 +2221,14 @@ def run_block_graphs(tgt, wm, card) -> dict:
     def work(kinds) -> int:
         return kinds["KERNEL"] + kinds["MEMCPY"] + kinds["MEMSET"]
 
-    def held(tag, run, st_g, st_e, blocks, call, between=None, fresh=None):
+    def held(tag, run, st_g, st_e, blocks, call, between=None, fresh=None, phase_of=None):
         """The graphed and the eager blocks from equal states, equal in bits
-        after each; the first replay's nodes against graph_launches' count
-        of the eager block from a throwaway state fresh(n)."""
+        after each; the first replay's nodes (with phase_of(gen), those of
+        the first replay of each (length, phase)) against graph_launches'
+        count of the eager block from a throwaway state fresh(n, gen)."""
         replays, eager_work = 0, {}
         for i, n in enumerate(blocks):
-            known = run.graphs.replays
+            known, gen0 = run.graphs.replays, st_g[-1]  # the state's step count
             st_g, m_g = call(run, st_g, n, i)
             st_e, m_e = call(run.eager, st_e, n, i)
             check(_same_state(st_g, st_e) and torch.equal(m_g, m_e),
@@ -2200,16 +2236,18 @@ def run_block_graphs(tgt, wm, card) -> dict:
             if run.graphs.replays > known:
                 replays += 1
                 kinds = run.graphs.last.nodes
-                out["nodes_per_step"][f"{tag}_{n}"] = work(kinds) / n
-                out["graph_nodes"][f"{tag}_{n}"] = dict(kinds)
-                if not eager_work:
-                    st_x, gens, opts = fresh(n)
-                    eager_work[n] = graph_launches(
+                key = None if phase_of is None else (n, phase_of(gen0))
+                label = f"{tag}_{n}" if key is None else f"{tag}_{n}_phase{key[1]}"
+                out["nodes_per_step"][label] = work(kinds) / n
+                out["graph_nodes"][label] = dict(kinds)
+                if key not in eager_work:
+                    st_x, gens, opts = fresh(n, gen0)
+                    eager_work[key] = graph_launches(
                         lambda: call(run.loop, st_x, n, i), n, generators=gens,
                         optimizers=opts, prepare=lambda: run.prepare(st_x, n))
-                    check(work(kinds) == round(eager_work[n]["per_step"] * n),
-                          f"{tag}: the replayed {n}-step graph holds {dict(kinds)}, the eager "
-                          f"block {eager_work[n]['nodes']}")
+                    check(work(kinds) == round(eager_work[key]["per_step"] * n),
+                          f"{tag}: the replayed {label} graph holds {dict(kinds)}, the eager "
+                          f"block {eager_work[key]['nodes']}")
             if between is not None:
                 st_g, st_e = between(i, st_g), between(i, st_e)
         check(replays >= 2, f"{tag}: {replays} replays")
@@ -2228,7 +2266,7 @@ def run_block_graphs(tgt, wm, card) -> dict:
         run = ga.make_run_block(o, cfg, gnm)
         held(f"ga_{tier}", run, st0._replace(rng=rng(71)), st0._replace(rng=rng(71)),
              RBG_BLOCKS["ga"], ga_call(),
-             fresh=lambda n: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(72))))
+             fresh=lambda n, gen: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(72))))
     sigmas = [torch.full((), s, dtype=torch.float32, device=dev) for s in RBG_SIGMAS]
     blurred = [anneal.blur_image(tgt, s, anneal.default_radius(float(s))) for s in sigmas]
 
@@ -2241,37 +2279,59 @@ def run_block_graphs(tgt, wm, card) -> dict:
     run = ga.make_run_block(obj, cfg, gnm)
     held("ga_annealed", run, st0._replace(rng=rng(74)), st0._replace(rng=rng(74)),
          RBG_BLOCKS["ga"], ga_call(lambda i: blurred[i], lambda i: sigmas[i]), between=rescore,
-         fresh=lambda n: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(75))))
+         fresh=lambda n, gen: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(75))))
 
     # Adam: run_grad's defaults (K7) and --metric mix (K2' forward, K6 backward)
-    def adam_call(run, st, n, i):
+    def plain_call(run, st, n, i):
         return run(st, tgt, wm, n)
 
     for tag, o in (("adam", obj), ("adam_mix", obj._replace(metric="mix"))):
         run = gradient.make_run_block(o, adam_gnm, GradConfig(lr=1e-2))
         g0 = adam_genome()
 
-        def fresh(n, run=run, g0=g0):
+        def fresh(n, gen, run=run, g0=g0):
             st = gradient.init_state(run.make_opt, g0)
             st, _ = run.eager(st, tgt, wm, 1)  # the moments exist, as in a graphed block
             return st, [], [st.opt]
 
         held(tag, run, gradient.init_state(run.make_opt, g0), gradient.init_state(run.make_opt, g0),
-             RBG_BLOCKS["adam"], adam_call, fresh=fresh)
+             RBG_BLOCKS["adam"], plain_call, fresh=fresh)
 
     # SA (batched, sequential) and PT at run_sa's defaults
-    def sa_call(run, st, n, i):
-        return run(st, tgt, wm, n)
-
     for tag, c in (("sa", SAConfig()), ("sa_sequential", SAConfig(proposal_mode="sequential"))):
         st0 = sa.init(rng(76), obj, tgt, wm, sa_gnm)
         run = sa.make_run_block(obj, c, sa_gnm)
         held(tag, run, st0._replace(rng=rng(77)), st0._replace(rng=rng(77)), RBG_BLOCKS[tag],
-             sa_call, fresh=lambda n: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(78))))
+             plain_call,
+             fresh=lambda n, gen: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(78))))
     st0 = pt.init(rng(79), obj, tgt, wm, sa_gnm, PT_K, 1e-3, 1e-1)
     run = pt.make_run_block(obj, SAConfig(), sa_gnm, swap_every=10)
     held("pt", run, st0._replace(rng=rng(80)), st0._replace(rng=rng(80)), RBG_BLOCKS["pt"],
-         sa_call, fresh=lambda n: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(81))))
+         plain_call, fresh=lambda n, gen: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(81))))
+
+    # the memetic block at run_ga's defaults (K7 in its refinements), under
+    # --metric mix (K2' and K6) and under --precision fast --cull-eps 8e-2
+    # (K3/K4, and K7 on corner-culled lists), and the island block at
+    # ISLAND_ARGV in the exact-tight and fast tiers: each (length, phase)
+    # graph's nodes checked
+    def ga_fresh(st0, seed):
+        return lambda n, gen: (lambda s: (s, [s.rng], []))(st0._replace(rng=rng(seed), gen=gen))
+
+    for tag, o, every in (("memetic", obj, MEMETIC_EVERY),
+                          ("memetic_mix", obj._replace(metric="mix"), RBG_MIX_EVERY),
+                          ("memetic_fast", obj._replace(precision="fast", cull_eps=8e-2),
+                           RBG_MIX_EVERY)):
+        st0 = ga.init(rng(110), o, tgt, wm, cfg, gnm)
+        run = ga.make_memetic_run_block(o, cfg, gnm, GradConfig(lr=1e-2), every, MEMETIC_STEPS)
+        held(tag, run, st0._replace(rng=rng(111)), st0._replace(rng=rng(111)), RBG_BLOCKS[tag],
+             plain_call, fresh=ga_fresh(st0, 112), phase_of=lambda gen, every=every: gen % every)
+    for tier in ("exact-tight", "fast"):
+        o = obj._replace(precision=tier)
+        st0 = ga.init(rng(113), o, tgt, wm, cfg, gnm)
+        run = island.make_run_block(o, cfg, gnm, ISLANDS, ISLAND_EVERY, ISLAND_K)
+        held(f"islands_{tier}", run, st0._replace(rng=rng(114)), st0._replace(rng=rng(114)),
+             RBG_BLOCKS["islands"], plain_call, fresh=ga_fresh(st0, 115),
+             phase_of=lambda gen: gen % ISLAND_EVERY)
 
     # a replay issues no host sync; a block copying from host memory is refused
     run = ga.make_run_block(obj, cfg, gnm)
@@ -2279,6 +2339,13 @@ def run_block_graphs(tgt, wm, card) -> dict:
     for _ in range(2):
         st, _ = run(st, tgt, wm, 5)
     check_no_sync(lambda: run(st, tgt, wm, 5), "a replayed 5-generation GA block")
+    run = ga.make_memetic_run_block(obj, cfg, gnm, GradConfig(lr=1e-2), MEMETIC_EVERY,
+                                    MEMETIC_STEPS)
+    st = ga.init(rng(116), obj, tgt, wm, cfg, gnm)
+    for _ in range(2):
+        st, _ = run(st, tgt, wm, MEMETIC_EVERY)
+    check_no_sync(lambda: run(st, tgt, wm, MEMETIC_EVERY),
+                  f"a replayed {MEMETIC_EVERY}-generation memetic block (one refinement)")
     one = torch.ones(1, pin_memory=True)
     refused = block_graph.BlockGraphs(
         lambda inp, n, host, r: inp["x"] + one.to(dev, non_blocking=True))
@@ -2312,30 +2379,42 @@ def run_block_graphs(tgt, wm, card) -> dict:
     print(f"CHECK a graphed GA resumed after {RBG_RESUME_BLOCKS} blocks of {RBG_RESUME_GENS} "
           "equals the unbroken run in bits", flush=True)
 
-    # run_ga at its defaults: graphed against make_run_block's eager body
-    plain_make = ga.make_run_block
+    # run_ga at its defaults (frames, recycles, checkpoints), memetic and with
+    # islands: graphed against the eager body of the run block it builds
     counted = kernel_counters()
-    res, out["launches"] = {}, {}
-    for mode in ("graphed", "eager"):
-        if mode == "eager":
-            ga.make_run_block = lambda *a, **kw: plain_make(*a, **kw).eager
-        try:
-            reset_kernel_counts(counted)
-            res[mode] = run_ga.main(["--image", "synthetic", *RBG_GA_ARGV, "--output-dir",
-                                     os.path.join(HERE, "output", f"rbg_run_ga_{mode}"),
-                                     "--device", str(dev)])
-            torch.cuda.synchronize()
-            out["launches"][f"run_ga {mode}"] = read_kernel_counts(counted)
-        finally:
-            ga.make_run_block = plain_make
-    bg, be = np.asarray(res["graphed"]["best"]), np.asarray(res["eager"]["best"])
-    check(bg.shape == be.shape and bool((bg.view(np.uint32) == be.view(np.uint32)).all())
-          and res["graphed"]["curves"] == res["eager"]["curves"],
-          "run_ga with frames, recycles and checkpoints: graphed and eager runs differ")
-    cg, ce = out["launches"]["run_ga graphed"], out["launches"]["run_ga eager"]
-    check(cg == ce and cg["K1"] >= 300, f"run_ga's launch counts: graphed {cg}, eager {ce}")
-    print("CHECK run_ga (frames, recycles, checkpoints) graphed equals eager: best genome, "
-          f"curves and launch counts ({cg['K1']} K1, {cg['K2']} K2)", flush=True)
+    out["launches"] = {}
+    for name, module, maker, argv in (
+            ("run_ga", ga, "make_run_block", RBG_GA_ARGV),
+            ("run_ga memetic", ga, "make_memetic_run_block", RBG_MEMETIC_ARGV),
+            ("run_ga islands", island, "make_run_block", RBG_ISLAND_ARGV)):
+        plain_make, res = getattr(module, maker), {}
+        for mode in ("graphed", "eager"):
+            if mode == "eager":
+                setattr(module, maker, lambda *a, plain_make=plain_make, **kw:
+                        plain_make(*a, **kw).eager)
+            try:
+                reset_kernel_counts(counted)
+                res[mode] = run_ga.main(["--image", "synthetic", *argv, "--output-dir",
+                                         os.path.join(HERE, "output",
+                                                      f"rbg_{name.replace(' ', '_')}_{mode}"),
+                                         "--device", str(dev)])
+                torch.cuda.synchronize()
+                out["launches"][f"{name} {mode}"] = read_kernel_counts(counted)
+            finally:
+                setattr(module, maker, plain_make)
+        bg, be = np.asarray(res["graphed"]["best"]), np.asarray(res["eager"]["best"])
+        check(bg.shape == be.shape and bool((bg.view(np.uint32) == be.view(np.uint32)).all())
+              and res["graphed"]["curves"] == res["eager"]["curves"],
+              f"{name} {argv}: graphed and eager runs differ")
+        cg, ce = out["launches"][f"{name} graphed"], out["launches"][f"{name} eager"]
+        gens = int(argv[argv.index("--generations") + 1])
+        check(cg == ce and cg["K1"] >= gens, f"{name}'s launch counts: graphed {cg}, eager {ce}")
+        print(f"CHECK {name} {' '.join(argv)} graphed equals eager: best genome, curves and "
+              f"launch counts ({cg['K1']} K1, {cg['K2']} K2, {cg['K7']} K7)", flush=True)
+    want_k7 = (int(RBG_MEMETIC_ARGV[1]) // MEMETIC_EVERY) * MEMETIC_STEPS
+    check(out["launches"]["run_ga memetic graphed"]["K7"] == want_k7,
+          f"the graphed memetic run_ga launched K7 "
+          f"{out['launches']['run_ga memetic graphed']['K7']} times, not {want_k7}")
 
     # rates, graphed against eager in turns, and the device's busy share
     phase("run block graphs: graphed against eager, rates and busy shares")
@@ -2355,6 +2434,13 @@ def run_block_graphs(tgt, wm, card) -> dict:
     st0 = pt.init(rng(90), obj, tgt, wm, sa_gnm, PT_K, 1e-3, 1e-1)
     fams["pt"] = (pt.make_run_block(obj, SAConfig(), sa_gnm, swap_every=10), st0,
                   st0._replace(rng=rng(91)), lambda run, st, n: run(st, tgt, wm, n))
+    st0 = ga.init(rng(117), obj, tgt, wm, cfg, gnm)
+    fams["memetic"] = (ga.make_memetic_run_block(obj, cfg, gnm, GradConfig(lr=1e-2),
+                                                 MEMETIC_EVERY, MEMETIC_STEPS),
+                       st0, st0._replace(rng=rng(118)), lambda run, st, n: run(st, tgt, wm, n))
+    st0 = ga.init(rng(119), obj, tgt, wm, cfg, gnm)
+    fams["islands"] = (island.make_run_block(obj, cfg, gnm, ISLANDS, ISLAND_EVERY, ISLAND_K),
+                       st0, st0._replace(rng=rng(120)), lambda run, st, n: run(st, tgt, wm, n))
     rates, busy = {}, {}
     for tag, (run, st_g, st_e, call) in fams.items():
         n = RBG_RATE_STEPS[tag]

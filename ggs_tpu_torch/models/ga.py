@@ -14,7 +14,8 @@ sigmas are then read on the card from a table of the whole run
 its random numbers from the state's torch.Generator, or from `draws` when
 given (the tests hand it the JAX package's own draws).
 With `memetic_every` set, the elites get a few Adam steps through the
-differentiable renderer every that many generations (`run_memetic_block`).
+differentiable renderer every that many generations
+(`make_memetic_run_block`, also replayed as a CUDA graph).
 `genetic_approx` also runs scale-space annealing (`blur_sigma`, ops/anneal.py),
 the densify+prune recycle (models/grow.py), stall-ended stages for growth,
 warm starts from a population, video frames, the island model
@@ -243,6 +244,58 @@ def run_block(
     return state, torch.stack(out)
 
 
+def _sigma_tables(ga: GAConfig, sig_max: Optional[MutSigma], sig_min: Optional[MutSigma]):
+    """-> (tables, prepare): a run's mutation-sigma tables by device, and
+    prepare(state, num_gens), which uploads the state's device's table once,
+    makes it cover the block and fills its counter from state.gen."""
+    sig_max_d = (sig_max or MutSigma.max_defaults()).__dict__
+    sig_min_d = (sig_min or MutSigma.min_defaults()).__dict__
+    tables: Dict[str, genome_mod.StepRows] = {}
+
+    def prepare(state: GAState, num_gens: int) -> genome_mod.StepRows:
+        dev = str(state.pop.device)
+        if dev not in tables:
+            tables[dev] = _sigma_rows(ga, sig_max_d, sig_min_d, state.pop.device)
+        tables[dev].cover(state.gen + num_gens)
+        tables[dev].start(state.gen)
+        return tables[dev]
+
+    return tables, prepare
+
+
+def _graphed_run_block(prepare, loop, phase_of, use_graphs: bool):
+    """The block_graph.RunBlock of a GAState block: loop(state, target,
+    weight_mask, num_gens, **kw) the steps (kw: blur_sigma, for the plain
+    GA), prepare(state, num_gens) its sigma table's fill, phase_of(gen) what
+    the block's host branches depend on besides its length (the graphs' key:
+    () for none)."""
+    from ..utils.block_graph import BlockGraphs, RunBlock
+
+    def body(inp, n, gen0, rng):
+        st = GAState(inp["pop"], inp["fits"], inp["best"], inp["best_fit"], inp["no_improve"],
+                     rng, gen0)
+        kw = {"blur_sigma": inp["blur_sigma"]} if "blur_sigma" in inp else {}
+        st, metrics = loop(st, inp["target"], inp["weight_mask"], n, **kw)
+        return tuple(st[:5]), metrics
+
+    graphs = BlockGraphs(body)
+
+    def eager(state: GAState, target, weight_mask, num_gens: int, **kw):
+        prepare(state, num_gens)
+        return loop(state, target, weight_mask, num_gens, **kw)
+
+    def graphed(state: GAState, target, weight_mask, num_gens: int, **kw):
+        rows = prepare(state, num_gens)
+        inputs = {"pop": state.pop, "fits": state.fits, "best": state.best,
+                  "best_fit": state.best_fit, "no_improve": state.no_improve, "target": target,
+                  "weight_mask": weight_mask, **kw}
+        out, metrics = graphs(inputs, num_gens, state.gen, rng=state.rng,
+                              phase=phase_of(state.gen), epoch=rows.version)
+        return GAState(*out, state.rng, state.gen + num_gens), metrics
+
+    return RunBlock(eager, graphed, graphs, prepare, loop, use_graphs)
+
+
 def make_run_block(
     obj: Objective,
     ga: GAConfig,
@@ -263,53 +316,22 @@ def make_run_block(
     same block run eagerly (chip_smoke holds replays to it),
     run.prepare(state, n) and run.loop(state, target, weight_mask, n,
     blur_sigma) its two parts, `run.graphs` the BlockGraphs."""
-    from ..utils.block_graph import BlockGraphs, RunBlock, stays_eager
+    from ..utils.block_graph import stays_eager
 
-    sig_max_d = (sig_max or MutSigma.max_defaults()).__dict__
-    sig_min_d = (sig_min or MutSigma.min_defaults()).__dict__
-    tables: Dict[str, genome_mod.StepRows] = {}
-
-    def prepare(state: GAState, num_gens: int) -> genome_mod.StepRows:
-        dev = str(state.pop.device)
-        if dev not in tables:
-            tables[dev] = _sigma_rows(ga, sig_max_d, sig_min_d, state.pop.device)
-        tables[dev].cover(state.gen + num_gens)
-        tables[dev].start(state.gen)
-        return tables[dev]
+    tables, prepare = _sigma_tables(ga, sig_max, sig_min)
 
     def loop(state: GAState, target, weight_mask, num_gens: int, blur_sigma=None):
         return run_block(state, obj, target, weight_mask, ga, gnm, num_gens,
                          blur_sigma=blur_sigma, rows=tables[str(state.pop.device)])
 
-    def body(inp, n, gen0, rng):
-        st = GAState(inp["pop"], inp["fits"], inp["best"], inp["best_fit"], inp["no_improve"],
-                     rng, gen0)
-        st, metrics = loop(st, inp["target"], inp["weight_mask"], n, inp["blur_sigma"])
-        return tuple(st[:5]), metrics
-
-    graphs = BlockGraphs(body)
-
-    def eager(state: GAState, target, weight_mask, num_gens: int, blur_sigma=None):
-        prepare(state, num_gens)
-        return loop(state, target, weight_mask, num_gens, blur_sigma)
-
-    def graphed(state: GAState, target, weight_mask, num_gens: int, blur_sigma=None):
-        rows = prepare(state, num_gens)
-        inputs = {"pop": state.pop, "fits": state.fits, "best": state.best,
-                  "best_fit": state.best_fit, "no_improve": state.no_improve, "target": target,
-                  "weight_mask": weight_mask, "blur_sigma": blur_sigma}
-        out, metrics = graphs(inputs, num_gens, state.gen, rng=state.rng, epoch=rows.version)
-        return GAState(*out, state.rng, state.gen + num_gens), metrics
-
-    return RunBlock(eager, graphed, graphs, prepare, loop, not stays_eager(obj))
+    return _graphed_run_block(prepare, loop, lambda gen: (), not stays_eager(obj))
 
 
-def _refine(state: GAState, obj, target, weight_mask, gnm, grad_cfg, refine_steps, E) -> GAState:
-    """Adam-refine the E elites (the first E of the population after a
-    step); the best is updated on the same 1e-10 rule as a generation."""
-    el, ef = gradient.refine_elites(
-        state.pop[:E], state.fits[:E], target, weight_mask, obj, gnm, grad_cfg, refine_steps
-    )
+def _refine(state: GAState, refine, E: int, target, weight_mask) -> GAState:
+    """The E elites (the first E of the population after a step) through
+    refine(elites, fits, target, weight_mask) (gradient.make_refine); the
+    best is updated on the same 1e-10 rule as a generation."""
+    el, ef = refine(state.pop[:E], state.fits[:E], target, weight_mask)
     pop = torch.cat([el, state.pop[E:]], dim=0)
     fits = torch.cat([ef, state.fits[E:]], dim=0)
     gb = torch.argmin(fits).reshape(1)  # a [1] index: no host sync
@@ -324,24 +346,56 @@ def _refine(state: GAState, obj, target, weight_mask, gnm, grad_cfg, refine_step
     )
 
 
+def make_memetic_run_block(
+    obj: Objective,
+    ga: GAConfig,
+    gnm: GenomeConfig,
+    grad_cfg: GradConfig,
+    refine_every: int,
+    refine_steps: int,
+    sig_max: Optional[MutSigma] = None,
+    sig_min: Optional[MutSigma] = None,
+):
+    """-> run(state, target, weight_mask, num_gens) -> (state, metrics
+    [num_gens, 4]): the hybrid GA+Adam block (ga.make_memetic_run_block).
+    Each generation is a plain step, and every refine_every-th is followed
+    by `refine_steps` Adam steps on the E = max(1, elite_k) elites
+    (gradient.make_refine, built once for the run), each kept only when the
+    GA's own evaluator scores it lower, so the best curve stays monotone;
+    metrics column 0 is the best after the refinement, column 3 the stall
+    count. A block_graph.RunBlock as make_run_block's: on a card a CUDA
+    graph replayed per (length, state.gen % refine_every, shapes,
+    generator), which fixes the generations of the block that refine."""
+    from ..utils.block_graph import stays_eager
+
+    tables, prepare = _sigma_tables(ga, sig_max, sig_min)
+    E = max(1, ga.elite_k)
+    refine = gradient.make_refine(obj, gnm, grad_cfg, refine_steps)
+
+    def loop(state: GAState, target, weight_mask, num_gens: int):
+        rows = tables[str(state.pop.device)]
+        out = []
+        for _ in range(num_gens):
+            state, m = step(state, obj, target, weight_mask, ga, gnm, {}, {}, rows=rows)
+            if state.gen % refine_every == 0:
+                state = _refine(state, refine, E, target, weight_mask)
+            out.append(torch.stack([state.best_fit, m[1], m[2], state.no_improve.to(m.dtype)]))
+        return state, torch.stack(out)
+
+    return _graphed_run_block(prepare, loop, lambda gen: gen % refine_every,
+                              not stays_eager(obj))
+
+
 def run_memetic_block(
     state: GAState, obj: Objective, target, weight_mask, ga: GAConfig, gnm: GenomeConfig,
     grad_cfg: GradConfig, refine_every: int, refine_steps: int, num_gens: int,
+    sig_max: Optional[MutSigma] = None, sig_min: Optional[MutSigma] = None,
 ) -> Tuple[GAState, torch.Tensor]:
-    """The hybrid GA+Adam block (ga.make_memetic_run_block): each generation
-    is a plain step, and every refine_every-th is followed by `refine_steps`
-    Adam steps on the elites, each kept only when it improved, so the best
-    curve stays monotone. -> (state, metrics [num_gens, 4])."""
-    sig_max = MutSigma.max_defaults().__dict__
-    sig_min = MutSigma.min_defaults().__dict__
-    E = max(1, ga.elite_k)
-    rows = []
-    for _ in range(num_gens):
-        state, m = step(state, obj, target, weight_mask, ga, gnm, sig_max, sig_min)
-        if state.gen % refine_every == 0:
-            state = _refine(state, obj, target, weight_mask, gnm, grad_cfg, refine_steps, E)
-        rows.append(torch.stack([state.best_fit, m[1], m[2], state.no_improve.to(m.dtype)]))
-    return state, torch.stack(rows)
+    """make_memetic_run_block's block run once, eagerly -> (state, metrics
+    [num_gens, 4])."""
+    run = make_memetic_run_block(obj, ga, gnm, grad_cfg, refine_every, refine_steps, sig_max,
+                                 sig_min)
+    return run.eager(state, target, weight_mask, num_gens)
 
 
 def _rescore(state: GAState, obj, target, weight_mask, sigma) -> GAState:
@@ -367,6 +421,8 @@ def genetic_approx(
     ga: GAConfig,
     gnm: GenomeConfig,
     mask_cfg: Optional[MaskConfig] = None,
+    sig_max: Optional[MutSigma] = None,
+    sig_min: Optional[MutSigma] = None,
     seed: int = 42,
     log_every: int = 50,
     save_video: bool = False,
@@ -402,7 +458,9 @@ def genetic_approx(
     `log_every` generations run per block, with one host sync each; every
     trigger below reads that block's metrics. The importance mask comes from
     every field of mask_cfg unless `weight_mask` [H, W] is given.
-    `init_pop` warm-starts from a population (see init).
+    `init_pop` warm-starts from a population (see init). sig_max and sig_min
+    are the mutation sigmas' bounds (MutSigma's defaults when None), which
+    every mode's block anneals between.
     save_video writes the best's frame every `frame_every` generations to
     video_dir/{prefix}_{gen}.png (the block shrinks to that cadence).
     recycle_every/recycle_k: every recycle_every generations each candidate's
@@ -463,12 +521,17 @@ def genetic_approx(
         if tuple(weight_mask.shape) != (H, W):
             raise ValueError(f"weight_mask has shape {tuple(weight_mask.shape)}, not {(H, W)}")
 
+    # the run's block, built once per stage (a resumed process builds its own)
     if n_islands > 1:
         from ..parallel import island
 
-        run_islands = island.make_run_block(obj, ga, gnm, n_islands, migrate_every, migrate_k,
-                                            mesh=mesh)
-    run_ga = make_run_block(obj, ga, gnm)
+        run = island.make_run_block(obj, ga, gnm, n_islands, migrate_every, migrate_k, sig_max,
+                                    sig_min, mesh=mesh)
+    elif memetic_every > 0:
+        run = make_memetic_run_block(obj, ga, gnm, GradConfig(lr=memetic_lr), memetic_every,
+                                     memetic_steps, sig_max, sig_min)
+    else:
+        run = make_run_block(obj, ga, gnm, sig_max, sig_min)
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
     state = init(rng, obj, target, weight_mask, ga, gnm, init_pop=init_pop)
@@ -519,16 +582,9 @@ def genetic_approx(
             profiled = profiled or traced
             with profiling.trace(profile_dir if traced else None), \
                     profiling.named_scope(f"{prefix} block {gen}-{gen + block}"):
-                if n_islands > 1:
-                    state, metrics = run_islands(state, cur_target, weight_mask, block)
-                elif memetic_every > 0:
-                    state, metrics = run_memetic_block(
-                        state, obj, cur_target, weight_mask, ga, gnm, GradConfig(lr=memetic_lr),
-                        memetic_every, memetic_steps, block,
-                    )
-                else:
-                    state, metrics = run_ga(state, cur_target, weight_mask, block,
-                                            blur_sigma=sigma_t)
+                # the island and memetic blocks refuse annealing: sigma_t is None there
+                kw = {} if sigma_t is None else {"blur_sigma": sigma_t}
+                state, metrics = run(state, cur_target, weight_mask, block, **kw)
                 metrics = metrics.cpu().numpy()  # the block's one host sync
             gens_per_s = block / max(1e-9, time.perf_counter() - t_block)
             curves["best"].extend(metrics[:, 0].tolist())

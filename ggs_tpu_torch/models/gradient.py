@@ -7,8 +7,9 @@ renderer's exact backward (ops/render_grad.py), which gives:
 * `fit_adam`: projected Adam on a genome batch; the projection is
   `codec.clamp_genome`, the domain the evolutionary operators keep.
 * `refine_elites`: a few Adam steps on the GA's elites, each kept only when
-  the GA's own evaluator scores it better (Lamarckian refinement; the
-  memetic block of models/ga.py calls it).
+  the GA's own evaluator scores it better (Lamarckian refinement);
+  `make_refine` is the same built once, which the memetic block of
+  models/ga.py holds and a CUDA graph replays.
 
 Under precision "fast" the gradient paths walk the eps-culled lists
 (`_grad_cull_eps`, `_grad_corner`): exact gradients of the culled render the
@@ -438,6 +439,38 @@ def fit_adam(
     return g[b].cpu().numpy(), float(final_fits[b]), curve
 
 
+def make_refine(obj: Objective, gnm: GenomeConfig, cfg: GradConfig, steps: int):
+    """-> refine(elites, elite_fits, target, weight_mask) -> (elites, fits):
+    refine_elites built once for a run, as a run block holds it. It keeps
+    make_fit_step's closures, an elite buffer [E, N, 9] and one Adam over it
+    (make_adam: capturable and fused on a card) for each shape and device.
+    A refinement copies the elites into the buffer and sets Adam's moments
+    and step count to zero in place (JAX's fresh init_state,
+    gradient.py:432-433), so a CUDA graph can replay it without allocating;
+    its results equal refine_elites' in bits."""
+    make_opt, step = make_fit_step(obj, gnm, cfg)
+    held: dict = {}  # (shape, device) -> the GradState over that elite buffer
+
+    def refine(elites, elite_fits, target, weight_mask):
+        key = (tuple(elites.shape), str(elites.device))
+        state = held.get(key)
+        if state is None:
+            g = torch.empty(elites.shape, dtype=torch.float32, device=elites.device)
+            state = held[key] = GradState(g, make_opt(g), 0)
+        with torch.no_grad():
+            state.g.copy_(elites)
+        for t in state.opt.state.get(state.g, {}).values():  # none before the first step
+            t.zero_()
+        state, _ = run_block(state, step, target, weight_mask, steps)
+        g = state.g.detach()
+        new_fits = objective_mod.evaluate(obj, g, target, weight_mask, device=elites.device)
+        better = new_fits < elite_fits
+        return (torch.where(better[:, None, None], g, elites),
+                torch.where(better, new_fits, elite_fits))
+
+    return refine
+
+
 def refine_elites(
     elites: torch.Tensor,
     elite_fits: torch.Tensor,
@@ -448,12 +481,8 @@ def refine_elites(
     cfg: GradConfig,
     steps: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Lamarckian refinement: `steps` Adam steps on the elite batch; an
-    elite is replaced only if the GA's own evaluator (objective.evaluate)
-    scores the refined genome lower. Returns (elites, fits)."""
-    make_opt, step = make_fit_step(obj, gnm, cfg)
-    state, _ = run_block(init_state(make_opt, elites), step, target, weight_mask, steps)
-    g = state.g.detach()
-    new_fits = objective_mod.evaluate(obj, g, target, weight_mask, device=elites.device)
-    better = new_fits < elite_fits
-    return torch.where(better[:, None, None], g, elites), torch.where(better, new_fits, elite_fits)
+    """Lamarckian refinement: `steps` Adam steps on the elite batch from a
+    fresh Adam; an elite is replaced only if the GA's own evaluator
+    (objective.evaluate) scores the refined genome lower. Returns (elites,
+    fits)."""
+    return make_refine(obj, gnm, cfg, steps)(elites, elite_fits, target, weight_mask)

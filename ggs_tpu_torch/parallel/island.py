@@ -12,12 +12,13 @@ As in models/ga.py, a step takes its random numbers from the state's
 torch.Generator, or from `draws` when given (the tests hand it the JAX
 package's own draws), and a run block keeps every value on the device: the
 generation counter is a host int, so whether a generation migrates is a
-host `if`, not a device branch. Ties keep JAX's order: `lax.top_k` keeps
-the lower index first among equal values, so the elites, the migrants and
-the worst slots come from stable sorts, and the deme shuffle is a stable
-argsort of uniforms as `jnp.argsort` is. With one island the step equals
-models/ga.step on the same draws (the shuffle's permutation being the
-argsort of its uniforms).
+host `if`, not a device branch; `make_run_block` replays the block as a
+CUDA graph on a card, keyed by where it starts in the migration cycle.
+Ties keep JAX's order: `lax.top_k` keeps the lower index first among equal
+values, so the elites, the migrants and the worst slots come from stable
+sorts, and the deme shuffle is a stable argsort of uniforms as
+`jnp.argsort` is. With one island the step equals models/ga.step on the
+same draws (the shuffle's permutation being the argsort of its uniforms).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import torch
 
 from ..config import GAConfig, GenomeConfig, MutSigma
 from ..models import genome as genome_mod, operators
-from ..models.ga import GAState, _evaluate, _median
+from ..models.ga import GAState, _evaluate, _graphed_run_block, _median, _sigma_tables
 from ..ops import anneal as anneal_mod
 from ..ops.objective import Objective
 
@@ -99,10 +100,12 @@ def step(
     draws: Optional[Dict] = None,
     blur_sigma: Optional[torch.Tensor] = None,
     mesh=None,
+    rows: Optional[genome_mod.StepRows] = None,
 ) -> Tuple[GAState, torch.Tensor]:
     """One island-GA generation over the [P, N, 9] population. Returns
     (state, [best, mean, median, no_improve]) as ga.step does; blur_sigma
-    as in ga.step; with mesh the migration ring runs over its pop shards."""
+    and rows (the sigmas read on the device) as in ga.step; with mesh the
+    migration ring runs over its pop shards."""
     P, N, _ = state.pop.shape
     I = n_islands
     S = P // I
@@ -126,7 +129,11 @@ def step(
     c2 = torch.where(m_eff, b, a)
     offspring = torch.stack([c1, c2], dim=2).reshape(P, N, 9)
 
-    sig = genome_mod.build_mut_sigma(gen, ga.generations, ga.schedule, sig_max, sig_min)
+    if rows is not None:
+        rows.advance()
+        sig = rows.row()
+    else:
+        sig = genome_mod.build_mut_sigma(gen, ga.generations, ga.schedule, sig_max, sig_min)
     offspring = operators.apply_mutation(
         offspring, draws["mut"], sig, ga.mutpb, obj.H, obj.W, gnm.min_scale, gnm.max_scale
     )
@@ -179,9 +186,16 @@ def make_run_block(
     mesh=None,
 ):
     """-> run(state, target, weight_mask, num_gens) -> (state, metrics
-    [num_gens, 4]): island steps without a host sync (mesh: see step).
-    Raises ValueError when the population does not split into demes of an
-    even size, or migrate_k does not fit a deme."""
+    [num_gens, 4]): island steps without a host sync (mesh: see step), the
+    sigmas read on the device from the run's table. A block_graph.RunBlock
+    as ga.make_run_block's: on a card a CUDA graph replayed per (length,
+    state.gen % migrate_every, shapes, generator), which fixes the
+    generations of the block that migrate; under a mesh or obj.chunk it
+    stays eager (block_graph.stays_eager: gloo stages its collectives
+    through host memory). Raises ValueError when the population does not
+    split into demes of an even size, or migrate_k does not fit a deme."""
+    from ..utils.block_graph import stays_eager
+
     if ga.pop_size % n_islands:
         raise ValueError(f"pop_size {ga.pop_size} must divide into n_islands {n_islands}")
     S = ga.pop_size // n_islands
@@ -192,15 +206,18 @@ def make_run_block(
         )
     if migrate_every and n_islands > 1 and not 1 <= migrate_k <= S:
         raise ValueError(f"migrate_k {migrate_k} must lie in [1, {S}], the deme size")
-    sig_max_d = (sig_max or MutSigma.max_defaults()).__dict__
-    sig_min_d = (sig_min or MutSigma.min_defaults()).__dict__
+    tables, prepare = _sigma_tables(ga, sig_max, sig_min)
+    migrates = bool(migrate_every) and n_islands > 1
 
-    def run(state: GAState, target, weight_mask, num_gens: int):
-        rows = []
+    def loop(state: GAState, target, weight_mask, num_gens: int):
+        rows = tables[str(state.pop.device)]
+        out = []
         for _ in range(num_gens):
-            state, m = step(state, obj, target, weight_mask, ga, gnm, sig_max_d, sig_min_d,
-                            n_islands, migrate_every, migrate_k, mesh=mesh)
-            rows.append(m)
-        return state, torch.stack(rows)
+            state, m = step(state, obj, target, weight_mask, ga, gnm, {}, {}, n_islands,
+                            migrate_every, migrate_k, mesh=mesh, rows=rows)
+            out.append(m)
+        return state, torch.stack(out)
 
-    return run
+    return _graphed_run_block(prepare, loop,
+                              (lambda gen: gen % migrate_every) if migrates else (lambda gen: ()),
+                              mesh is None and not stays_eager(obj))

@@ -3,15 +3,18 @@
 The JAX package runs each optimizer in run blocks, `jax.jit` over a
 `lax.scan` of the step with the state donated (`donate_argnums=(0,)`),
 traced once and replayed as one XLA program for every block of the same
-length (ggs_tpu/models/ga.py:176-197, gradient.py:311-321, sa.py:133-150,
-pt.py:182-202). `BlockGraphs` is the port's counterpart: a block's eager
-body is captured into a `torch.cuda.CUDAGraph` and replayed, so the host
-issues one graph launch a block instead of every kernel of every step.
+length (ggs_tpu/models/ga.py:176-254, gradient.py:311-321, sa.py:133-150,
+pt.py:182-202, parallel/island.py:175-208). `BlockGraphs` is the port's
+counterpart: a block's eager body is captured into a `torch.cuda.CUDAGraph`
+and replayed, so the host issues one graph launch a block instead of every
+kernel of every step.
 
 * One graph per key: the block length, the caller's phase (PT's position in
-  its swap cycle), the inputs' shapes and dtypes (a None input, such as an
-  absent weight mask or blur sigma, is part of it) and the generator; a new
-  `epoch` (a per-step table rebuilt longer) drops them all.
+  its swap cycle, the memetic block's in its refine cycle, the island
+  block's in its migration cycle), the inputs' shapes and dtypes (a None
+  input, such as an absent weight mask or blur sigma, is part of it) and
+  the generator; a new `epoch` (a per-step table rebuilt longer) drops
+  them all.
 * The first call of a key runs the eager body on the capture stream, and
   its result is that call's: the body's kernel builds, library loads,
   per-stream buffers and lazily made constants happen there, outside the
@@ -37,14 +40,16 @@ issues one graph launch a block instead of every kernel of every step.
 * On the CPU (no capture) the helper runs the eager body: the plain version
   the tests use, and on a card the one chip_smoke compares replays with.
 
-Which blocks stay eager (the rule; there is no switch): the memetic block
-(Adam refinement inside a `gen % refine_every` branch), the island block
-(migration every `migrate_every` generations), every block under a
-`torch.distributed` mesh (gloo collectives sync through host memory) and
+Which blocks stay eager (the rule; there is no switch): every block under
+a `torch.distributed` mesh (gloo collectives sync through host memory) and
 every block whose objective scores in chunks (`Objective.chunk`, run_ga
 --eval-chunk: the chunks exist because the batch barely fits, and a
 graph's private pool needs more than the eager peak; the card is busy
-there anyway). `stays_eager` is the rule for the last two.
+there anyway). `stays_eager` is the rule. Every other block is replayed:
+the GA, memetic, island, Adam, SA and PT blocks. A block whose host
+branches depend on where it starts (the memetic refinement every
+`refine_every` generations, the island migration every `migrate_every`,
+PT's swaps) passes that residue as the graphs' `phase`.
 """
 from __future__ import annotations
 
