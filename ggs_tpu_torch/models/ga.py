@@ -43,6 +43,7 @@ from ..ops import mask as mask_mod
 from ..ops import objective as objective_mod
 from ..ops.objective import Objective
 from . import genome as genome_mod
+from ..utils import profiling
 from . import gradient, grow, operators
 
 
@@ -97,13 +98,14 @@ def init(
 def draw_offspring(rng: torch.Generator, P: int, N: int, tour_k: int, device) -> Dict[str, torch.Tensor]:
     """Every random number of one generation's selection, crossover and
     mutation (ga._offspring's five keys, in order)."""
-    return {
-        "sel": operators.draw_tournament(rng, P, P, tour_k, device),
-        "perm": torch.randperm(P, generator=rng, device=device),
-        "u_cx": torch.rand((P // 2,), generator=rng, device=device),
-        "u_cxm": torch.rand((P // 2, N), generator=rng, device=device),
-        "mut": operators.draw_mutation(rng, P, N, device),
-    }
+    with profiling.span("ga.draw"):
+        return {
+            "sel": operators.draw_tournament(rng, P, P, tour_k, device),
+            "perm": torch.randperm(P, generator=rng, device=device),
+            "u_cx": torch.rand((P // 2,), generator=rng, device=device),
+            "u_cxm": torch.rand((P // 2, N), generator=rng, device=device),
+            "mut": operators.draw_mutation(rng, P, N, device),
+        }
 
 
 def _offspring(
@@ -112,26 +114,27 @@ def _offspring(
 ) -> torch.Tensor:
     """Selection + crossover + mutation -> [P, N, 9] offspring; `sig`, a
     device sigma row, replaces build_mut_sigma(gen, ...)'s floats."""
-    P, N, _ = pop.shape
-    # Tournament parents, then shuffle (algorithm.py:87-91)
-    sel = operators.apply_tournament(fits, draws["sel"])
-    parents = pop[sel][draws["perm"]]
+    with profiling.span("ga.variation"):
+        P, N, _ = pop.shape
+        # Tournament parents, then shuffle (algorithm.py:87-91)
+        sel = operators.apply_tournament(fits, draws["sel"])
+        parents = pop[sel][draws["perm"]]
 
-    # Pair off; crossover each pair w.p. cxpb else clone (algorithm.py:94-100)
-    a = parents[0::2]
-    b = parents[1::2]
-    do_cx = (draws["u_cx"] < ga.cxpb)[:, None, None]
-    m = (draws["u_cxm"] < 0.5)[:, :, None]
-    m_eff = m | ~do_cx  # not crossing -> child1 = a, child2 = b
-    c1 = torch.where(m_eff, a, b)
-    c2 = torch.where(m_eff, b, a)
-    offspring = torch.stack([c1, c2], dim=1).reshape(P, N, 9)
+        # Pair off; crossover each pair w.p. cxpb else clone (algorithm.py:94-100)
+        a = parents[0::2]
+        b = parents[1::2]
+        do_cx = (draws["u_cx"] < ga.cxpb)[:, None, None]
+        m = (draws["u_cxm"] < 0.5)[:, :, None]
+        m_eff = m | ~do_cx  # not crossing -> child1 = a, child2 = b
+        c1 = torch.where(m_eff, a, b)
+        c2 = torch.where(m_eff, b, a)
+        offspring = torch.stack([c1, c2], dim=1).reshape(P, N, 9)
 
-    if sig is None:
-        sig = genome_mod.build_mut_sigma(gen, ga.generations, ga.schedule, sig_max, sig_min)
-    return operators.apply_mutation(
-        offspring, draws["mut"], sig, ga.mutpb, obj.H, obj.W, gnm.min_scale, gnm.max_scale
-    )
+        if sig is None:
+            sig = genome_mod.build_mut_sigma(gen, ga.generations, ga.schedule, sig_max, sig_min)
+        return operators.apply_mutation(
+            offspring, draws["mut"], sig, ga.mutpb, obj.H, obj.W, gnm.min_scale, gnm.max_scale
+        )
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
@@ -164,47 +167,51 @@ def step(
     StepRows whose counter holds state.gen) the sigmas are the table's row
     of the new generation, read on the device, the counter advanced; else
     build_mut_sigma's floats from sig_max and sig_min."""
-    P, N, _ = state.pop.shape
-    # elitism always leaves at least one offspring slot
-    E = max(1, min(ga.elite_k, P - 1)) if P > 1 else 1
-    gen = state.gen + 1
-    if draws is None:
-        draws = draw_offspring(state.rng, P, N, ga.tour_k, state.pop.device)
+    with profiling.span("ga.step"):
+        P, N, _ = state.pop.shape
+        # elitism always leaves at least one offspring slot
+        E = max(1, min(ga.elite_k, P - 1)) if P > 1 else 1
+        gen = state.gen + 1
+        if draws is None:
+            draws = draw_offspring(state.rng, P, N, ga.tour_k, state.pop.device)
 
-    def at_scale(g):
-        return g if blur_sigma is None else anneal_mod.blur_genome_axes(g, blur_sigma)
+        def at_scale(g):
+            return g if blur_sigma is None else anneal_mod.blur_genome_axes(g, blur_sigma)
 
-    sig = None
-    if rows is not None:
-        rows.advance()
-        sig = rows.row()
-    offspring = _offspring(state.pop, state.fits, draws, ga, gen, obj, gnm, sig_max, sig_min, sig)
-    off_fits = _evaluate(obj, at_scale(offspring), target, weight_mask)
+        sig = None
+        if rows is not None:
+            rows.advance()
+            sig = rows.row()
+        offspring = _offspring(state.pop, state.fits, draws, ga, gen, obj, gnm, sig_max, sig_min,
+                               sig)
+        off_fits = _evaluate(obj, at_scale(offspring), target, weight_mask)
 
-    # Elitism: the E best of the current population, ties to the lower
-    # index as lax.top_k(-fits, E) keeps them (algorithm.py:129-141)
-    elite_idx = torch.sort(state.fits, stable=True).indices[:E]
-    elites = state.pop[elite_idx]
-    if ga.reeval_elites:
-        elite_fits = _evaluate(obj, at_scale(elites), target, weight_mask)
-    else:
-        elite_fits = state.fits[elite_idx]
+        with profiling.span("ga.elitism"):
+            # Elitism: the E best of the current population, ties to the lower
+            # index as lax.top_k(-fits, E) keeps them (algorithm.py:129-141)
+            elite_idx = torch.sort(state.fits, stable=True).indices[:E]
+            elites = state.pop[elite_idx]
+            if ga.reeval_elites:
+                elite_fits = _evaluate(obj, at_scale(elites), target, weight_mask)
+            else:
+                elite_fits = state.fits[elite_idx]
 
-    pop = torch.cat([elites, offspring[: P - E]], dim=0)
-    fits = torch.cat([elite_fits, off_fits[: P - E]], dim=0)
+            pop = torch.cat([elites, offspring[: P - E]], dim=0)
+            fits = torch.cat([elite_fits, off_fits[: P - E]], dim=0)
 
-    # a [1] index: indexing by a 0-d CUDA tensor synchronises with the host
-    gb = torch.argmin(fits).reshape(1)
-    cand, cand_fit = pop[gb][0], fits[gb][0]
-    improved = cand_fit + 1e-10 < state.best_fit
-    best = torch.where(improved, cand, state.best)
-    best_fit = torch.where(improved, cand_fit, state.best_fit)
-    no_improve = torch.where(improved, torch.zeros_like(state.no_improve), state.no_improve + 1)
+            # a [1] index: indexing by a 0-d CUDA tensor synchronises with the host
+            gb = torch.argmin(fits).reshape(1)
+            cand, cand_fit = pop[gb][0], fits[gb][0]
+            improved = cand_fit + 1e-10 < state.best_fit
+            best = torch.where(improved, cand, state.best)
+            best_fit = torch.where(improved, cand_fit, state.best_fit)
+            no_improve = torch.where(improved, torch.zeros_like(state.no_improve),
+                                     state.no_improve + 1)
 
-    metrics = torch.stack(
-        [best_fit, torch.mean(fits), _median(fits), no_improve.to(fits.dtype)]
-    )
-    return GAState(pop, fits, best, best_fit, no_improve, state.rng, gen), metrics
+            metrics = torch.stack(
+                [best_fit, torch.mean(fits), _median(fits), no_improve.to(fits.dtype)]
+            )
+            return GAState(pop, fits, best, best_fit, no_improve, state.rng, gen), metrics
 
 
 _SIGMA_ROWS: dict = {}
@@ -253,12 +260,13 @@ def _sigma_tables(ga: GAConfig, sig_max: Optional[MutSigma], sig_min: Optional[M
     tables: Dict[str, genome_mod.StepRows] = {}
 
     def prepare(state: GAState, num_gens: int) -> genome_mod.StepRows:
-        dev = str(state.pop.device)
-        if dev not in tables:
-            tables[dev] = _sigma_rows(ga, sig_max_d, sig_min_d, state.pop.device)
-        tables[dev].cover(state.gen + num_gens)
-        tables[dev].start(state.gen)
-        return tables[dev]
+        with profiling.span("block.prepare"):
+            dev = str(state.pop.device)
+            if dev not in tables:
+                tables[dev] = _sigma_rows(ga, sig_max_d, sig_min_d, state.pop.device)
+            tables[dev].cover(state.gen + num_gens)
+            tables[dev].start(state.gen)
+            return tables[dev]
 
     return tables, prepare
 

@@ -49,6 +49,7 @@ from ..ops import codec, oracle, render_cuda, render_grad
 from ..ops import objective as objective_mod
 from ..ops.objective import Objective
 from ..parallel import comm, shard
+from ..utils import profiling
 from . import genome as genome_mod
 
 
@@ -259,20 +260,24 @@ def make_fit_step(obj: Objective, gnm: GenomeConfig, cfg: GradConfig):
     make_opt = functools.partial(make_adam, cfg=cfg)
 
     def step(state: GradState, target, weight_mask, blur_sigma=None) -> Tuple[GradState, torch.Tensor]:
-        if blur_sigma is None:
-            (_, fits), grads = value_and_grad(state.g, target, weight_mask)
-        else:
-            g = state.g.detach().requires_grad_(True)
-            with torch.enable_grad():
-                gb = anneal_mod.blur_genome_axes(g, blur_sigma)
-            (_, fits), grads_b = value_and_grad(gb.detach(), target, weight_mask)
-            (grads,) = torch.autograd.grad(gb, g, grads_b)
-        state.g.grad = grads
-        state.opt.step()
-        with torch.no_grad():
-            # projection: the domain the evolutionary operators keep
-            state.g.copy_(codec.clamp_genome(state.g, obj.H, obj.W, gnm.min_scale, gnm.max_scale))
-        return GradState(state.g, state.opt, state.step + 1), fits
+        with profiling.span("adam.step"):
+            with profiling.span("adam.value_and_grad"):
+                if blur_sigma is None:
+                    (_, fits), grads = value_and_grad(state.g, target, weight_mask)
+                else:
+                    g = state.g.detach().requires_grad_(True)
+                    with torch.enable_grad():
+                        gb = anneal_mod.blur_genome_axes(g, blur_sigma)
+                    (_, fits), grads_b = value_and_grad(gb.detach(), target, weight_mask)
+                    (grads,) = torch.autograd.grad(gb, g, grads_b)
+            with profiling.span("adam.update"):
+                state.g.grad = grads
+                state.opt.step()
+                with torch.no_grad():
+                    # projection: the domain the evolutionary operators keep
+                    state.g.copy_(codec.clamp_genome(state.g, obj.H, obj.W, gnm.min_scale,
+                                                     gnm.max_scale))
+            return GradState(state.g, state.opt, state.step + 1), fits
 
     return make_opt, step
 

@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
+
 # Genome column indices.
 X, Y, ALOG, BLOG, THETA, R, G, B, ALPHA = range(9)
 GENE_DIM = 9
@@ -96,19 +98,20 @@ def axes_angle_to_cholesky(a_log, b_log, theta):
 
 def genome_to_renderer(genome: torch.Tensor) -> torch.Tensor:
     """Axes-angle genome [..., N, 9] -> renderer genome [..., N, 9]."""
-    a_log_eff, b_log_eff, c_raw = axes_angle_to_cholesky(
-        genome[..., ALOG], genome[..., BLOG], genome[..., THETA]
-    )
-    return torch.cat(
-        [
-            genome[..., X : Y + 1],
-            a_log_eff[..., None],
-            b_log_eff[..., None],
-            c_raw[..., None],
-            clip(genome[..., R : ALPHA + 1], 0.0, 255.0),
-        ],
-        dim=-1,
-    )
+    with profiling.span("render.screen"):
+        a_log_eff, b_log_eff, c_raw = axes_angle_to_cholesky(
+            genome[..., ALOG], genome[..., BLOG], genome[..., THETA]
+        )
+        return torch.cat(
+            [
+                genome[..., X : Y + 1],
+                a_log_eff[..., None],
+                b_log_eff[..., None],
+                c_raw[..., None],
+                clip(genome[..., R : ALPHA + 1], 0.0, 255.0),
+            ],
+            dim=-1,
+        )
 
 
 class SplatScreen(NamedTuple):

@@ -26,6 +26,7 @@ import torch
 
 from .. import resolve_device
 from ..parallel import comm, shard
+from ..utils import profiling
 from . import codec, fitness, render, render_cuda, ssim
 
 
@@ -112,50 +113,52 @@ def evaluate(
 
     Inputs may be numpy arrays or tensors; they are moved to `device`.
     With obj.chunk set, at most chunk candidates are scored at once."""
-    check_metric(obj.metric)
-    dev = resolve_device(device)
-    g_axes = _as_f32(g_axes, dev)
-    target = _as_f32(target, dev)
-    weight_mask = None if weight_mask is None else _as_f32(weight_mask, dev)
-    if g_axes.dim() == 2:
-        g_axes = g_axes[None]
-    B = g_axes.shape[0]
+    with profiling.span("objective.evaluate"):
+        check_metric(obj.metric)
+        dev = resolve_device(device)
+        g_axes = _as_f32(g_axes, dev)
+        target = _as_f32(target, dev)
+        weight_mask = None if weight_mask is None else _as_f32(weight_mask, dev)
+        if g_axes.dim() == 2:
+            g_axes = g_axes[None]
+        B = g_axes.shape[0]
 
-    def eval_batch(g):
-        if obj.mesh is not None and obj.impl == "cuda":
-            sharded = _evaluate_fused_sharded if obj.metric == "mse" else _evaluate_metric_sharded
-            out = sharded(obj, g, target, weight_mask)
-            if out is not None:
-                return out
-        if obj.metric != "mse":
-            return image_energy(obj, render_genomes(obj, g, device=dev), target, weight_mask)
-        g9 = codec.genome_to_renderer(g)
-        if obj.impl == "cuda":
-            return render_cuda.fitness(
-                g9, target, weight_mask, obj.H, obj.W, k_sigma=obj.k_sigma,
-                background=tuple(obj.background), boost_only=obj.boost_only,
-                boost_beta=obj.boost_beta, bin_capacity=obj.bin_capacity,
-                precision=obj.precision, cull_eps=obj.cull_eps, corner_cull=obj.corner_cull,
+        def eval_batch(g):
+            if obj.mesh is not None and obj.impl == "cuda":
+                sharded = (_evaluate_fused_sharded if obj.metric == "mse"
+                           else _evaluate_metric_sharded)
+                out = sharded(obj, g, target, weight_mask)
+                if out is not None:
+                    return out
+            if obj.metric != "mse":
+                return image_energy(obj, render_genomes(obj, g, device=dev), target, weight_mask)
+            g9 = codec.genome_to_renderer(g)
+            if obj.impl == "cuda":
+                return render_cuda.fitness(
+                    g9, target, weight_mask, obj.H, obj.W, k_sigma=obj.k_sigma,
+                    background=tuple(obj.background), boost_only=obj.boost_only,
+                    boost_beta=obj.boost_beta, bin_capacity=obj.bin_capacity,
+                    precision=obj.precision, cull_eps=obj.cull_eps, corner_cull=obj.corner_cull,
+                )
+            imgs = render.render_splats(
+                g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=tuple(obj.background),
+                impl=obj.impl, bin_capacity=obj.bin_capacity, precision=obj.precision,
+                cull_eps=obj.cull_eps, corner_cull=obj.corner_cull,
             )
-        imgs = render.render_splats(
-            g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=tuple(obj.background),
-            impl=obj.impl, bin_capacity=obj.bin_capacity, precision=obj.precision,
-            cull_eps=obj.cull_eps, corner_cull=obj.corner_cull,
-        )
-        return image_energy(obj, imgs, target, weight_mask)
+            return image_energy(obj, imgs, target, weight_mask)
 
-    if obj.chunk is None or obj.chunk >= B:
-        return eval_batch(g_axes)
+        if obj.chunk is None or obj.chunk >= B:
+            return eval_batch(g_axes)
 
-    # When chunk doesn't divide B, pad with copies of the first genome so
-    # every chunk has the same shape, then drop the padding.
-    n_chunks = -(-B // obj.chunk)
-    Bp = n_chunks * obj.chunk
-    if Bp != B:
-        pad = g_axes[:1].expand(Bp - B, *g_axes.shape[1:])
-        g_axes = torch.cat([g_axes, pad], dim=0)
-    fits = [eval_batch(g) for g in g_axes.split(obj.chunk)]
-    return torch.cat(fits)[:B]
+        # When chunk doesn't divide B, pad with copies of the first genome so
+        # every chunk has the same shape, then drop the padding.
+        n_chunks = -(-B // obj.chunk)
+        Bp = n_chunks * obj.chunk
+        if Bp != B:
+            pad = g_axes[:1].expand(Bp - B, *g_axes.shape[1:])
+            g_axes = torch.cat([g_axes, pad], dim=0)
+        fits = [eval_batch(g) for g in g_axes.split(obj.chunk)]
+        return torch.cat(fits)[:B]
 
 
 _SSIM_WIN = 11  # Wang et al.'s window, on every SSIM path

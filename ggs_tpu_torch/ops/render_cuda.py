@@ -56,6 +56,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import codec, fitness as fitness_mod
 
 # feats table rows (the kernel's parameter layout)
@@ -234,20 +235,21 @@ def _splat_feats_fast(p: codec.SplatScreen) -> torch.Tensor:
     rows 2-4 hold (-0.5*sxx, -sxy, -0.5*syy), exact power-of-two scalings,
     so the walk computes exp(quad') with every f32 intermediate equal to
     the unfolded form. Column N is a sentinel (alpha 0, inverted AABB)."""
-    B, N = p.cx.shape
-    feats = torch.stack(
-        [
-            p.cx, p.cy, -0.5 * p.sxx, -p.sxy, -0.5 * p.syy,
-            p.rc, p.gc, p.bc, p.a,
-            p.x0.to(torch.float32), p.x1.to(torch.float32),
-            p.y0.to(torch.float32), p.y1.to(torch.float32),
-        ],
-        dim=1,
-    )
-    sentinel = torch.zeros((B, _NFEAT, 1), dtype=torch.float32, device=feats.device)
-    sentinel[:, _F_X0, 0] = 1e9
-    sentinel[:, _F_X1, 0] = -1e9
-    return torch.cat([feats, sentinel], dim=2).contiguous()
+    with profiling.span("render.feats"):
+        B, N = p.cx.shape
+        feats = torch.stack(
+            [
+                p.cx, p.cy, -0.5 * p.sxx, -p.sxy, -0.5 * p.syy,
+                p.rc, p.gc, p.bc, p.a,
+                p.x0.to(torch.float32), p.x1.to(torch.float32),
+                p.y0.to(torch.float32), p.y1.to(torch.float32),
+            ],
+            dim=1,
+        )
+        sentinel = torch.zeros((B, _NFEAT, 1), dtype=torch.float32, device=feats.device)
+        sentinel[:, _F_X0, 0] = 1e9
+        sentinel[:, _F_X1, 0] = -1e9
+        return torch.cat([feats, sentinel], dim=2).contiguous()
 
 
 def _log2_alpha(a: torch.Tensor) -> torch.Tensor:
@@ -261,22 +263,23 @@ def _splat_feats_turbo(p: codec.SplatScreen) -> torch.Tensor:
     entries, row 8 holds log2(alpha), rows 9-12 the open-interval
     thresholds x0-1, x1+1, y0-1, y1+1. Sentinel column N: row 8 -inf,
     X0 1e9, X1 -1e9, Y0 = Y1 = 0."""
-    B, N = p.cx.shape
-    feats = torch.stack(
-        [
-            p.cx, p.cy,
-            (-0.5 * _LOG2E) * p.sxx, (-_LOG2E) * p.sxy, (-0.5 * _LOG2E) * p.syy,
-            p.rc, p.gc, p.bc, _log2_alpha(p.a),
-            p.x0.to(torch.float32) - 1.0, p.x1.to(torch.float32) + 1.0,
-            p.y0.to(torch.float32) - 1.0, p.y1.to(torch.float32) + 1.0,
-        ],
-        dim=1,
-    )
-    sentinel = torch.zeros((B, _NFEAT, 1), dtype=torch.float32, device=feats.device)
-    sentinel[:, _F_A, 0] = float("-inf")
-    sentinel[:, _F_X0, 0] = 1e9
-    sentinel[:, _F_X1, 0] = -1e9
-    return torch.cat([feats, sentinel], dim=2).contiguous()
+    with profiling.span("render.feats"):
+        B, N = p.cx.shape
+        feats = torch.stack(
+            [
+                p.cx, p.cy,
+                (-0.5 * _LOG2E) * p.sxx, (-_LOG2E) * p.sxy, (-0.5 * _LOG2E) * p.syy,
+                p.rc, p.gc, p.bc, _log2_alpha(p.a),
+                p.x0.to(torch.float32) - 1.0, p.x1.to(torch.float32) + 1.0,
+                p.y0.to(torch.float32) - 1.0, p.y1.to(torch.float32) + 1.0,
+            ],
+            dim=1,
+        )
+        sentinel = torch.zeros((B, _NFEAT, 1), dtype=torch.float32, device=feats.device)
+        sentinel[:, _F_A, 0] = float("-inf")
+        sentinel[:, _F_X0, 0] = 1e9
+        sentinel[:, _F_X1, 0] = -1e9
+        return torch.cat([feats, sentinel], dim=2).contiguous()
 
 
 # ------------------------------------------------ fast-tier boxes and culls
@@ -780,10 +783,11 @@ def bin_splats(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=None,
     """Boxes [B, N] -> (idx [B, T, cap], cnt [B, T]) (`_bin_splats_xy`,
     render_pallas.py:613): the scatter binning from SCATTER_TILES tiles,
     the dense one below."""
-    if n_tx * n_ty >= SCATTER_TILES:
-        return scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots,
-                               corner=corner)
-    return bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=corner)
+    with profiling.span("render.bin"):
+        if n_tx * n_ty >= SCATTER_TILES:
+            return scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots,
+                                   corner=corner)
+        return bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=corner)
 
 
 @torch.no_grad()
@@ -1154,22 +1158,24 @@ def prep_fast(g9: torch.Tensor, H: int, W: int, k_sigma: float, cull_eps=None):
     _prep_turbo_pallas). One thread per (candidate, splat) reads the genome
     in place (no transpose copy); a few dozen operations against 36 bytes in
     and 68 out a splat, so bytes and the launch bound it (csrc/walk.cu)."""
-    if g9.device.type == "cpu":
-        return prep_fast_plain(g9, H, W, k_sigma, cull_eps)
-    B, N = g9.shape[0], g9.shape[1]
-    _require(g9, "g9", torch.float32, (B, N, codec.GENE_DIM), g9.device)
-    eps = _eps(cull_eps)
-    ff = torch.empty((B, _NFEAT, N + 1), dtype=torch.float32, device=g9.device)
-    fi = torch.empty((B, 4, N), dtype=torch.int32, device=g9.device)
-    k = build()
-    with torch.cuda.device(g9.device):
-        rc = k.lib.ggs_prep_fast(
-            g9.data_ptr(), ff.data_ptr(), fi.data_ptr(), B, N, float(W - 1), float(H - 1),
-            float(k_sigma), eps, math.log(eps), torch.cuda.current_stream(g9.device).cuda_stream,
-        )
-    k.check(rc, "prep_fast")
-    prep_fast.launches += 1
-    return ff, fi
+    with profiling.span("render.feats"):
+        if g9.device.type == "cpu":
+            return prep_fast_plain(g9, H, W, k_sigma, cull_eps)
+        B, N = g9.shape[0], g9.shape[1]
+        _require(g9, "g9", torch.float32, (B, N, codec.GENE_DIM), g9.device)
+        eps = _eps(cull_eps)
+        ff = torch.empty((B, _NFEAT, N + 1), dtype=torch.float32, device=g9.device)
+        fi = torch.empty((B, 4, N), dtype=torch.int32, device=g9.device)
+        k = build()
+        with torch.cuda.device(g9.device):
+            rc = k.lib.ggs_prep_fast(
+                g9.data_ptr(), ff.data_ptr(), fi.data_ptr(), B, N, float(W - 1), float(H - 1),
+                float(k_sigma), eps, math.log(eps),
+                torch.cuda.current_stream(g9.device).cuda_stream,
+            )
+        k.check(rc, "prep_fast")
+        prep_fast.launches += 1
+        return ff, fi
 
 
 prep_fast.launches = 0
@@ -1193,13 +1199,14 @@ def _screen(g9, H, W, k_sigma, precision, cull_eps, y_origin: int = 0) -> codec.
     A row slab (y_origin > 0) preprocesses against the whole (H, W) canvas,
     shifts cy, y0 and y1 up by y_origin and only then takes the tier's boxes
     (render_pallas.py:1527-1539)."""
-    _check_precision(precision)
-    p = shift_rows(codec.preprocess(g9, H, W, k_sigma), y_origin)
-    if precision == "fast":
-        return _tighten_boxes(p, k_sigma, cull_eps)
-    if precision == "exact-tight":
-        return codec.tighten_boxes_exact(p, k_sigma)
-    return p
+    with profiling.span("render.screen"):
+        _check_precision(precision)
+        p = shift_rows(codec.preprocess(g9, H, W, k_sigma), y_origin)
+        if precision == "fast":
+            return _tighten_boxes(p, k_sigma, cull_eps)
+        if precision == "exact-tight":
+            return codec.tighten_boxes_exact(p, k_sigma)
+        return p
 
 
 def shift_rows(p: codec.SplatScreen, y_origin: int) -> codec.SplatScreen:
@@ -1260,7 +1267,8 @@ def _chunked_passes(p, H, W, tile_h, tile_w, background, bin_capacity, keep_last
             return canvas, pc
         cnt, idx, feats = _pass_lists(pc, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
                                       corner_eps)
-        canvas = walk(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=canvas)
+        with profiling.span("render.walk"):
+            canvas = walk(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=canvas)
     return canvas, None
 
 
@@ -1284,13 +1292,14 @@ def _k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, cull_eps, corner_c
 def pad_planes(target: torch.Tensor, w_eff: Optional[torch.Tensor], Hp: int, Wp: int):
     """target [H, W, 3] and w_eff [H, W] (None = ones) -> K1's zero-padded
     target [3, Hp, Wp] and weights [Hp, Wp]: padding pixels weigh 0."""
-    H, W = target.shape[0], target.shape[1]
-    dev = target.device
-    target_p = torch.zeros((3, Hp, Wp), dtype=torch.float32, device=dev)
-    target_p[:, :H, :W] = target.to(torch.float32).permute(2, 0, 1)
-    w_p = torch.zeros((Hp, Wp), dtype=torch.float32, device=dev)
-    w_p[:H, :W] = 1.0 if w_eff is None else w_eff
-    return target_p, w_p
+    with profiling.span("render.screen"):
+        H, W = target.shape[0], target.shape[1]
+        dev = target.device
+        target_p = torch.zeros((3, Hp, Wp), dtype=torch.float32, device=dev)
+        target_p[:, :H, :W] = target.to(torch.float32).permute(2, 0, 1)
+        w_p = torch.zeros((Hp, Wp), dtype=torch.float32, device=dev)
+        w_p[:H, :W] = 1.0 if w_eff is None else w_eff
+        return target_p, w_p
 
 
 def render(
@@ -1360,8 +1369,9 @@ def fitness(
         cnt, idx, feats = _pass_lists(p_last, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
                                       corner_eps)
     walk = {"fast": fitness_tiles_fast, "bf16": fitness_tiles_bf16}.get(precision, fitness_tiles)
-    partials = walk(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg, init=init)
-    return torch.sum(partials, dim=1) / denom  # a 0-d CPU denom is a scalar: no sync
+    with profiling.span("render.walk"):
+        partials = walk(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg, init=init)
+        return torch.sum(partials, dim=1) / denom  # a 0-d CPU denom is a scalar: no sync
 
 
 def fitness_partial(
@@ -1405,8 +1415,9 @@ def fitness_partial(
                                   corner_eps)
     target_p, w_p = pad_planes(target_slab, w_slab, n_ty * tile_h, n_tx * tile_w)
     walk = {"fast": fitness_tiles_fast, "bf16": fitness_tiles_bf16}.get(precision, fitness_tiles)
-    return torch.sum(walk(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg, init=init),
-                     dim=1)
+    with profiling.span("render.walk"):
+        return torch.sum(walk(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg,
+                              init=init), dim=1)
 
 
 def render_rows(

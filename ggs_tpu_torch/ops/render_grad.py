@@ -48,6 +48,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..utils import profiling
 from . import codec, fitness as fitness_mod, render_cuda
 from .render_cuda import _NFEAT, _cdiv, _require, pad_planes
 
@@ -66,16 +67,17 @@ GRAD_SCATTER_PAD = 40
 
 def _splat_feats(p: codec.SplatScreen) -> torch.Tensor:
     """SplatScreen [B, N] -> raw table [B, 13, N+1] f32, column N zero."""
-    B, N = p.cx.shape
-    feats = torch.stack(
-        [
-            p.cx, p.cy, p.sxx, p.sxy, p.syy, p.rc, p.gc, p.bc, p.a,
-            p.x0.to(torch.float32), p.x1.to(torch.float32),
-            p.y0.to(torch.float32), p.y1.to(torch.float32),
-        ],
-        dim=1,
-    )
-    return torch.cat([feats, feats.new_zeros((B, _NFEAT, 1))], dim=2).contiguous()
+    with profiling.span("render.feats"):
+        B, N = p.cx.shape
+        feats = torch.stack(
+            [
+                p.cx, p.cy, p.sxx, p.sxy, p.syy, p.rc, p.gc, p.bc, p.a,
+                p.x0.to(torch.float32), p.x1.to(torch.float32),
+                p.y0.to(torch.float32), p.y1.to(torch.float32),
+            ],
+            dim=1,
+        )
+        return torch.cat([feats, feats.new_zeros((B, _NFEAT, 1))], dim=2).contiguous()
 
 
 # ------------------------------------------------------ plain versions
@@ -329,9 +331,9 @@ class RenderDiff(torch.autograd.Function):
         p = codec.SplatScreen(cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1)
         n_tx, _, tile_h, tile_w, _, bg, _ = geom
         idx, cnt = _bin(p, geom)
-        canvas = render_cuda.render_tiles(
-            cnt, idx, render_cuda._splat_feats_fast(p), n_tx, tile_h, tile_w, bg, init=init
-        )
+        feats = render_cuda._splat_feats_fast(p)
+        with profiling.span("render.walk"):
+            canvas = render_cuda.render_tiles(cnt, idx, feats, n_tx, tile_h, tile_w, bg, init=init)
         ctx.save_for_backward(_splat_feats(p), cnt, idx, init)
         ctx.geom = geom
         return canvas
@@ -340,7 +342,9 @@ class RenderDiff(torch.autograd.Function):
     def backward(ctx, g_img):
         feats, cnt, idx, init = ctx.saved_tensors
         n_tx, _, tile_h, tile_w, _, bg, _ = ctx.geom
-        g, dinit = bwd_tiles(cnt, idx, feats, g_img.contiguous(), n_tx, tile_h, tile_w, bg, init)
+        with profiling.span("render.grad"):
+            g, dinit = bwd_tiles(cnt, idx, feats, g_img.contiguous(), n_tx, tile_h, tile_w, bg,
+                                 init)
         return (dinit,) + tuple(g[:, i] for i in range(NGRAD)) + (None,) * 5
 
 
@@ -354,12 +358,13 @@ class _FusedNum(torch.autograd.Function):
         p = codec.SplatScreen(cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1)
         n_tx, _, tile_h, tile_w, _, bg, _ = geom
         idx, cnt = _bin(p, geom)
-        # cotangent scale 2: d(w |C - target|^2)/dC = 2 w (C - target)
-        num, grads = lossgrad_tiles(
-            cnt, idx, _splat_feats(p), target_p, w_p, n_tx, tile_h, tile_w, bg, 2.0
-        )
-        ctx.save_for_backward(grads)
-        return torch.sum(num, dim=1)
+        feats = _splat_feats(p)
+        with profiling.span("render.grad"):
+            # cotangent scale 2: d(w |C - target|^2)/dC = 2 w (C - target)
+            num, grads = lossgrad_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg,
+                                        2.0)
+            ctx.save_for_backward(grads)
+            return torch.sum(num, dim=1)
 
     @staticmethod
     def backward(ctx, g_num):
@@ -415,13 +420,14 @@ def _screen_params(g9, H, W, k_sigma, box, cull_eps=None, y_origin: int = 0):
     """Screen-space parameters with the boxes the walks use: eps-tight when
     cull_eps is set (it subsumes the tight box), else the box tier's; on a
     row slab, taken after the shift into it (render_grad.py:781-800)."""
-    if box not in ("reference", "tight"):
-        raise ValueError(f"unknown box {box!r}")
-    p = codec.preprocess(g9[..., : codec.GENE_DIM].to(torch.float32), H, W, k_sigma)
-    p = render_cuda.shift_rows(p, y_origin)
-    if cull_eps is not None:
-        return render_cuda._tighten_boxes(p, k_sigma, cull_eps)
-    return codec.tighten_boxes_exact(p, k_sigma) if box == "tight" else p
+    with profiling.span("render.screen"):
+        if box not in ("reference", "tight"):
+            raise ValueError(f"unknown box {box!r}")
+        p = codec.preprocess(g9[..., : codec.GENE_DIM].to(torch.float32), H, W, k_sigma)
+        p = render_cuda.shift_rows(p, y_origin)
+        if cull_eps is not None:
+            return render_cuda._tighten_boxes(p, k_sigma, cull_eps)
+        return codec.tighten_boxes_exact(p, k_sigma) if box == "tight" else p
 
 
 def render_diff(

@@ -39,6 +39,13 @@ kernel of every step.
   adds it, so the counts stay the kernels run.
 * On the CPU (no capture) the helper runs the eager body: the plain version
   the tests use, and on a card the one chip_smoke compares replays with.
+* Spans: a capture records where the capture stands at each program span's
+  entry and exit (utils/profiling.span; cuStreamGetCaptureInfo's last
+  node), then walks the captured chain once and keeps, for each kernel,
+  copy and fill node in chain order, the path of spans open around it
+  (`_Graph.spans`): a replay's device operations, which a trace correlates
+  only to the graph's launch, are named by it. The replay branch opens
+  `block.replay`, the first call of a key `block.capture`.
 
 Which blocks stay eager (the rule; there is no switch): every block under
 a `torch.distributed` mesh (gloo collectives sync through host memory) and
@@ -55,10 +62,13 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import gc
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+
+from . import profiling
 
 # Counters of per-call events that a caller adds while it measures (e.g.
 # chip_smoke's calls of objective.evaluate by batch size): a replay adds to
@@ -160,16 +170,121 @@ def _cu_check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} returned CUresult {rc}")
 
 
+@functools.lru_cache(maxsize=None)
 def _libcuda():
-    """libcuda's graph and pointer queries, their argument and result types declared."""
+    """libcuda's graph, capture and pointer queries, their argument and
+    result types declared (the edge and capture queries where this libcuda
+    has them)."""
     cu = ctypes.CDLL("libcuda.so.1")
     p, out = ctypes.c_void_p, ctypes.c_void_p  # handles; out-parameters by reference
     for name, args in (("cuGraphGetNodes", (p, out, out)), ("cuGraphNodeGetType", (p, out)),
                        ("cuGraphMemcpyNodeGetParams", (p, out)),
-                       ("cuPointerGetAttribute", (out, ctypes.c_int, ctypes.c_uint64))):
-        fn = getattr(cu, name)
-        fn.argtypes, fn.restype = args, ctypes.c_int
+                       ("cuPointerGetAttribute", (out, ctypes.c_int, ctypes.c_uint64)),
+                       ("cuGraphGetEdges", (p, out, out, out)),
+                       ("cuStreamGetCaptureInfo_v2", (p, out, out, out, out, out))):
+        fn = getattr(cu, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = args, ctypes.c_int
     return cu
+
+
+_CAPTURE_ACTIVE = 1  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+UNKNOWN = object()  # a capture position that could not be read
+
+
+def _capture_tail(stream: int):
+    """The node a stream's capture would make its next node depend on: its
+    last captured node, None before the first (or when not capturing), or
+    UNKNOWN where that cannot be told (a capture that forks, a libcuda
+    without the query). Never raises: a capture goes on without it."""
+    fn = getattr(_libcuda(), "cuStreamGetCaptureInfo_v2", None)
+    status, n = ctypes.c_int(0), ctypes.c_size_t(0)
+    deps = ctypes.POINTER(ctypes.c_void_p)()
+    if fn is None or fn(stream, ctypes.byref(status), None, None, ctypes.byref(deps),
+                        ctypes.byref(n)) != 0:
+        return UNKNOWN
+    if status.value != _CAPTURE_ACTIVE or n.value == 0:
+        return None
+    return deps[0] if n.value == 1 else UNKNOWN
+
+
+def _nodes(cu, raw: int) -> list:
+    n = ctypes.c_size_t(0)
+    _cu_check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu_check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    return list(nodes)
+
+
+def _kind(cu, node) -> str:
+    t = ctypes.c_int(-1)
+    _cu_check(cu.cuGraphNodeGetType(node, ctypes.byref(t)), "cuGraphNodeGetType")
+    return NODE_KINDS[t.value] if 0 <= t.value < len(NODE_KINDS) else f"TYPE_{t.value}"
+
+
+def _graph_chain(raw: int) -> Optional[list]:
+    """A captured graph's nodes in dependency order, where it is one chain
+    (every node has at most one dependency and one dependent); else None."""
+    cu = _libcuda()
+    nodes = _nodes(cu, raw)
+    if not nodes or getattr(cu, "cuGraphGetEdges", None) is None:
+        return [] if not nodes else None
+    n = ctypes.c_size_t(0)
+    _cu_check(cu.cuGraphGetEdges(raw, None, None, ctypes.byref(n)), "cuGraphGetEdges")
+    src, dst = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+    _cu_check(cu.cuGraphGetEdges(raw, src, dst, ctypes.byref(n)), "cuGraphGetEdges")
+    after = dict(zip(src, dst))
+    if len(after) != len(src) or len(set(dst)) != len(dst) or len(src) != len(nodes) - 1:
+        return None
+    node = next(iter(set(nodes) - set(dst)), None)
+    chain = []
+    while node is not None:
+        chain.append(node)
+        node = after.get(node)
+    return chain if len(chain) == len(nodes) else None
+
+
+DEVICE_KINDS = ("KERNEL", "MEMCPY", "MEMSET")
+
+
+def span_paths(chain: list, marks: list) -> list:
+    """The span path ("ga.step/objective.evaluate", "" outside every span)
+    of each node of a captured chain. marks: in the order recorded, (name,
+    node) where a span opened and (None, node) where the innermost open one
+    closed, `node` the chain's last node at that moment (None before the
+    first). ValueError where a mark names no node of the chain (UNKNOWN
+    among them), steps back or closes no open span."""
+    at_node = {node: i + 1 for i, node in enumerate(chain)}
+    out, stack, at = [], [], 0
+    for name, node in marks:
+        if node is not None and node not in at_node:
+            raise ValueError("a span mark names a node outside the chain")
+        k = at_node.get(node, 0)
+        if k < at:
+            raise ValueError("the span marks step back along the chain")
+        out += ["/".join(stack)] * (k - at)
+        at = k
+        if name is None:
+            if not stack:
+                raise ValueError("a span mark closes no open span")
+            stack.pop()
+        else:
+            stack.append(name)
+    return out + ["/".join(stack)] * (len(chain) - at)
+
+
+def _span_table(raw: int, marks: list) -> Optional[tuple]:
+    """The span path of each kernel, copy and fill node of a captured graph
+    in chain order (span_paths), or None where it is no chain."""
+    chain = _graph_chain(raw)
+    if chain is None:
+        return None
+    try:
+        paths = span_paths(chain, marks)
+    except ValueError:  # a position that could not be read, or a mark out of order
+        return None
+    cu = _libcuda()
+    return tuple(p for node, p in zip(chain, paths) if _kind(cu, node) in DEVICE_KINDS)
 
 
 def graph_nodes(raw: int) -> tuple:
@@ -177,15 +292,9 @@ def graph_nodes(raw: int) -> tuple:
     whose source is host memory), through libcuda (cuGraphGetNodes,
     cuGraphNodeGetType, cuGraphMemcpyNodeGetParams, cuPointerGetAttribute)."""
     cu = _libcuda()
-    n = ctypes.c_size_t(0)
-    _cu_check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    _cu_check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
     kinds, host_copies = collections.Counter(), 0
-    for node in nodes:
-        t = ctypes.c_int(-1)
-        _cu_check(cu.cuGraphNodeGetType(node, ctypes.byref(t)), "cuGraphNodeGetType")
-        kind = NODE_KINDS[t.value] if 0 <= t.value < len(NODE_KINDS) else f"TYPE_{t.value}"
+    for node in _nodes(cu, raw):
+        kind = _kind(cu, node)
         kinds[kind] += 1
         if kind != "MEMCPY":
             continue
@@ -208,6 +317,9 @@ class _Graph(NamedTuple):
     delta: tuple
     nodes: collections.Counter
     rng: Optional[torch.Generator]
+    # the span path of each KERNEL, MEMCPY and MEMSET node in chain order
+    # (span_paths); None where the capture did not record them as a chain
+    spans: Optional[tuple]
 
 
 def _empty_like(inputs: dict) -> dict:
@@ -245,23 +357,25 @@ class BlockGraphs:
         key = (n, phase, shapes, id(rng))
         e = self.graphs.get(key)  # an entry holds its generator: its id is not reused
         if e is not None:
-            for k, v in inputs.items():
-                if v is not None and v is not e.static[k]:
-                    e.static[k].copy_(v)
-            e.graph.replay()
-            _add_delta(e.delta)
+            with profiling.span("block.replay"):
+                for k, v in inputs.items():
+                    if v is not None and v is not e.static[k]:
+                        e.static[k].copy_(v)
+                e.graph.replay()
+                _add_delta(e.delta)
             self.last = e
             self.replays += 1
             return e.out
         if self.stream is None:
             self.stream = torch.cuda.Stream(dev)
             self.pool = torch.cuda.graph_pool_handle()
-        cur = torch.cuda.current_stream(dev)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            out = self.body(inputs, n, host, rng)
-        cur.wait_stream(self.stream)
-        self.graphs[key] = self.last = self._capture(inputs, n, host, rng)
+        with profiling.span("block.capture"):
+            cur = torch.cuda.current_stream(dev)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                out = self.body(inputs, n, host, rng)
+            cur.wait_stream(self.stream)
+            self.graphs[key] = self.last = self._capture(inputs, n, host, rng)
         return out
 
     def _capture(self, inputs: dict, n: int, host: int, rng) -> _Graph:
@@ -273,10 +387,17 @@ class BlockGraphs:
         if rng is not None:
             g.register_generator_state(rng)
         before = _snapshot()
+        marks = []
+        stream = self.stream.cuda_stream
+
+        def mark(name):
+            marks.append((name, _capture_tail(stream)))
+
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
+            with torch.cuda.graph(g, pool=self.pool, stream=self.stream), \
+                    profiling.capturing(mark):
                 out = self.body(static, n, host, rng)
         except Exception as e:
             raise RuntimeError(f"capturing a {n}-step run block as a CUDA graph failed: {e}") from e
@@ -284,9 +405,10 @@ class BlockGraphs:
             if collecting:
                 gc.enable()
             delta = _take_delta(before)
-        kinds, host_copies = graph_nodes(g.raw_cuda_graph())
+        raw = g.raw_cuda_graph()
+        kinds, host_copies = graph_nodes(raw)
         if host_copies:
             raise RuntimeError(f"the captured {n}-step run block copies from host memory "
                                f"{host_copies} times; a replay would read stale values")
         g.instantiate()
-        return _Graph(g, static, out, delta, kinds, rng)
+        return _Graph(g, static, out, delta, kinds, rng, _span_table(raw, marks))

@@ -1,21 +1,99 @@
-"""Tracing / profiling hooks (ggs_tpu/utils/profiling.py).
+"""Tracing hooks (ggs_tpu/utils/profiling.py).
 
 `trace` wraps a region with torch.profiler (CPU and, with a card, CUDA
 activity) and writes a Chrome trace (chrome://tracing, Perfetto) into its
-directory; `named_scope` labels a region in that trace; StepTimer gives the
-candidates/s (or steps/s) throughput metric; `prewarm` keeps first-call
-costs (the kernels' nvcc build, allocator growth) out of timings.
+directory; `named_scope` labels a region in that trace (run_ga
+--profile-dir's "{prefix} block a-b").
+
+`span(name)` is the program's one way to open a span at a layer boundary,
+its names the tuple SPANS. Under the profiler it is
+torch.profiler.record_function, on the timeline and clock of the card's
+records, so a device operation can be put down to the span that launched
+it (by its launch's correlation). While utils/block_graph.py captures a
+run block (`capturing`), each span's entry and exit also go to the
+capture's `mark`, which records the capture's position there, so the
+graph's nodes can be named by span although a replay runs no Python.
+Otherwise a span costs one check and opens nothing.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 
 named_scope = torch.profiler.record_function
+
+# Every span the package opens; a span's parent is the span open around it
+SPANS = (
+    "block.prepare",  # ga._sigma_tables' prepare: the sigma table's cover and counter fill
+    "block.replay",  # BlockGraphs: the inputs' copies, the replay, the launch counts
+    "block.capture",  # BlockGraphs' first call of a key: the eager body and the capture
+    "ga.step",  # one generation
+    "ga.draw",  # the generation's random numbers (draw_offspring)
+    "ga.variation",  # selection, crossover, mutation (_offspring)
+    "ga.elitism",  # the elites' sort, the new population, best and metrics
+    "objective.evaluate",  # one scoring call, every chunk
+    "render.screen",  # codec, preprocess, boxes, padded target and weights
+    "render.bin",  # bin_splats: the dense binning or K5, one pass
+    "render.feats",  # the walk's table (and K4's boxes)
+    "render.walk",  # K1, K2, K3, K1-bf16 and the partials' sum
+    "render.grad",  # K6, K7 and their sums
+    "adam.step",  # one projected Adam step
+    "adam.value_and_grad",  # the step's value and gradient
+    "adam.update",  # the optimizer's update and the projection
+)
+
+_NULL = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+# mark(name) at a span's entry, mark(None) at its exit, while a run block is
+# captured (capturing); None otherwise
+_mark: Optional[Callable[[Optional[str]], None]] = None
+
+
+class _Span:
+    __slots__ = ("name", "mark", "scope")
+
+    def __init__(self, name: str, mark) -> None:
+        self.name, self.mark, self.scope = name, mark, None
+
+    def __enter__(self):
+        if self.mark is not None:
+            self.mark(self.name)
+        if _profiling():
+            self.scope = torch.profiler.record_function(self.name)
+            self.scope.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.scope is not None:
+            self.scope.__exit__(*exc)
+        if self.mark is not None:
+            self.mark(None)
+        return False
+
+
+def span(name: str):
+    """A context manager that opens the program span `name` (one of SPANS)
+    under the profiler or a run block's capture, and nothing otherwise."""
+    mark = _mark
+    if mark is None and not _profiling():
+        return _NULL
+    return _Span(name, mark)
+
+
+@contextlib.contextmanager
+def capturing(mark: Callable[[Optional[str]], None]) -> Iterator[None]:
+    """Sends every span's entry (mark(name)) and exit (mark(None)), on any
+    thread, to `mark` while the block runs: a run block's capture, which
+    records the capture's position at each (utils/block_graph.py)."""
+    global _mark
+    before, _mark = _mark, mark
+    try:
+        yield
+    finally:
+        _mark = before
 
 
 @contextlib.contextmanager
@@ -37,48 +115,3 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
             torch.cuda.synchronize()
     n = len([f for f in os.listdir(log_dir) if f.startswith(f"trace_{os.getpid()}_")])
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
-
-
-class StepTimer:
-    """Wall-clock throughput: candidates (or steps) per second.
-
-    Call start() after warmup, tick(n) after each synchronized block of n
-    units, then rate().
-    """
-
-    def __init__(self) -> None:
-        self._t0: Optional[float] = None
-        self._units = 0
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-        self._units = 0
-
-    def tick(self, n: int = 1) -> None:
-        self._units += n
-
-    def elapsed(self) -> float:
-        assert self._t0 is not None, "StepTimer.start() not called"
-        return time.perf_counter() - self._t0
-
-    def rate(self) -> float:
-        dt = self.elapsed()
-        return self._units / dt if dt > 0 else float("inf")
-
-
-def _on_card(x) -> bool:
-    if isinstance(x, torch.Tensor):
-        return x.is_cuda
-    if isinstance(x, dict):
-        return any(_on_card(v) for v in x.values())
-    if isinstance(x, (tuple, list)):
-        return any(_on_card(v) for v in x)
-    return False
-
-
-def prewarm(fn, *args, **kwargs):
-    """Call fn once and wait for the card when its outputs lie there."""
-    out = fn(*args, **kwargs)
-    if _on_card(out):
-        torch.cuda.synchronize()
-    return out
