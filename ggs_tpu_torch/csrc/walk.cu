@@ -55,9 +55,16 @@
 // what torch computes for the plain version. qy is formed in f32 and packed
 // with one rounding, and exp stays f32 per pixel on the bf16 value.
 //
-// What bounds the walks on the card: their arithmetic, about 20-30
-// operations and one exp per (splat, pixel) pair inside the box, against a
-// few KB of list and table per tile. The work unit is a sub-tile, not the
+// What bounds the walks on the card: instruction issue, then latency. Each
+// (splat, pixel) pair inside the box costs one exp and about 20-30 other
+// operations, and under -fmad=false each multiply and add is an instruction
+// of its own, so a SM issues at most 128 of them a clock: about half the f32
+// peak, which counts an FMA as two. Against that a tile's list and table are
+// a few KB. The SMs issue on roughly three clocks in four; in the rest every
+// warp waits on its splat's loads or branches, all the more where few blocks
+// share a SM (PERF.md). So the design takes out of the pixel slot whatever is
+// the same for a whole warp or block, and gives a splat one wait on shared
+// memory. The work unit is a sub-tile, not the
 // list tile: a block of 128 threads walks kRows = 4 rows x 128 columns of one
 // list tile (tile_h a multiple of 4: S = tile_h / 4 sub-tiles, B * T * S
 // blocks), each thread one column and four rows, carrying their canvas (12
@@ -66,14 +73,23 @@
 // tile's whole list, but a splat whose rows miss the sub-tile's four is
 // dropped while it is staged (a ballot compaction that keeps ascending
 // order: measured faster than a block-uniform test per splat, PERF.md), and
-// one whose columns miss a warp's 32 costs that warp a warp-uniform test;
-// the four rows then run without a branch, each pixel outside the box
-// taking f = 0 by a select, so their dependent chains interleave. The
+// one whose columns miss a warp's 32 costs that warp a warp-uniform test.
+// A kept splat's row terms (qy and the quadratic's qy^2 part for each of the
+// four rows) depend only on the splat and the sub-tile, so they are computed
+// once while it is staged, with the walk's own operations in its order, and
+// the pixels read them. The four rows then run without a branch, in one of
+// three forms chosen per splat: where the box holds the sub-tile's rows
+// (block-uniform) and the warp's 32 columns (warp-uniform), f = e with no
+// test; where it holds the rows only, a select on the column; elsewhere the
+// select per pixel, f = 0 outside the box. The arithmetic and its rounding
+// are the same in all three, so the canvas keeps its bits whichever runs,
+// and the four rows' dependent chains interleave in each. The
 // list's splat parameters are staged through shared memory kChunk splats at
-// a time, padded to 16 floats for 16-byte loads (the box first, so the skip
-// test reads one), double-buffered and two deep: each thread loads its
-// share of the next chunk's parameters, and the list entry of the one
-// after, while the block walks the current one.
+// a time, in records that each thread reads whole by 16-byte loads before
+// any test, so a splat costs one round trip to shared memory, not two;
+// double-buffered and two deep: each thread loads its share of the next
+// chunk's parameters, and the list entry of the one after, while the block
+// walks the current one.
 //
 // K1's sum is fixed-order, with no atomics on values: each thread sums its
 // rows in order, then a warp shuffle tree, then the 4 warps in order give the
@@ -83,9 +99,9 @@
 // the next launch). So fitness is the same bits on every launch.
 //
 // ptxas (sm_90a, -O3 -fmad=false) on the H100 run recorded in PERF.md:
-// fitness_kernel<0/1/2> 63/64/60 registers and render_kernel<0/1> 63/62 (the
-// launch bound caps them at 64 for 8 blocks a SM), ~4 KB of static shared
-// memory, no spills.
+// fitness_kernel<0/1/2> 63/64/59 registers and render_kernel<0/1> 63/64 (the
+// launch bound caps them at 64 for 8 blocks a SM), 5 KB of static shared
+// memory (4 KB in mode 2), no spills.
 //
 // K4 is elementwise, one thread per (candidate, splat), reading the
 // [B, N, 9] genome in place (no transpose copy): a few dozen operations
@@ -126,14 +142,27 @@ struct WalkParams {
   float bg0, bg1, bg2;
 };
 
-// A table row's slot in the padded shared-memory record: the box first
-// (x0 x1 y0 y1 | cx cy nsxx nsxy | nsyy r g b | a), so one 16-byte load
-// serves the warp test.
-__host__ __device__ constexpr int slot(int r) { return r >= F_X0 ? r - F_X0 : r + 4; }
+// A kept splat's shared-memory record, in float4s: the box (x0 x1 y0 y1);
+// then (cx nsxx nsxy a) and (r g b -); then its row terms over the
+// sub-tile's four rows, which only the splat and the row decide
+// (row_terms): modes 0 and 1 a float4 of qy and one of the quadratic's row
+// part, mode 2 one float4 of their bf16x2 pairs. cy and nsyy enter the row
+// terms only.
+template <int kMode>
+constexpr int kRec = kMode == kBf16 ? 4 : 5;
+enum { R_BOX, R_SPLAT, R_COLOUR, R_ROWS };
+// a table row's float slot in the record, or -1 (cy, nsyy)
+__host__ __device__ constexpr int slot(int r) {
+  return r >= F_X0 ? r - F_X0 : r == F_CX ? 4 : r == F_SXX || r == F_SXY ? r + 3 : r == F_A ? 7
+       : r >= F_R ? r + 3 : -1;
+}
+static_assert(slot(F_SXX) == 5 && slot(F_SXY) == 6 && slot(F_R) == 8 && slot(F_B) == 10,
+              "(cx nsxx nsxy a) and (r g b -) are the record's float4s 1 and 2");
 
-struct Splat {
-  float x0, x1, y0, y1, cx, cy, sxx, sxy, syy, rc, gc, bc, a;
-};
+// Which rows and columns of a warp's 4 x 32 pixels a splat's box covers:
+// all of them (f = e, no select), all 4 rows but not every column (a
+// select on the column), or not every row (the select per pixel).
+enum Cover { kAll, kRowsIn, kPartial };
 
 // This block's sub-tile: list tile bt = b * T + t, sub-tile `sub` of its S,
 // rows ry0 .. ry0 + 3; the thread's column col, its pixel in row 0 at px.
@@ -173,6 +202,10 @@ __device__ __forceinline__ bf2 bsel(bf2 v, bool lo, bool hi) {
 
 __device__ __forceinline__ bf2 bsplat(float x) { return __float2bfloat162_rn(x); }
 
+// a bf16x2 pair carried in a float's bits through shared memory, and back
+__device__ __forceinline__ float bfloat(bf2 v) { return *reinterpret_cast<const float*>(&v); }
+__device__ __forceinline__ bf2 bpair(float v) { return *reinterpret_cast<const bf2*>(&v); }
+
 // The canvas of a thread's four rows: f32 in modes 0 and 1, rows (0, 1) and
 // (2, 3) packed in mode 2.
 template <int kMode>
@@ -184,59 +217,119 @@ struct Canvas<kBf16> {
   bf2 r[2], g[2], b[2];
 };
 
-// One splat over the thread's four rows (rows yb .. yb + 3 of column xf).
-__device__ __forceinline__ void blend(Canvas<kExact>& C, const Splat& s, float xf, float yb) {
-  const bool inx = xf >= s.x0 && xf <= s.x1;
-  const float qx = xf - s.cx;
-  const float txx = s.sxx * (qx * qx);
+// A kept splat's row terms over rows yb .. yb + 3, in the record's float4s
+// from R_ROWS on: the walk's own operations in its own order, so each
+// pixel's quadratic keeps its bits. Mode 0: qy = y - cy and nsyy*(qy*qy);
+// mode 1: qy and (nsyy*(qy*qy) + log2a), the exp2's innermost sum; mode 2:
+// qy rounded to bf16 (rows (0, 1) and (2, 3) packed) and bf16
+// nsyy*(qy*qy).
+template <int kMode>
+__device__ __forceinline__ void row_terms(float4* rec, float cy, float syy, float a, float yb) {
+  if constexpr (kMode == kBf16) {
+    const bf2 byy = bsplat(syy);
+    float4 t;
+    float* w = &t.x;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float ylo = yb + (float)(2 * h), yhi = ylo + 1.0f;  // the pair's rows
+      const bf2 qy = __floats2bfloat162_rn(ylo - cy, yhi - cy);
+      w[h] = bfloat(qy);
+      w[2 + h] = bfloat(bmul(byy, bmul(qy, qy)));
+    }
+    rec[R_ROWS] = t;
+  } else {
+    float4 q, t;
+    float* qv = &q.x;
+    float* tv = &t.x;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      qv[r] = (yb + (float)r) - cy;
+      tv[r] = syy * (qv[r] * qv[r]);
+      if constexpr (kMode == kFast) tv[r] = tv[r] + a;
+    }
+    rec[R_ROWS] = q;
+    rec[R_ROWS + 1] = t;
+  }
+}
+
+// One splat over the thread's four rows (rows yb .. yb + 3 of column xf),
+// from its record; bx is its box. Outside the box f = 0 by a select; kAll
+// and kRowsIn drop the tests their cover makes true.
+template <Cover kCover>
+__device__ __forceinline__ void blend(Canvas<kExact>& C, const float4* rec, float4 bx, float xf,
+                                      float yb) {
+  const float4 s = rec[R_SPLAT], c = rec[R_COLOUR], qy = rec[R_ROWS], yy = rec[R_ROWS + 1];
+  const float* qyr = &qy.x;
+  const float* yyr = &yy.x;
+  const bool inx = xf >= bx.x && xf <= bx.y;
+  const float qx = xf - s.x;
+  const float txx = s.y * (qx * qx);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const float yf = yb + (float)r;
-    const float qy = yf - s.cy;
-    float quad = txx + s.sxy * (qx * qy);
-    quad = quad + s.syy * (qy * qy);
-    const float e = expf(quad) * s.a;
-    const float f = (inx && yf >= s.y0 && yf <= s.y1) ? e : 0.0f;
+    float quad = txx + s.z * (qx * qyr[r]);
+    quad = quad + yyr[r];
+    const float e = expf(quad) * s.w;
+    float f = e;
+    if constexpr (kCover == kRowsIn) f = inx ? e : 0.0f;
+    if constexpr (kCover == kPartial) {
+      const float yf = yb + (float)r;
+      f = (inx && yf >= bx.z && yf <= bx.w) ? e : 0.0f;
+    }
     const float omf = 1.0f - f;
-    C.r[r] = omf * C.r[r] + f * s.rc;
-    C.g[r] = omf * C.g[r] + f * s.gc;
-    C.b[r] = omf * C.b[r] + f * s.bc;
+    C.r[r] = omf * C.r[r] + f * c.x;
+    C.g[r] = omf * C.g[r] + f * c.y;
+    C.b[r] = omf * C.b[r] + f * c.z;
   }
 }
 
-__device__ __forceinline__ void blend(Canvas<kFast>& C, const Splat& s, float xf, float yb) {
-  const bool inx = xf > s.x0 && xf < s.x1;
-  const float qx = xf - s.cx;
-  const float txx = s.sxx * (qx * qx);  // the sum's last add: hoisting changes no bit
+template <Cover kCover>
+__device__ __forceinline__ void blend(Canvas<kFast>& C, const float4* rec, float4 bx, float xf,
+                                      float yb) {
+  const float4 s = rec[R_SPLAT], c = rec[R_COLOUR], qy = rec[R_ROWS], yt = rec[R_ROWS + 1];
+  const float* qyr = &qy.x;
+  const float* ytr = &yt.x;
+  const bool inx = xf > bx.x && xf < bx.y;
+  const float qx = xf - s.x;
+  const float txx = s.y * (qx * qx);  // the sum's last add: hoisting changes no bit
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const float yf = yb + (float)r;
-    const float qy = yf - s.cy;
-    const float inner = s.sxy * (qx * qy) + (s.syy * (qy * qy) + s.a);
+    const float inner = s.z * (qx * qyr[r]) + ytr[r];
     const float e = exp2f(txx + inner);
-    const float f = (inx && yf > s.y0 && yf < s.y1) ? e : 0.0f;
-    C.r[r] = C.r[r] + f * (s.rc - C.r[r]);
-    C.g[r] = C.g[r] + f * (s.gc - C.g[r]);
-    C.b[r] = C.b[r] + f * (s.bc - C.b[r]);
+    float f = e;
+    if constexpr (kCover == kRowsIn) f = inx ? e : 0.0f;
+    if constexpr (kCover == kPartial) {
+      const float yf = yb + (float)r;
+      f = (inx && yf > bx.z && yf < bx.w) ? e : 0.0f;
+    }
+    C.r[r] = C.r[r] + f * (c.x - C.r[r]);
+    C.g[r] = C.g[r] + f * (c.y - C.g[r]);
+    C.b[r] = C.b[r] + f * (c.z - C.b[r]);
   }
 }
 
-__device__ __forceinline__ void blend(Canvas<kBf16>& C, const Splat& s, float xf, float yb) {
-  const bool inx = xf >= s.x0 && xf <= s.x1;
-  const bf2 qx = bsplat(xf - s.cx);
-  const bf2 txx = bmul(bsplat(s.sxx), bmul(qx, qx));
-  const bf2 bxy = bsplat(s.sxy), byy = bsplat(s.syy), ba = bsplat(s.a);
-  const bf2 brc = bsplat(s.rc), bgc = bsplat(s.gc), bbc = bsplat(s.bc);
+template <Cover kCover>
+__device__ __forceinline__ void blend(Canvas<kBf16>& C, const float4* rec, float4 bx, float xf,
+                                      float yb) {
+  const float4 s = rec[R_SPLAT], c = rec[R_COLOUR], rt = rec[R_ROWS];
+  const float* rw = &rt.x;
+  const bool inx = xf >= bx.x && xf <= bx.y;
+  const bf2 qx = bsplat(xf - s.x);
+  const bf2 txx = bmul(bsplat(s.y), bmul(qx, qx));
+  const bf2 bxy = bsplat(s.z), ba = bsplat(s.w);
+  const bf2 brc = bsplat(c.x), bgc = bsplat(c.y), bbc = bsplat(c.z);
   const bf2 one = bsplat(1.0f);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float ylo = yb + (float)(2 * h), yhi = ylo + 1.0f;  // the pair's rows
-    const bf2 qy = __floats2bfloat162_rn(ylo - s.cy, yhi - s.cy);
+    const bf2 qy = bpair(rw[h]);
     bf2 quad = badd(txx, bmul(bxy, bmul(qx, qy)));
-    quad = badd(quad, bmul(byy, bmul(qy, qy)));
+    quad = badd(quad, bpair(rw[2 + h]));
     const bf2 e = __floats2bfloat162_rn(expf(__low2float(quad)), expf(__high2float(quad)));
-    const bf2 f = bsel(bmul(e, ba), inx && ylo >= s.y0 && ylo <= s.y1,
-                       inx && yhi >= s.y0 && yhi <= s.y1);
+    bf2 f = bmul(e, ba);
+    if constexpr (kCover == kRowsIn) f = bsel(f, inx, inx);
+    if constexpr (kCover == kPartial) {
+      const float ylo = yb + (float)(2 * h), yhi = ylo + 1.0f;  // the pair's rows
+      f = bsel(f, inx && ylo >= bx.z && ylo <= bx.w, inx && yhi >= bx.z && yhi <= bx.w);
+    }
     const bf2 omf = bsub(one, f);
     C.r[h] = badd(bmul(omf, C.r[h]), bmul(f, brc));
     C.g[h] = badd(bmul(omf, C.g[h]), bmul(f, bgc));
@@ -298,12 +391,28 @@ __device__ __forceinline__ float3 clamped(const Canvas<kMode>& C, int r) {
                      fminf(fmaxf(cb, 0.0f), 1.0f));
 }
 
+// A splat's record, n float4s of shared memory at p, into r by 16-byte
+// loads that stay where they stand, ahead of the skip test: one round trip to
+// shared memory a splat. The compiler would sink plain loads below the test,
+// into the paths that use them, so each splat would wait on two (measured
+// slower, most where few warps share a SM to hide it; PERF.md).
+template <int n>
+__device__ __forceinline__ void load_record(float4* r, const float4* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(r[i].x), "=f"(r[i].y), "=f"(r[i].z), "=f"(r[i].w)
+                 : "r"(a + 16u * i)
+                 : "memory");
+}
+
 // Walks the tile's list over this block's sub-tile, leaving the canvas of
 // the thread's four rows in C (unclamped).
 template <int kMode>
 __device__ __forceinline__ void walk_sub_tile(const WalkParams& p, const SubTile& g,
                                               Canvas<kMode>& C) {
-  __shared__ float4 sf[2][kChunk][4];
+  __shared__ float4 sf[2][kChunk][kRec<kMode>];
 
   start(C, p, g);
   const float xf = (float)(g.tx0 + g.col);
@@ -319,10 +428,12 @@ __device__ __forceinline__ void walk_sub_tile(const WalkParams& p, const SubTile
   // of the chunk's splat k, and only if the splat's rows meet the
   // sub-tile's: a ballot over the chunk's 32 entries gives each kept splat
   // its slot, in ascending order (every warp computes the same ballot from
-  // the same entries). entry(c) loads splat k's index in chunk c; fetch()
-  // loads the parameters of the chunk whose index is loaded; put(buf)
-  // stores the kept ones to shared memory and returns their count. So
-  // neither load stalls the walk.
+  // the same entries). Every thread holds the splat's y0 and y1 for that
+  // test, so warp 0, whose rows are cx, nsyy, a and y1, loads cy in y1's
+  // place and writes the splat's row terms. entry(c) loads splat k's index
+  // in chunk c; fetch() loads the parameters of the chunk whose index is
+  // loaded; put(buf) stores the kept ones to shared memory and returns
+  // their count. So neither load stalls the walk.
   int next = -1, cur = -1;
   float pv[kPer], ky0 = 0.0f, ky1 = 0.0f;
   auto entry = [&](int c) {
@@ -338,7 +449,8 @@ __device__ __forceinline__ void walk_sub_tile(const WalkParams& p, const SubTile
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       const int r = g.warp + q * kWarps;
-      if (cur >= 0 && r < kNFeat) pv[q] = fb[(size_t)r * p.N1 + cur];
+      if (cur >= 0 && r < kNFeat && r != F_Y0)
+        pv[q] = fb[(size_t)(r == F_Y1 ? F_CY : r) * p.N1 + cur];
     }
   };
   auto put = [&](int buf) {
@@ -346,11 +458,17 @@ __device__ __forceinline__ void walk_sub_tile(const WalkParams& p, const SubTile
         cur >= 0 && (kMode == kFast ? ky0 < ye && ky1 > yb : !(ky1 < yb || ky0 > ye));
     const unsigned bal = __ballot_sync(0xffffffffu, keep);
     const int pos = __popc(bal & ((1u << g.lane) - 1u));
+    float4* rec = sf[buf][pos];
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       const int r = g.warp + q * kWarps;
-      if (keep && r < kNFeat) reinterpret_cast<float*>(sf[buf][pos])[slot(r)] = pv[q];
+      const float v = r == F_Y0 ? ky0 : r == F_Y1 ? ky1 : pv[q];
+      if (keep && r < kNFeat && slot(r) >= 0) reinterpret_cast<float*>(rec)[slot(r)] = v;
     }
+    static_assert(F_CX % kWarps == 0 && F_SYY % kWarps == 0 && F_A % kWarps == 0 &&
+                      F_Y1 % kWarps == 0 && F_Y1 / kWarps == 3 && kPer == 4,
+                  "warp 0 holds cx, nsyy, a and (in y1's place) cy");
+    if (keep && g.warp == 0) row_terms<kMode>(rec, pv[3], pv[1], pv[2], yb);
     return __popc(bal);
   };
 
@@ -364,12 +482,21 @@ __device__ __forceinline__ void walk_sub_tile(const WalkParams& p, const SubTile
     fetch();
     entry(c + 2);
     for (int j = 0; j < m; ++j) {
-      const float4 bx = sf[buf][j][0];  // x0 x1 y0 y1
+      float4 rec[kRec<kMode>];
+      load_record<kRec<kMode>>(rec, sf[buf][j]);
+      const float4 bx = rec[R_BOX];  // x0 x1 y0 y1
       // warp-uniform: none of the warp's columns is in the box
       if (kMode == kFast ? !(bx.x < wx1 && bx.y > wx0) : bx.y < wx0 || bx.x > wx1) continue;
-      const float4 u = sf[buf][j][1], v = sf[buf][j][2], w = sf[buf][j][3];
-      const Splat s{bx.x, bx.y, bx.z, bx.w, u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w, w.x};
-      blend(C, s, xf, yb);
+      // block-uniform: the box holds the sub-tile's 4 rows; warp-uniform:
+      // and the warp's 32 columns
+      const bool rows_in = kMode == kFast ? bx.z < yb && bx.w > ye : bx.z <= yb && bx.w >= ye;
+      const bool cols_in = kMode == kFast ? bx.x < wx0 && bx.y > wx1 : bx.x <= wx0 && bx.y >= wx1;
+      if (!rows_in)
+        blend<kPartial>(C, rec, bx, xf, yb);
+      else if (cols_in)
+        blend<kAll>(C, rec, bx, xf, yb);
+      else
+        blend<kRowsIn>(C, rec, bx, xf, yb);
     }
   }
 }

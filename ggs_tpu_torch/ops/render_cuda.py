@@ -25,6 +25,8 @@ PyTorch/CUDA counterpart of `ggs_tpu/ops/render_pallas.py`:
   `fitness_tiles_fast` / `render_tiles_fast` (K3), `fitness_tiles_bf16`
   (K1-bf16) and `prep_fast` (K4) in `csrc/walk.cu`; `bin_splats_scatter`
   (K5) in `csrc/scatter.cu`. Every walk takes an optional init canvas.
+  `walk_path_counts` counts how the walks take a pass's lists, by path
+  (for measurement; no walk calls it).
 * `render` / `fitness`: the entry points, mirroring `render_pallas` and
   `fitness_pallas` for the four precision tiers. Above MAX_SPLATS splats
   they chain passes through the init canvas (`_chunked_passes`, :141),
@@ -947,6 +949,54 @@ def fitness_tiles_plain(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, ba
     dg = cg - tt[1]
     db = cb - tt[2]
     return torch.sum((dr * dr + dg * dg + db * db) * wt, dim=(-2, -1))
+
+
+def walk_path_counts(cnt, idx, feats, n_tx, tile_h, mode="exact") -> dict:
+    """How the forward walks (csrc/walk.cu, 128-column list tiles) take
+    these lists, counted per visit: a (list entry k < cnt, sub-tile of 4
+    rows, warp of 32 columns) triple. "dropped": the splat's rows miss the
+    sub-tile's, so it is not staged; "skipped": its columns miss the warp's;
+    "covered": its box holds the sub-tile's rows and the warp's columns (no
+    select); "rows_only": the rows but not every column (a select on the
+    column); "partial": not every row (the select per pixel). The tests are
+    the kernel's, on the table's boxes (under "fast" its open thresholds).
+    Returns {path: int} and "visits", their sum. Plain PyTorch on the lists'
+    device, for measuring the walk's inputs; no walk calls it."""
+    B, T, L = idx.shape
+    S, rows, warp, tile_w = tile_h // 4, 4, 32, 128
+    dev = idx.device
+    box = torch.gather(feats[:, _F_X0:_F_Y1 + 1], 2,
+                       idx.long().reshape(B, 1, T * L).expand(B, 4, T * L))
+    x0, x1, y0, y1 = box.reshape(B, 4, T, L).unbind(1)
+    live = torch.arange(L, device=dev)[None, None, :] < cnt[:, :, None]
+    t = torch.arange(T, device=dev)
+    tx0 = ((t % n_tx) * tile_w).to(torch.float32)[None, :, None]
+    ty0 = ((t // n_tx) * tile_h).to(torch.float32)[None, :, None]
+    fast = mode == "fast"
+    kept = rows_in = hit = cols_in = torch.zeros((B, T, L), dtype=torch.int64, device=dev)
+    for s in range(S):  # staged (kept) and, of those, rows held
+        yb = ty0 + float(rows * s)
+        ye = yb + float(rows - 1)
+        k = (y0 < ye) & (y1 > yb) if fast else ~((y1 < yb) | (y0 > ye))
+        r = (y0 < yb) & (y1 > ye) if fast else (y0 <= yb) & (y1 >= ye)
+        kept, rows_in = kept + k, rows_in + (k & r)
+    for w in range(tile_w // warp):  # walked by the warp and, of those, columns held
+        wx0 = tx0 + float(warp * w)
+        wx1 = wx0 + float(warp - 1)
+        h = (x0 < wx1) & (x1 > wx0) if fast else ~((x1 < wx0) | (x0 > wx1))
+        c = (x0 < wx0) & (x1 > wx1) if fast else (x0 <= wx0) & (x1 >= wx1)
+        hit, cols_in = hit + h, cols_in + (h & c)
+    warps = tile_w // warp
+    per = {
+        "dropped": (S - kept) * warps,
+        "skipped": kept * (warps - hit),
+        "covered": rows_in * cols_in,
+        "rows_only": rows_in * (hit - cols_in),
+        "partial": (kept - rows_in) * hit,
+    }
+    out = {k: int((v * live).sum()) for k, v in per.items()}
+    out["visits"] = sum(out.values())
+    return out
 
 
 # ------------------------------------------------------------ wrappers
