@@ -80,8 +80,11 @@ K5 (bin_splats_scatter) against bin_splats_scatter_plain (integer-equal idx,
 cnt and largest true count) at the first pass of the 2048x2048 GA (512
 tiles, exact-tight and fast with the corner cull), of canvas-4k (2,048
 tiles), at 1024x1024 on the gradient tiles, and with the overflow fallback
-forced by coincident splats, and against bin_splats_dense without the cull
-(K5 is the whole binning of a pass from the boxes: its band stage, also
+forced by coincident splats, and against bin_splats_dense without the cull;
+also at the exact lists the main paths bin with K5 below 256 tiles (512x512
+at P=32 and 512 on 32 tiles, run_grad's 128 tiles of 16x128, the flagship's
+first pass at B=1024 on 128 tiles, and the fast tier's boxes without the
+corner cull, dead ones included), each against both (K5 is the whole binning of a pass from the boxes: its band stage, also
 held against its plain version, computes the band lists and, under the
 corner cull, the band column ranges on the card);
 chained passes against one pass at N=10,000 (bit for bit, exact tiers); the
@@ -159,21 +162,23 @@ each kernel of the sharded paths launched from a row slab's lists (shifted
 boxes, the bottom slab, splats above it) against its plain version under
 the gates above (K1/K2 exact-tight and highest, K3, K1-bf16 at B=16 on a
 256-row slab of 512x512, K2 at B=32, K6/K7 at run_grad's shape, K5 on a
-1024-row slab of the 2048x2048 GA's first pass, exact and fast); the slab
+1024-row slab of the 2048x2048 GA's first pass, exact and fast, and on a
+512-row one, exact, against bin_splats_dense too); the slab
 partials summed against the full fitness (rtol 1e-6, atol 1e-7, also at
 2048x2048 with N=10,000 over 2 and 4 slabs), render_rows against the full
 canvas's rows (CANVAS_ATOL; bits reported), the slab gradients summed
 against the full canvas's (GRAD_ROW_REL); then worlds of 2 and 4 gloo
 ranks, all on cuda:0, spawned as `chip_smoke.py --shard-worker` after the
 build: the sharded evaluate over 1x2, 2x1, 2x2 and 1x4 in every tier and
-metric and the 2048x2048 GA's at tile 2 (K5) and 4 (dense) against the
-unsharded one (rtol 2e-5, atol 1e-6; fast 2e-3), the same bits on every
-rank; 20-generation GA blocks whose states hash equal on every rank after
-each block, pop-only equal in bits to one process; the tile-sharded Adam
-gradient (rtol 2e-4, atol 1e-6 mse / 2e-6 mix); a 2x2 island GA migrating
-over the pop shards; save_checkpoint_distributed then a resume equal in
-bits; run_ga (exact-tight, fast, bf16) at 2x2, run_ga --metric ssim and
-run_grad (mse, mix) at 1x2 through the runners, with launch counts; and
+metric and the 2048x2048 GA's at tile 2 (256 tiles) and 4 (128; K5 at
+both) against the unsharded one (rtol 2e-5, atol 1e-6; fast 2e-3), the
+same bits on every rank; 20-generation GA blocks whose states hash equal
+on every rank after each block, pop-only equal in bits to one process;
+the tile-sharded Adam gradient (rtol 2e-4, atol 1e-6 mse / 2e-6 mix); a
+2x2 island GA migrating over the pop shards; save_checkpoint_distributed
+then a resume equal in bits; run_ga (exact-tight, fast, bf16) at 2x2,
+run_ga --metric ssim and run_grad (mse, mix) at 1x2 through the runners,
+with launch counts; and
 `torchrun ... run_ga --pop-shards 2 --tile-shards 2` for 100 generations
 (exit 0, the artifacts written once); a `SHARD TIMES` line (generations/s
 of one process against 2x1, 1x2 and 2x2, Adam steps/s against 1x2, the
@@ -960,10 +965,11 @@ def compare_grad_init(c, label: str, init_must_show: bool = True) -> dict:
 
 
 def scatter_case(B, N, side, tile_h, precision, eps=None, chunk=None, scales=(3.0, 0.1), seed=0,
-                 coincident=0, pad_slots=8, device="cuda", y_origin=0, rows=None):
+                 coincident=0, pad_slots=8, device="cuda", y_origin=0, rows=None, cull=True):
     """Seeded genomes -> K5's arguments for the first pass (`chunk` splats)
     of a chained render at this shape: the tier's boxes, the corner
-    parameters under "fast"; `coincident` splats of candidate 0 at the
+    parameters under "fast" (none with cull=False: the eps-tight boxes
+    alone, the dead ones empty, x1 = -1); `coincident` splats of candidate 0 at the
     canvas centre (sigma 4 px) force the overflow fallback. With `rows`, the
     pass of the row slab [y_origin, y_origin + rows) (shifted boxes)."""
     import torch
@@ -979,7 +985,7 @@ def scatter_case(B, N, side, tile_h, precision, eps=None, chunk=None, scales=(3.
     p = rc._screen(codec.genome_to_renderer(g), side, side, 3.0, precision, eps, y_origin)
     if chunk is not None:
         p = rc._split_screen(p, 0, chunk)
-    corner = rc._corner_params(p, eps) if eps is not None else None
+    corner = rc._corner_params(p, eps) if eps is not None and cull else None
     n = p.cx.shape[1]
     n_t = -(-side // 128), -(-(rows or side) // tile_h)
     args = rc.scatter_args(p.x0, p.x1, p.y0, p.y1, *n_t, tile_h, 128, n, pad_slots, corner=corner)
@@ -2516,16 +2522,22 @@ def kernel_counters() -> dict:
 
 
 def reset_kernel_counts(counted: dict) -> None:
+    from ggs_tpu_torch.ops import render_cuda as rc
+
     for fn in counted.values():
         for attr in ("launches", "init_launches", "band_launches", "fallback_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
+    for attr in rc.BIN_ROUTES:
+        setattr(rc.bin_splats, attr, 0)
+
 
 
 def read_kernel_counts(counted: dict) -> dict:
     """Launches per kernel, as "<kernel>-init" those from an init canvas, as
     "K5-band" K5's band stages and as "K5-fallback" K5's calls that also
-    launched its fallback."""
+    launched its fallback; and bin_splats' calls by route under the names
+    of render_cuda.BIN_ROUTES (dense, K5 below 256 tiles, K5 from 256)."""
     from ggs_tpu_torch.ops import render_cuda as rc
 
     out = {k: fn.launches for k, fn in counted.items()}
@@ -2533,6 +2545,7 @@ def read_kernel_counts(counted: dict) -> dict:
                 if hasattr(fn, "init_launches")})
     out["K5-band"] = rc.bin_splats_scatter.band_launches
     out["K5-fallback"] = rc.bin_splats_scatter.fallback_launches
+    out.update({k: getattr(rc.bin_splats, k) for k in rc.BIN_ROUTES})
     return out
 
 
@@ -2686,6 +2699,11 @@ def slab_checks() -> dict:
                           y_origin=GA_SIDE // 2, rows=GA_SIDE // 2)
         out[f"K5_{key}"] = compare_scatter(sc, f"slab 1024+1024 of the 2048 GA, {prec}",
                                            dense=eps is None)
+    # at tile 4: the bottom 512-row slab, 128 tiles, exact lists: K5 on the card
+    sc = scatter_case(GA_P, BIG_N, GA_SIDE, 64, "exact-tight", chunk=BIG_N // 2, seed=65,
+                      y_origin=GA_SIDE * 3 // 4, rows=GA_SIDE // 4)
+    out["K5_exact_t4"] = compare_scatter(sc, "slab 1536+512 of the 2048 GA, exact-tight",
+                                         dense=True)
     tiles_t4 = (GA_SIDE // 128) * (GA_SIDE // 4 // 64)
     check(tiles_t4 < rc.SCATTER_TILES, f"a 512-row slab of 2048 has {tiles_t4} tiles")
 
@@ -2706,8 +2724,8 @@ def slab_checks() -> dict:
                          for y in (0, 256)], 1)
         rows[prec] = {"max_abs": float((got - img).abs().max()), "bits": torch.equal(got, img)}
         check(rows[prec]["max_abs"] <= CANVAS_ATOL, f"{prec}: render_rows is off the canvas")
-    # the 2048x2048 GA's chained passes (N=10,000) from slabs of tile 2 (K5)
-    # and tile 4 (dense), B=4
+    # the 2048x2048 GA's chained passes (N=10,000) from slabs of tile 2 (256
+    # tiles) and tile 4 (128), B=4
     tgt_b, wm_b, pop_b = shard_inputs(GA_SIDE, 4, BIG_N, 67)
     g9b = codec.genome_to_renderer(pop_b)
     w_b, denom_b = fitness.weff_denom(wm_b, False, 1.0, GA_SIDE, GA_SIDE)
@@ -2784,7 +2802,7 @@ def shard_worker(argv) -> int:
             res["eval"][f"{tag} {metric} {prec}"] = {
                 "excess": allclose_excess(got, want, SHARD_RTOL, atol), "atol": atol,
                 "max_rel": rel_err(got, want), "hash": tensor_hash(got)}
-    # the 2048x2048 GA's evaluation (N=10,000, P=32): tile 2 (K5), tile 4 (dense)
+    # the 2048x2048 GA's evaluation (N=10,000, P=32): tile 2 (256 tiles), tile 4 (128)
     tile_mesh = meshes["1x2"] if world == 2 else meshes["1x4"]
     tgt_b, wm_b, pop_b = shard_inputs(GA_SIDE, GA_P, BIG_N, 30)
     for prec in ("exact-tight", "fast"):
@@ -2998,8 +3016,11 @@ def shard_checks_and_times(card) -> dict:
           "save_checkpoint_distributed -> resume is not the uninterrupted run in bits")
     k5 = w2["eval"]["ga2048 tile2 exact-tight"]["launches"]
     k5_t4 = w4["eval"]["ga2048 tile4 exact-tight"]["launches"]
-    check(k5["K5"] >= 2 and k5_t4["K5"] == 0,
-          f"2048 GA: K5 {k5['K5']} launches at tile 2, {k5_t4['K5']} at tile 4 (dense)")
+    # exact lists: K5 on the 256 tiles of a 1024-row slab and the 128 of a
+    # 512-row one, once a pass
+    check(k5["K5"] >= 2 and k5_t4["K5"] == k5_t4["k5_small_calls"] == 2
+          and k5_t4["dense_calls"] == 0,
+          f"2048 GA: K5 {k5['K5']} launches at tile 2, {k5_t4['K5']} at tile 4: {k5_t4}")
 
     phase("sharding slice: torchrun run_ga --pop-shards 2 --tile-shards 2")
     out_tr = os.path.join(HERE, "output", "shard_torchrun")
@@ -3046,7 +3067,8 @@ def shard_checks_and_times(card) -> dict:
 
 # BASELINE.json configs[4], the JAX package's multi-host headline
 # (tests/test_flagship_aot.py:30): pop 4096, 10,000 splats (two 5,000-splat
-# passes), 1024x1024 (128 tiles of 64x128: the dense binning), scored in
+# passes), 1024x1024 (128 tiles of 64x128: K5, the dense binning under the
+# fast tier's corner cull), scored in
 # chunks of FLAG_CHUNK, the JAX flagship's per-device batch
 # (tests/test_tpu_exactness.py:229). Only depth is cut: FLAG_GENS
 # generations in each tier.
@@ -3251,16 +3273,21 @@ def flagship_checks_and_times(card) -> dict:
         evals = (FLAG_GENS + 1) * n_chunks  # the init and each generation, in chunks
         # after the run, both tiers: the exact-tight rescore of the best
         # (K2 then K1) and the export render (K2 for each pass, the last from
-        # an init canvas)
+        # an init canvas); every exact list is K5's (128 tiles, no corner
+        # cull), the fast tier's corner-culled ones stay dense
         tail_k2 = 1 + n_passes
         if tier == "fast":
             check(c["K3"] == c["K3-init"] == evals and c["K3-canvas"] == evals and c["K4"] == 0
                   and c["K1"] == c["K1-init"] == 1 and c["K2"] == tail_k2
-                  and c["K2-init"] == n_passes - 1 and c["K5"] == 0,
+                  and c["K2-init"] == n_passes - 1
+                  and c["K5"] == c["k5_small_calls"] == 2 * n_passes
+                  and c["dense_calls"] == 2 * evals,
                   f"flagship fast: K3 not once a chunk from K3's canvas: {c}")
         else:
             check(c["K1"] == c["K1-init"] == evals + 1 and c["K2"] == evals + tail_k2
-                  and c["K2-init"] == n_passes - 1 and c["K5"] == 0,
+                  and c["K2-init"] == n_passes - 1
+                  and c["K5"] == c["k5_small_calls"] == c["K1"] + c["K2"]
+                  and c["dense_calls"] == 0,
                   f"flagship exact-tight: K1 not once a chunk from K2's canvas: {c}")
             check(len(saves) == 1, f"flagship: {len(saves)} checkpoints saved, not one")
     ref_state = runs["exact-tight"].pop("state")
@@ -3350,8 +3377,9 @@ def flagship_checks_and_times(card) -> dict:
           f"{rel_err(parts, fits[:FLAG_SLAB_B] * denom):.3e}; launches "
           f"{launches['slabs_B1024']}", flush=True)
     check(slab_excess <= 0, "the flagship's slab partials are off the whole fitness")
-    check(launches["slabs_B1024"]["K1-init"] == 2 and launches["slabs_B1024"]["K5"] == 0,
-          f"flagship slabs: {launches['slabs_B1024']}")
+    check(launches["slabs_B1024"]["K1-init"] == 2
+          and launches["slabs_B1024"]["K5"] == launches["slabs_B1024"]["k5_small_calls"]
+          == 2 * n_passes, f"flagship slabs: {launches['slabs_B1024']}")
     del g9, parts
 
     reset_kernel_counts(counted)
@@ -3650,8 +3678,30 @@ def main() -> int:
         "c4k_overflow": scatter_case(1, C4K_N, C4K_SIDE, 64, "fast", C4K_EPS, chunk=C4K_N // 7,
                                      scales=C4K_SCALES, seed=33, coincident=300),
     }
+    # the exact lists the main paths bin with K5 below 256 tiles: run_ga's
+    # 512x512 (32 tiles of 64x128) at P=32 and 512, run_grad's (128 tiles of
+    # 16x128), the flagship's first pass (B=1024, 128 tiles) and the fast
+    # tier's eps-tight boxes without the corner cull (dead boxes x1 = -1)
+    small_k5 = {
+        "ga512_p32": scatter_case(32, 512, 512, 64, "exact-tight", seed=35),
+        "ga512_p512": scatter_case(512, 512, 512, 64, "exact-tight", seed=36),
+        "grad_512": scatter_case(1, 2000, 512, rg.GRAD_TILE_H, "exact-tight", seed=37,
+                                 pad_slots=rg.GRAD_SCATTER_PAD),
+        "flagship_pass": scatter_case(FLAG_CHUNK, FLAG_N, FLAG_SIDE, 64, "exact-tight",
+                                      chunk=FLAG_N // 2, seed=38),
+        # eps 0.8 empties about a third of a fresh population's boxes (alphas from 0.71)
+        "ga512_fast_no_cull": scatter_case(32, 512, 512, 64, "fast", 0.8, seed=39, cull=False),
+    }
+    for k, sc in small_k5.items():
+        a, n = sc["args"], sc["p"].x0.shape
+        check(rc.bin_route(n[0], a["n_tx"], a["n_ty"], a["cap"], n[1], sc["pad_slots"], None,
+                           "cuda") == "k5_small_calls", f"{k}: bin_splats does not take K5 here")
+    dead = int((small_k5["ga512_fast_no_cull"]["p"].x1 < 0).sum())
+    print(f"CHECK K5 ga512_fast_no_cull: {dead} dead boxes (x1 = -1)", flush=True)
+    check(dead > 0, "the fast tier's boxes without the corner cull hold no dead box")
     scatter_errs = {k: compare_scatter(sc, k, dense=sc["corner"] is None)
-                    for k, sc in scatter_cases.items()}
+                    for k, sc in {**scatter_cases, **small_k5}.items()}
+    del small_k5
     # the fallback forced, and absent (at the GA's first pass a tile may hold
     # more than cap_s = 703 splats: JAX's rule then takes the per-tile lists)
     check(scatter_errs["c4k_overflow"]["overflow"], "the coincident splats did not overflow cap_s")

@@ -12,13 +12,16 @@ PyTorch/CUDA counterpart of `ggs_tpu/ops/render_pallas.py`:
   package): `_tighten_boxes` (:377), the eps-tight boxes;
   `_corner_eps`/`_corner_params`/`_corner_keep` (:411-486), the rect-min
   corner cull, and `_corner_band_xranges` (:489), its band-level form.
-* Binning: `bin_splats` (`_bin_splats_xy`, :613) dispatches on the tile
-  count. Below 256 tiles `bin_splats_dense` (:659): per-tile ascending
-  splat lists padded with N, counts capped at `bin_capacity`, with the
-  corner cull ANDed in. From 256 tiles `scatter_binning`
-  (`_bin_splats_scatter`, :892): its static rules, then K5 from the boxes
-  (the band lists and band ranges on the card); its plain route keeps
-  `_band_lists` (`_band_lists_xla`, :698) and the band ranges in PyTorch.
+* Binning: `bin_splats` (`_bin_splats_xy`, :613) takes the route
+  `bin_route` picks. `bin_splats_dense` (:659): per-tile ascending splat
+  lists padded with N, counts capped at `bin_capacity`, with the corner
+  cull ANDed in. `scatter_binning` (`_bin_splats_scatter`, :892): its
+  static rules, then K5 from the boxes (the band lists and band ranges on
+  the card); its plain route keeps `_band_lists` (`_band_lists_xla`, :698)
+  and the band ranges in PyTorch. Under the corner cull the route is JAX's
+  (K5 from 256 tiles, dense below), since it decides the lists; without
+  it both give the same integers, and the card bins with K5 at every tile
+  count its rules plan, the CPU densely below 256 tiles.
 * Kernel wrappers, each with a launch count and a plain version beside it
   (a CPU tensor takes the plain version; a CUDA tensor launches the kernel
   or raises): `fitness_tiles` (K1), `render_tiles` (K2),
@@ -780,16 +783,51 @@ def scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=S
     return idx, cnt
 
 
+# bin_splats' counts of calls by route: the dense binning, K5 below
+# SCATTER_TILES tiles (exact lists on the card), K5 from SCATTER_TILES (its
+# plain version on the CPU)
+BIN_ROUTES = ("dense_calls", "k5_small_calls", "k5_calls")
+
+
+def bin_route(B, n_tx, n_ty, cap, N, pad_slots, corner, device) -> str:
+    """The route bin_splats takes, one of BIN_ROUTES. Under the corner cull
+    the route decides the lists, so it is JAX's (`_bin_splats_xy`): the
+    scatter binning from SCATTER_TILES tiles where its rules give a plan,
+    else dense. Without the cull both routes give the same integers, and on
+    the card K5 takes every tile count with a plan, for batches its launch
+    takes (csrc/scatter.cu geometry: B <= 65535; below SCATTER_TILES tiles
+    its B*T < 2**31 then holds too): on an H100 it beats the dense sort at every shape of the benchmark, from
+    B=1 on 96 tiles (0.025 against 0.066 device ms) to B=1024 on 128 tiles
+    (1.65 against 65.4, a 5,000-splat pass). The CPU keeps bin_splats_dense,
+    the plain version."""
+    plan = _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner)
+    if plan is None:
+        return "dense_calls"
+    if n_tx * n_ty >= SCATTER_TILES:
+        return "k5_calls"
+    if corner is None and B <= 65535 and torch.device(device).type != "cpu":
+        return "k5_small_calls"
+    return "dense_calls"
+
+
 def bin_splats(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=None,
                pad_slots=SCATTER_PAD):
     """Boxes [B, N] -> (idx [B, T, cap], cnt [B, T]) (`_bin_splats_xy`,
-    render_pallas.py:613): the scatter binning from SCATTER_TILES tiles,
-    the dense one below."""
+    render_pallas.py:613) by `bin_route`: scatter_binning (K5, its plain
+    version on the CPU) or bin_splats_dense. Counts its calls by route in
+    the attributes named by BIN_ROUTES."""
     with profiling.span("render.bin"):
-        if n_tx * n_ty >= SCATTER_TILES:
-            return scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots,
-                                   corner=corner)
-        return bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=corner)
+        B, N = x0.shape
+        route = bin_route(B, n_tx, n_ty, cap, N, pad_slots, corner, x0.device)
+        setattr(bin_splats, route, getattr(bin_splats, route) + 1)
+        if route == "dense_calls":
+            return bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap,
+                                    corner=corner)
+        return scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots,
+                               corner=corner)
+
+
+bin_splats.dense_calls = bin_splats.k5_small_calls = bin_splats.k5_calls = 0
 
 
 @torch.no_grad()
@@ -1448,9 +1486,10 @@ def fitness_partial(
     canvas and shifted into the slab (shift_rows) before the tier's boxes,
     the corner cull and the table are taken, so the walks (K1, K3, K1-bf16,
     and K2/K3's canvas for the passes before the last) run the full canvas's
-    arithmetic on the slab's tiles. The binning route follows the slab's
-    tile count (dense below SCATTER_TILES, K5 from it). The fast tier takes
-    no K4 here: its table comes from the shifted screen, as in JAX's partial.
+    arithmetic on the slab's tiles. The binning route is `bin_route`'s for
+    the slab's tile count (under the corner cull dense below SCATTER_TILES
+    and K5 from it; without it K5 on the card). The fast tier takes no K4
+    here: its table comes from the shifted screen, as in JAX's partial.
     Summed over the slabs of a canvas, the partials give fitness() * denom."""
     _check_precision(precision)
     g9 = _genomes(g9)

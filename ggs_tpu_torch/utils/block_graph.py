@@ -75,7 +75,9 @@ from . import profiling
 # each one that is still listed what its capture added
 TALLIES: list = []
 
-_ATTRS = ("launches", "init_launches", "band_launches", "fallback_launches")
+# the wrappers' launch counters, and bin_splats' calls by route (render_cuda.BIN_ROUTES)
+_ATTRS = ("launches", "init_launches", "band_launches", "fallback_launches", "dense_calls",
+          "k5_small_calls", "k5_calls")
 
 
 def stays_eager(obj) -> bool:
@@ -103,13 +105,13 @@ class RunBlock:
 
 
 def _wrappers() -> tuple:
-    """The kernel wrappers whose counters a launch advances."""
+    """The kernel wrappers whose counters a launch advances, and bin_splats."""
     from ..ops import render_cuda as rc
     from ..ops import render_grad as rg
 
     return (rc.fitness_tiles, rc.render_tiles, rc.fitness_tiles_fast, rc.render_tiles_fast,
-            rc.prep_fast, rc.fitness_tiles_bf16, rc.bin_splats_scatter, rg.bwd_tiles,
-            rg.lossgrad_tiles)
+            rc.prep_fast, rc.fitness_tiles_bf16, rc.bin_splats_scatter, rc.bin_splats,
+            rg.bwd_tiles, rg.lossgrad_tiles)
 
 
 def _snapshot() -> tuple:

@@ -7,7 +7,8 @@ tiles), on an odd canvas, with bin_capacity truncating the lists, at the
 gradient paths' shapes (16x128 tiles) and at every list tile height the
 gradient kernels walk (8, 16, 32 and 64 rows), with an init canvas (a
 chained pass), and K5 at 256 tiles and more with and without the corner cull and
-with its overflow fallback; plus the wrappers' argument checks.
+with its overflow fallback, and bin_splats' exact lists (K5 at every tile
+count) at the benchmark cells' shapes; plus the wrappers' argument checks.
 
 Needs an NVIDIA card and nvcc: marked `cuda`, skipped elsewhere. Run on
 the card with `python -m pytest tests/ -m cuda -q`. Tolerances: canvas
@@ -422,6 +423,38 @@ def test_scatter_kernel_matches_plain(dev, B, N, H, W, tile_h, precision, eps, c
         di, dc = rc.bin_splats_dense(p.x0, p.x1, p.y0, p.y1, args["n_tx"], args["n_ty"], tile_h,
                                      128, N)
         assert torch.equal(idx, di) and torch.equal(cnt, dc)
+
+
+@pytest.mark.parametrize(
+    "B,N,n,H,W,tile_h,pad,route",
+    [
+        (32, 512, 512, 384, 512, 64, 8, "k5_small_calls"),  # ga512-p32
+        (512, 512, 512, 384, 512, 64, 8, "k5_small_calls"),  # ga512-p512
+        (1024, 10_000, 5_000, 1024, 1024, 64, 8, "k5_small_calls"),  # ga1024-p4096's passes
+        (1, 2000, 2000, 384, 512, 16, 40, "k5_small_calls"),  # adam512-n2000
+        (1, 10_000, 5_000, 1024, 1024, 16, 40, "k5_calls"),  # adam1024-n10k's passes
+    ],
+)
+def test_exact_bin_splats_takes_k5_and_equals_dense(dev, B, N, n, H, W, tile_h, pad, route):
+    """bin_splats on the card at the benchmark cells' shapes (exact-tight,
+    the first pass of n splats): the lists equal bin_splats_dense's as
+    integers (idx over its whole width, cnt), and the call counts one K5
+    launch under its route and no dense one."""
+    from ggs_tpu_torch.ops import render_cuda as rc
+
+    args, _ = _scatter_case(dev, B, N, H, W, tile_h, "exact-tight")
+    box = tuple(args[k][:, :n] for k in ("x0", "x1", "y0", "y1"))
+    geo = (args["n_tx"], args["n_ty"], tile_h, 128, n)
+    before = {k: getattr(rc.bin_splats, k) for k in rc.BIN_ROUTES}
+    launches = rc.bin_splats_scatter.launches
+    idx, cnt = rc.bin_splats(*box, *geo, None, pad_slots=pad)
+    moved = {k: getattr(rc.bin_splats, k) - before[k] for k in rc.BIN_ROUTES}
+    assert moved == {k: int(k == route) for k in rc.BIN_ROUTES}
+    assert rc.bin_splats_scatter.launches == launches + 1
+    di, dc = rc.bin_splats_dense(*box, *geo)
+    assert idx.shape == di.shape == (B, geo[0] * geo[1], n)
+    assert torch.equal(idx, di) and torch.equal(cnt, dc)
+    assert int(cnt.max()) > 0
 
 
 def test_scatter_wrapper_rejects_bad_arguments(dev, monkeypatch):

@@ -290,3 +290,59 @@ def test_max_bin_count_matches_jax():
         assert got == int(np.max(np.asarray(cnt)))
         if n_tx * n_ty < 256:
             assert got == int(rp.max_bin_count(jnp.asarray(g9), H, W))
+
+
+# name: (n_tx, n_ty, pad_slots, budget, exact on the card, under the cull, exact on the CPU)
+ROUTES = {
+    "photo_24_tiles": (4, 6, rc.SCATTER_PAD, BUDGET, "k5_small", "dense", "dense"),
+    "flagship_128_tiles": (8, 16, rc.SCATTER_PAD, BUDGET, "k5_small", "dense", "dense"),
+    "grad_96_tiles": (4, 24, 40, BUDGET, "k5_small", "dense", "dense"),
+    "tiles_256": (16, 16, rc.SCATTER_PAD, BUDGET, "k5", "k5", "k5"),
+    "tiles_512": (16, 32, 40, BUDGET, "k5", "k5", "k5"),
+    "no_plan_24_tiles": (4, 6, rc.SCATTER_PAD, 256, "dense", "dense", "dense"),
+    "no_plan_256_tiles": (16, 16, rc.SCATTER_PAD, 256, "dense", "dense", "dense"),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_bin_route_choice(name, monkeypatch):
+    """bin_splats' route (render_cuda.bin_route) from what a call can see:
+    exact lists go to K5 on the card wherever the scatter rules give a
+    plan; under the corner cull the route stays JAX's (K5 from 256 tiles,
+    dense below); CPU tensors keep the dense binning below 256 tiles; no
+    plan, no K5. On CPU tensors bin_splats counts its call under that route,
+    and where a plan exists its lists equal both routes': bin_splats_dense
+    and K5's plain route (scatter_args, then bin_splats_scatter_plain)."""
+    n_tx, n_ty, pad, budget, card, culled, cpu = ROUTES[name]
+    monkeypatch.setattr(rc, "SCATTER_BUDGET", budget)
+    B, N = 2, 40
+    corner = (None,) * 7  # the rules read only whether a cull is given
+    cuda = torch.device("cuda")  # a device object needs no card
+    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, None, cuda) == card + "_calls"
+    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, corner, cuda) == culled + "_calls"
+    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, corner, "cpu") == culled + "_calls"
+    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, None, "cpu") == cpu + "_calls"
+
+    H, W = 16 * n_ty, 128 * n_tx
+    boxes = _xy(_boxes(axes_genomes(9, B, N, H, W, 0.4), H, W))
+    geo = (n_tx, n_ty, 16, 128, N)
+    before = {k: getattr(rc.bin_splats, k) for k in rc.BIN_ROUTES}
+    got = rc.bin_splats(*boxes, *geo, pad_slots=pad)
+    after = {k: getattr(rc.bin_splats, k) - before[k] for k in rc.BIN_ROUTES}
+    assert after == {k: int(k == cpu + "_calls") for k in rc.BIN_ROUTES}
+    args = rc.scatter_args(*boxes, *geo, pad)
+    assert (args is None) == (card == "dense")
+    wants = [rc.bin_splats_dense(*boxes, *geo)]
+    if args is not None:
+        wants.append(rc.bin_splats_scatter_plain(**args)[:2])
+    for want in wants:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("B,route", [(65535, "k5_small_calls"), (65536, "dense_calls")])
+def test_bin_route_keeps_to_k5_launch_limits(B, route):
+    """Exact lists below 256 tiles take K5 on the card only for batches its
+    launch takes (csrc/scatter.cu geometry: B <= 65535), else the dense
+    binning, which gives the same integers."""
+    dev = torch.device("cuda")
+    assert rc.bin_route(B, 8, 16, 5000, 5000, rc.SCATTER_PAD, None, dev) == route

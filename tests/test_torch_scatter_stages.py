@@ -196,3 +196,60 @@ def test_band_entries_hold_the_band_ranges():
             assert s.tolist() == gl[b, k, : int(gcnt[b, k, 0])].tolist()
             want = rc._pack_range(txl[b, k, s], txh[b, k, s], 2)
             assert torch.equal(e[:, 2], want)
+
+
+# Exact lists below 256 tiles, which the card bins with K5 (render_cuda.
+# bin_route): the benchmark cells' geometries at small N.
+# name: (seed, B, N, H, W, tile_h, pad_slots, max_scale, cap, dead, widen)
+EXACT_CASES = {
+    "photo_64x128": (11, 3, 48, 384, 512, 64, rc.SCATTER_PAD, 0.3, None, (), None),
+    "flagship_64x128": (12, 2, 64, 1024, 1024, 64, rc.SCATTER_PAD, 0.3, None, (), None),
+    "grad_16x128": (13, 2, 96, 384, 512, 16, 40, 0.3, None, (), None),
+    "one_row_group": (14, 3, 40, 64, 512, 64, rc.SCATTER_PAD, 0.5, None, (), None),
+    "photo_truncating": (15, 2, 64, 384, 512, 64, rc.SCATTER_PAD, 0.6, 16, (), None),
+    "grad_truncating": (16, 1, 120, 384, 512, 16, 40, 0.6, 40, (), None),
+    "dead_boxes": (17, 2, 48, 384, 512, 64, rc.SCATTER_PAD, 0.3, None, (0, 5, 17, 40), None),
+    "beyond_canvas": (18, 2, 48, 1024, 1024, 64, rc.SCATTER_PAD, 0.3, None, (), (300, 90)),
+}
+
+
+@pytest.mark.parametrize("name", list(EXACT_CASES))
+def test_exact_k5_routes_equal_dense_below_256_tiles(name):
+    """Without the corner cull K5's plain route (scatter_args then
+    bin_splats_scatter_plain) and its stage replay equal bin_splats_dense as
+    integers: idx over its whole width (padded with N), cnt = min(count,
+    cap), the first cap splats kept where the lists truncate; and the
+    route bin_splats takes on a card is K5 here."""
+    from ggs_tpu_torch.ops import codec as tcodec
+
+    seed, B, n, h, w, th, pad, scale, cap, dead, widen = EXACT_CASES[name]
+    g9 = tcodec.genome_to_renderer(torch.from_numpy(axes_genomes(seed, B, n, h, w, scale)))
+    p = tcodec.tighten_boxes_exact(tcodec.preprocess(g9, h, w, 3.0), 3.0)
+    x0, x1, y0, y1 = (getattr(p, f).clone() for f in ("x0", "x1", "y0", "y1"))
+    if dead:  # dead boxes, as the fast tier's alpha cull leaves them
+        x0[0, list(dead)], x1[0, list(dead)] = 1, -1
+    if widen is not None:
+        dx, dy = widen
+        x0, x1, y0, y1 = x0 - dx, x1 + dx, y0 - dy, y1 + dy
+    boxes = (x0, x1, y0, y1)
+    n_tx, n_ty = -(-w // TILE_W), -(-h // th)
+    cap = n if cap is None else cap
+    assert n_tx * n_ty < rc.SCATTER_TILES
+    assert rc.bin_route(B, n_tx, n_ty, cap, n, pad, None, "cuda") == "k5_small_calls"
+    assert rc.bin_route(B, n_tx, n_ty, cap, n, pad, None, "cpu") == "dense_calls"
+
+    di, dc = rc.bin_splats_dense(*boxes, n_tx, n_ty, th, TILE_W, cap)
+    args = rc.scatter_args(*boxes, n_tx, n_ty, th, TILE_W, cap, pad)
+    pi, pc, pt = rc.bin_splats_scatter_plain(**args)
+    ri, rcnt, rt, *_ = _replay(boxes, None, n_tx, n_ty, th, TILE_W, cap, pad)
+    for idx, cnt in ((pi, pc), (ri, rcnt)):
+        assert idx.shape == di.shape == (B, n_tx * n_ty, cap)
+        assert torch.equal(idx, di) and torch.equal(cnt, dc)
+    assert int(pt) == int(rt)
+    # what each case is for
+    assert (args["gl"] is None) == (name == "one_row_group")
+    assert (int(pt) > cap) == name.endswith("truncating")
+    if dead:
+        assert int((di[0] == torch.tensor(list(dead))[:, None, None]).sum()) == 0
+    if widen is not None:
+        assert int(y0.min()) < 0 and int(y1.max()) >= h and int(x0.min()) < 0

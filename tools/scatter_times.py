@@ -28,14 +28,23 @@ device time of an empty kernel (the launch floor; only where the tree's
 library has one). Canvas-4k (N=50,000, 4096x4096, seven passes):
 renders/s by CUDA events over 3 renders in each tier (exact "highest",
 fast, fast with the corner cull) and, under the profiler, its kernels a
-render and the card's busy share. Prints one JSON line with the card's
-name and power limit as nvidia-smi gives them. Needs a CUDA card; imports
-nothing of JAX.
+render and the card's busy share. The benchmark cells' binning shapes
+("cells"), exact-tight, each the first pass of a seeded population
+(`genome.new_population`): the flagship's (B=1024, 1024x1024, 128 64x128
+tiles, 5,000 of 10,000 splats), the photo's (384x512, 24 64x128 tiles,
+N=512) at B=32 and B=512, and run_grad's (B=1, 96 16x128 tiles, N=2000):
+the dense route (`bin_splats_dense`), K5 (`bin_splats_scatter`) and the
+tree's own `bin_splats`, each by CUDA events and its device time, whether
+K5's lists equal the dense ones as integers, and the calls by route that
+`bin_splats` counts (where the tree counts them). Prints one JSON line
+with the card's name and power limit as nvidia-smi gives them. Needs a
+CUDA card; imports nothing of JAX.
 
-With --save OUT it also writes a hash of each case's lists (idx, cnt) and
-of K4's outputs (ff, fi) into OUT (a JSON file). --compare reads two such
-files (needs no card), prints one JSON line saying which are equal, and
-exits 1 where any differs.
+With --save OUT it also writes a hash of each case's lists (idx, cnt), of
+each cell's lists as the tree's `bin_splats` and as the dense route give
+them, and of K4's outputs (ff, fi) into OUT (a JSON file). --compare reads
+two such files (needs no card), prints one JSON line saying which are
+equal, and exits 1 where any differs.
 
 To compare a parent commit with a change, unpack the parent (`git archive`)
 into a directory that .gitignore lists and run, in one call on one card,
@@ -88,6 +97,63 @@ def _hash(*ts) -> str:
     return h.hexdigest()[:16]
 
 
+# the benchmark cells' binning shapes: (B, N, H, W, tile_h, pass splats)
+CELLS = {
+    "flagship_p4096": (1024, 10_000, 1024, 1024, 64, 5_000),  # ga1024-p4096's passes
+    "photo_p32": (32, 512, 384, 512, 64, 512),  # ga512-p32
+    "photo_p512": (512, 512, 384, 512, 64, 512),  # ga512-p512
+    "grad_photo": (1, 2000, 384, 512, 16, 2000),  # adam512-n2000 (run_grad's tile)
+}
+
+
+def _route_counts(rc) -> dict:
+    """bin_splats' calls by route, where the tree counts them."""
+    return {k: getattr(rc.bin_splats, k) for k in getattr(rc, "BIN_ROUTES", ())}
+
+
+def cell_times(torch, cs, rc, rg, hashes: dict) -> dict:
+    """The dense route, K5 and the tree's bin_splats at each of CELLS."""
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec
+
+    out = {}
+    for name, (B, N, H, W, th, n) in CELLS.items():
+        gen = torch.Generator(device="cuda").manual_seed(40)
+        g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device="cuda"))
+        p = rc._split_screen(rc._screen(g9, H, W, 3.0, "exact-tight", None), 0, n)
+        del g9
+        pad = rg.GRAD_SCATTER_PAD if th == rg.GRAD_TILE_H else rc.SCATTER_PAD
+        geo = (-(-W // 128), -(-H // th), th, 128, n)
+        box = (p.x0, p.x1, p.y0, p.y1)
+        plan = rc._scatter_plan(*geo[:2], n, n, pad, None)
+        fns = {
+            "dense": lambda: rc.bin_splats_dense(*box, *geo),
+            "k5": lambda: rc.bin_splats_scatter(*box, *geo, pad)[:2],
+            "bin_splats": lambda: rc.bin_splats(*box, *geo, None, pad_slots=pad),
+        }
+        dense = fns["dense"]()
+        hashes[f"cell_dense_{name}"] = _hash(*dense)
+        k5 = fns["k5"]()
+        equal = torch.equal(k5[0], dense[0]) and torch.equal(k5[1], dense[1])
+        before = _route_counts(rc)
+        routed = fns["bin_splats"]()
+        hashes[f"cell_lists_{name}"] = _hash(*routed)
+        took = {k: v - before[k] for k, v in _route_counts(rc).items()}
+        row = {"B": B, "tiles": geo[0] * geo[1], "n": n, "rpg": plan.rpg if plan else None,
+               "pairs": int(dense[1].sum()), "max_count": int(dense[1].max()),
+               "k5_equals_dense": equal, "bin_splats_route": took}
+        del dense, k5, routed
+        reps = 5 if B >= 1024 else 50
+        for key, fn in fns.items():
+            prof = _profile(fn, 2 if B >= 1024 else 10, torch)
+            row[key] = {"ms": cs.cuda_ms(fn, reps), "device_ms": prof["device_ms"],
+                        "launches": prof["launches"]}
+        out[name] = row
+        del p, box, fns
+        torch.cuda.empty_cache()
+    return out
+
+
 def _load(name: str, path: str):
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
@@ -127,6 +193,7 @@ def times(tree: str, save: str | None) -> dict:
     }
     out = {"tree": tree, "card": card, "routes": {}, "k4": {}, "canvas_4k": {}}
     hashes = {}
+    out["cells"] = cell_times(torch, cs, rc, rg, hashes)
     for name, sc in cases.items():
         p, corner = sc["p"], sc["corner"]
         side = cs.C4K_SIDE if name.startswith("c4k") else (cs.GA_SIDE if name.startswith("ga")
