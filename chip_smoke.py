@@ -228,8 +228,8 @@ steps/s, SA / PT iterations/s, memetic and island generations/s graphed
 against eager in turns, each one's busy share under torch.profiler).
 Every runner's GA, memetic, island, Adam, SA and PT blocks replay as CUDA
 graphs, so the main paths above run them graphed,
-and their launch counts add each replay's kernels (block_graph.TALLIES
-lists chip_smoke's evaluate counts the same way); the flagship's chunked
+and their launch counts add each replay's kernels (profiling.COUNTS,
+which holds chip_smoke's evaluate counts too); the flagship's chunked
 evaluate stays eager, and a `FLAGSHIP GRAPH` line gives one generation's
 graph peak in each tier, or its capture that does not fit.
 Prints a `GRAD KERNELS` line (K6/K7 times, bounds and launches, blocks a
@@ -426,7 +426,7 @@ def make_case(B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, de
     import torch
 
     from ggs_tpu_torch.models import genome
-    from ggs_tpu_torch.ops import codec, mask, render_cuda
+    from ggs_tpu_torch.ops import codec, mask, render_cuda, screen
     from ggs_tpu_torch.utils import io
 
     dev = torch.device(device)
@@ -435,13 +435,12 @@ def make_case(B, N, H, W, precision, cap=None, tile_h=64, tile_w=128, seed=0, de
     slab = rows is not None
     rows = H if rows is None else rows
     n_tx, n_ty = -(-W // tile_w), -(-rows // tile_h)
-    if precision == "fast" and not slab:
-        cnt, idx, feats = render_cuda._k4_pass(g9, H, W, 3.0, cap, tile_h, tile_w, cull_eps, True)
+    t = screen.tier(precision, cull_eps, True)
+    if t.mode == "fast" and not slab:
+        cnt, idx, feats = render_cuda._k4_pass(g9, H, W, 3.0, cap, tile_h, tile_w, t)
     else:
-        p = render_cuda._screen(g9, H, W, 3.0, precision, cull_eps, y_origin)
-        cnt, idx, feats = render_cuda._pass_lists(
-            p, n_tx, n_ty, tile_h, tile_w, cap, precision,
-            render_cuda._corner_eps(precision, slab, cull_eps))
+        p = screen.screen(g9, H, W, 3.0, t, y_origin)
+        cnt, idx, feats = render_cuda._pass_lists(p, n_tx, n_ty, tile_h, tile_w, cap, t)
     tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
     w = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
     tgt, w = tgt[y_origin:y_origin + rows], w[y_origin:y_origin + rows]
@@ -887,15 +886,14 @@ def chained_case(g9, tgt, wm, precision, cull_eps=None, corner_cull=False, tile_
     render_cuda.fitness builds it (tile_w 128): its lists (K5 from 256
     tiles) and table, and as `init` the canvas the passes before it leave
     (K2's, or K3's under "fast")."""
-    from ggs_tpu_torch.ops import render_cuda as rc
+    from ggs_tpu_torch.ops import render_cuda as rc, screen
 
     H, W = tgt.shape[0], tgt.shape[1]
     n_tx, n_ty = -(-W // 128), -(-H // tile_h)
-    corner_eps = rc._corner_eps(precision, corner_cull, cull_eps)
-    p = rc._screen(g9, H, W, 3.0, precision, cull_eps)
-    init, p_last = rc._chunked_passes(p, H, W, tile_h, 128, BG, None, True, precision, corner_eps)
+    t = screen.tier(precision, cull_eps, corner_cull)
+    p = screen.screen(g9, H, W, 3.0, t)
+    init, (cnt, idx, feats) = rc._chunked_passes(p, H, W, tile_h, 128, BG, None, True, t)
     check(init is not None, "the chained case has one pass")
-    cnt, idx, feats = rc._pass_lists(p_last, n_tx, n_ty, tile_h, 128, None, precision, corner_eps)
     tgt_p, w_p = rc.pad_planes(tgt, wm, n_ty * tile_h, n_tx * 128)
     return dict(cnt=cnt, idx=idx, feats=feats, tgt_p=tgt_p, w_p=w_p, n_tx=n_tx, tile_h=tile_h,
                 tile_w=128, init=init, precision=precision)
@@ -909,21 +907,21 @@ def chained_grad_case(g9, tgt, wm):
     image cotangent of the weighted SSE of the chained canvas."""
     import torch
 
-    from ggs_tpu_torch.ops import render_cuda as rc, render_grad as rg
+    from ggs_tpu_torch.ops import render_cuda as rc, render_grad as rg, screen
 
     H, W = tgt.shape[0], tgt.shape[1]
+    t = screen.box_tier("tight")
     with torch.no_grad():
-        p = rg._screen_params(g9, H, W, 3.0, "tight")
-    bounds = rc._chunk_bounds(g9.shape[1])
-    check(len(bounds) == 3, f"the gradient case chains {len(bounds) - 1} passes, not 2")
+        p = screen.screen(g9, H, W, 3.0, t)
+    pcs = screen.passes(p)
+    check(len(pcs) == 2, f"the gradient case chains {len(pcs)} passes, not 2")
     init = None
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
-        pc = rc._split_screen(p, lo, hi)
-        geom = rg._geometry(H, W, hi - lo, None, BG, None, False)
+    for i, pc in enumerate(pcs):
+        geom = rg._geometry(H, W, pc.cx.shape[1], None, BG, t)
         n_tx, n_ty, th, tw = geom[:4]
         idx, cnt = rg._bin(pc, geom)
         canvas = rc.render_tiles(cnt, idx, rc._splat_feats_fast(pc), n_tx, th, tw, BG, init=init)
-        if hi < bounds[-1]:
+        if i < len(pcs) - 1:
             first = canvas
         init = canvas
     tgt_p, w_p = rc.pad_planes(tgt, wm, n_ty * th, n_tx * tw)
@@ -975,14 +973,15 @@ def scatter_case(B, N, side, tile_h, precision, eps=None, chunk=None, scales=(3.
     import torch
 
     from ggs_tpu_torch.models import genome
-    from ggs_tpu_torch.ops import codec, render_cuda as rc
+    from ggs_tpu_torch.ops import codec, render_cuda as rc, screen
 
     gen = torch.Generator(device=device).manual_seed(seed)
     g = genome.new_population(gen, B, N, side, side, *scales, device=device)
     if coincident:
         g[0, :coincident] = torch.tensor([0.5, 0.5, 1.4, 1.4, 0.0, 128.0, 128.0, 128.0, 200.0],
                                          device=device)
-    p = rc._screen(codec.genome_to_renderer(g), side, side, 3.0, precision, eps, y_origin)
+    p = screen.screen(codec.genome_to_renderer(g), side, side, 3.0, screen.tier(precision, eps),
+                      y_origin)
     if chunk is not None:
         p = rc._split_screen(p, 0, chunk)
     corner = rc._corner_params(p, eps) if eps is not None and cull else None
@@ -1226,7 +1225,7 @@ def check_grad_entry_points() -> None:
     check(worst <= 1.0, "gradient entry points disagree with the oracle's autograd")
 
 
-def check_corner_grad_entry_points(tgt, wm, reset_counts, read_counts) -> dict:
+def check_corner_grad_entry_points(tgt, wm) -> dict:
     """fused_value_and_grad (K7) and autograd through render_diff (K2 + K6)
     under the fast tier's corner cull at run_grad's shape (B=1, N=2000,
     512x512, eps 8e-2), on JAX's list tile (64x128 there): each launch
@@ -1235,25 +1234,25 @@ def check_corner_grad_entry_points(tgt, wm, reset_counts, read_counts) -> dict:
     import torch
 
     from ggs_tpu_torch.models import genome
-    from ggs_tpu_torch.ops import codec, fitness, render_grad as rg
+    from ggs_tpu_torch.ops import codec, fitness, render_grad as rg, screen
 
     H, W = tgt.shape[0], tgt.shape[1]
     N, eps = 2000, 8e-2
-    tile_h = rg._geometry(H, W, N, None, BG, eps, True)[2]
+    tile_h = rg._geometry(H, W, N, None, BG, screen.box_tier("reference", eps, True))[2]
     check(tile_h == rg.list_tile_h(N) == 64, f"the corner-culled tile is {tile_h} rows, not JAX's")
     g = genome.new_population(torch.Generator(device="cuda").manual_seed(15), 1, N, H, W,
                               device="cuda")
-    reset_counts()
+    reset_kernel_counts()
     (loss_f, _), grads_f = rg.fused_value_and_grad(g, tgt, wm, H, W, cull_eps=eps, corner_cull=True)
     torch.cuda.synchronize()
-    fused_counts = read_counts()
-    reset_counts()
+    fused_counts = read_kernel_counts()
+    reset_kernel_counts()
     gd = g.clone().requires_grad_(True)
     img = rg.render_diff(codec.genome_to_renderer(gd), H, W, cull_eps=eps, corner_cull=True)
     loss_u = fitness.fitness_from_images(img, tgt, wm).mean()
     (grads_u,) = torch.autograd.grad(loss_u, gd)
     torch.cuda.synchronize()
-    unfused_counts = read_counts()
+    unfused_counts = read_kernel_counts()
     loss_rel = abs(float(loss_f) - float(loss_u)) / float(loss_u)
     scale = float(grads_u.abs().max())
     grad_err = float((grads_f - grads_u).abs().max()) / scale
@@ -1362,24 +1361,30 @@ def count_calls(module, name: str, key=None):
     """Counts the calls of module.name while the block runs, by key(*args,
     **kw) when given (callers that look the name up on the module at call
     time are counted). A run block replayed as a CUDA graph makes no call:
-    the count is listed in block_graph.TALLIES, so each replay adds the
-    calls its capture made."""
-    from ggs_tpu_torch.utils import block_graph
+    each call is counted through profiling.count, so each replay adds the
+    calls its capture made. The Counter yielded holds the block's calls by
+    key once the block ends."""
+    from ggs_tpu_torch.utils import profiling
 
-    seen = collections.Counter()
+    tag = ("calls", module.__name__, name)
+
+    def mine() -> collections.Counter:
+        return collections.Counter({k[1]: v for k, v in profiling.COUNTS.items()
+                                    if isinstance(k, tuple) and k[0] == tag})
+
+    seen, before = collections.Counter(), mine()
     plain = getattr(module, name)
 
     def counted(*args, **kw):
-        seen[name if key is None else key(*args, **kw)] += 1
+        profiling.count((tag, name if key is None else key(*args, **kw)))
         return plain(*args, **kw)
 
     setattr(module, name, counted)
-    block_graph.TALLIES.append(seen)
     try:
         yield seen
     finally:
         setattr(module, name, plain)
-        block_graph.TALLIES.remove(seen)
+        seen.update(mine() - before)
 
 
 def evaluate_batches(by_n: bool = False):
@@ -1396,17 +1401,19 @@ def evaluate_batches(by_n: bool = False):
 
 
 @contextlib.contextmanager
-def launches_within(module, name: str, wrapper):
-    """Calls of module.name while the block runs, and the launches of the
-    kernel wrapper `wrapper` made inside them."""
+def launches_within(module, name: str, kernel: str):
+    """Calls of module.name while the block runs, and the launches of
+    `kernel` (a key of profiling.COUNTS) made inside them."""
+    from ggs_tpu_torch.utils import profiling
+
     stats = {"calls": 0, "launches": 0}
     plain = getattr(module, name)
 
     def counted(*args, **kw):
-        before = wrapper.launches
+        before = profiling.COUNTS[kernel]
         out = plain(*args, **kw)
         stats["calls"] += 1
-        stats["launches"] += wrapper.launches - before
+        stats["launches"] += profiling.COUNTS[kernel] - before
         return out
 
     setattr(module, name, counted)
@@ -1541,9 +1548,9 @@ def pipeline_paths(drive) -> dict:
     outdir = os.path.join(HERE, "output", "chip_smoke_pipeline")
     shutil.rmtree(outdir, ignore_errors=True)  # the animation takes every frame in its folder
     with evaluate_batches(by_n=True) as evals, \
-            launches_within(grow, "grow_population", rc.render_tiles) as grows, \
-            launches_within(grow, "recycle_population", rc.render_tiles) as recs, \
-            launches_within(io, "save_frame_png", rc.render_tiles) as frames:
+            launches_within(grow, "grow_population", "K2") as grows, \
+            launches_within(grow, "recycle_population", "K2") as recs, \
+            launches_within(io, "save_frame_png", "K2") as frames:
         res, c, wall = drive("run_pipeline", run_pipeline, "chip_smoke_pipeline", PIPE_ARGV)
     stages, curve = res["ga"]["stages"], res["grad"]["curve"]
     n_frames = frames_match_animation(os.path.join(outdir, "video_frames"), "ga",
@@ -2387,7 +2394,6 @@ def run_block_graphs(tgt, wm, card) -> dict:
 
     # run_ga at its defaults (frames, recycles, checkpoints), memetic and with
     # islands: graphed against the eager body of the run block it builds
-    counted = kernel_counters()
     out["launches"] = {}
     for name, module, maker, argv in (
             ("run_ga", ga, "make_run_block", RBG_GA_ARGV),
@@ -2399,13 +2405,13 @@ def run_block_graphs(tgt, wm, card) -> dict:
                 setattr(module, maker, lambda *a, plain_make=plain_make, **kw:
                         plain_make(*a, **kw).eager)
             try:
-                reset_kernel_counts(counted)
+                reset_kernel_counts()
                 res[mode] = run_ga.main(["--image", "synthetic", *argv, "--output-dir",
                                          os.path.join(HERE, "output",
                                                       f"rbg_{name.replace(' ', '_')}_{mode}"),
                                          "--device", str(dev)])
                 torch.cuda.synchronize()
-                out["launches"][f"{name} {mode}"] = read_kernel_counts(counted)
+                out["launches"][f"{name} {mode}"] = read_kernel_counts()
             finally:
                 setattr(module, maker, plain_make)
         bg, be = np.asarray(res["graphed"]["best"]), np.asarray(res["eager"]["best"])
@@ -2511,42 +2517,27 @@ SHARD_GRAD_RTOL, SHARD_GRAD_ATOL = 2e-4, {"mse": 1e-6, "mix": 2e-6}
 SLAB_SUM_RTOL, SLAB_SUM_ATOL = 1e-6, 1e-7
 
 
-def kernel_counters() -> dict:
-    """The kernel wrappers whose launches the main paths read."""
-    from ggs_tpu_torch.ops import render_cuda as rc, render_grad as rg
-
-    return {"K1": rc.fitness_tiles, "K2": rc.render_tiles, "K3": rc.fitness_tiles_fast,
-            "K3-canvas": rc.render_tiles_fast, "K4": rc.prep_fast,
-            "K1-bf16": rc.fitness_tiles_bf16, "K5": rc.bin_splats_scatter,
-            "K6": rg.bwd_tiles, "K7": rg.lossgrad_tiles}
+# what read_kernel_counts reads from profiling.COUNTS, in its order: launches
+# per kernel, as "<kernel>-init" those from an init canvas, K5's band stages
+# and calls that also launched its fallback, and bin_splats' calls by route
+KERNEL_COUNTS = ("K1", "K2", "K3", "K3-canvas", "K4", "K1-bf16", "K5", "K6", "K7", "K1-init",
+                 "K2-init", "K3-init", "K3-canvas-init", "K1-bf16-init", "K6-init", "K5-band",
+                 "K5-fallback", "bin.dense", "bin.k5")
 
 
-def reset_kernel_counts(counted: dict) -> None:
-    from ggs_tpu_torch.ops import render_cuda as rc
+def reset_kernel_counts() -> None:
+    """Zeroes the counts read_kernel_counts reads (and no caller's own)."""
+    from ggs_tpu_torch.utils import profiling
 
-    for fn in counted.values():
-        for attr in ("launches", "init_launches", "band_launches", "fallback_launches"):
-            if hasattr(fn, attr):
-                setattr(fn, attr, 0)
-    for attr in rc.BIN_ROUTES:
-        setattr(rc.bin_splats, attr, 0)
+    for k in KERNEL_COUNTS:
+        profiling.COUNTS.pop(k, None)
 
 
+def read_kernel_counts() -> dict:
+    """KERNEL_COUNTS' counts since reset_kernel_counts."""
+    from ggs_tpu_torch.utils import profiling
 
-def read_kernel_counts(counted: dict) -> dict:
-    """Launches per kernel, as "<kernel>-init" those from an init canvas, as
-    "K5-band" K5's band stages and as "K5-fallback" K5's calls that also
-    launched its fallback; and bin_splats' calls by route under the names
-    of render_cuda.BIN_ROUTES (dense, K5 below 256 tiles, K5 from 256)."""
-    from ggs_tpu_torch.ops import render_cuda as rc
-
-    out = {k: fn.launches for k, fn in counted.items()}
-    out.update({f"{k}-init": fn.init_launches for k, fn in counted.items()
-                if hasattr(fn, "init_launches")})
-    out["K5-band"] = rc.bin_splats_scatter.band_launches
-    out["K5-fallback"] = rc.bin_splats_scatter.fallback_launches
-    out.update({k: getattr(rc.bin_splats, k) for k in rc.BIN_ROUTES})
-    return out
+    return {k: profiling.COUNTS[k] for k in KERNEL_COUNTS}
 
 
 def allclose_excess(got, want, rtol: float, atol: float) -> float:
@@ -2785,7 +2776,6 @@ def shard_worker(argv) -> int:
     grids = {"1x2": (1, 2), "2x1": (2, 1)} if world == 2 else {"2x2": (2, 2), "1x4": (1, 4)}
     meshes = {k: mesh_mod.make_mesh(p, t, device="cuda", **init)
               for k, (p, t) in grids.items()}
-    counted = kernel_counters()
     res = {"rank": rank, "world": world, "backend": meshes[next(iter(meshes))].backend,
            "device": str(meshes[next(iter(meshes))].device), "eval": {}, "ga": {}, "paths": {}}
     tgt, wm, pop = shard_inputs(512, 32, 512, 70)
@@ -2808,14 +2798,14 @@ def shard_worker(argv) -> int:
     for prec in ("exact-tight", "fast"):
         obj = objective.Objective(H=GA_SIDE, W=GA_SIDE, precision=prec)
         want = objective.evaluate(obj, pop_b, tgt_b, wm_b)
-        reset_kernel_counts(counted)
+        reset_kernel_counts()
         got = objective.evaluate(obj._replace(mesh=tile_mesh), pop_b, tgt_b, wm_b)
         torch.cuda.synchronize()
         atol = SHARD_FAST_ATOL if prec == "fast" else SHARD_ATOL
         res["eval"][f"ga2048 tile{tile_mesh.tile_shards} {prec}"] = {
             "excess": allclose_excess(got, want, SHARD_RTOL, atol), "atol": atol,
             "max_rel": rel_err(got, want), "hash": tensor_hash(got),
-            "launches": read_kernel_counts(counted)}
+            "launches": read_kernel_counts()}
     del tgt_b, wm_b, pop_b
     torch.cuda.empty_cache()
 
@@ -2866,12 +2856,12 @@ def shard_worker(argv) -> int:
 
     # the sharded main paths through the runners, counts read on every rank
     def drive(tag, runner, argv):
-        reset_kernel_counts(counted)
+        reset_kernel_counts()
         t0 = time.perf_counter()
         out = runner.main(["--image", "synthetic", *argv, "--output-dir",
                            os.path.join(out_dir, tag), "--device", "cuda"])
         torch.cuda.synchronize()
-        entry = {"launches": read_kernel_counts(counted), "seconds": time.perf_counter() - t0}
+        entry = {"launches": read_kernel_counts(), "seconds": time.perf_counter() - t0}
         if "curves" in out:
             best = out["curves"]["best"]
             entry.update(best_first=best[0], best_last=best[-1], n=len(best) - 1,
@@ -3018,8 +3008,8 @@ def shard_checks_and_times(card) -> dict:
     k5_t4 = w4["eval"]["ga2048 tile4 exact-tight"]["launches"]
     # exact lists: K5 on the 256 tiles of a 1024-row slab and the 128 of a
     # 512-row one, once a pass
-    check(k5["K5"] >= 2 and k5_t4["K5"] == k5_t4["k5_small_calls"] == 2
-          and k5_t4["dense_calls"] == 0,
+    check(k5["K5"] >= 2 and k5_t4["K5"] == k5_t4["bin.k5"] == 2
+          and k5_t4["bin.dense"] == 0,
           f"2048 GA: K5 {k5['K5']} launches at tile 2, {k5_t4['K5']} at tile 4: {k5_t4}")
 
     phase("sharding slice: torchrun run_ga --pop-shards 2 --tile-shards 2")
@@ -3144,11 +3134,10 @@ def flagship_worker(world: int, rank: int, store: str, out_dir: str) -> int:
     gnm = GenomeConfig(n_splats=FLAG_N)
     obj = objective.Objective(H=S, W=S, precision="exact-tight")
     (l0, _), g0 = gradient.make_value_and_grad(obj, gnm)(g1, tgt, wm)
-    counted = kernel_counters()
-    reset_kernel_counts(counted)
+    reset_kernel_counts()
     (l1, _), gs = gradient.make_value_and_grad(obj._replace(mesh=m), gnm)(g1, tgt, wm)
     torch.cuda.synchronize()
-    launches = read_kernel_counts(counted)
+    launches = read_kernel_counts()
     make_opt, step = gradient.make_fit_step(obj._replace(mesh=m), gnm, GradConfig())
     st, fits = gradient.run_block(gradient.init_state(make_opt, g1), step, tgt, wm,
                                   FLAG_ADAM_STEPS)
@@ -3205,7 +3194,6 @@ def flagship_checks_and_times(card) -> dict:
     n_passes = -(-FLAG_N // rc.MAX_SPLATS)  # the chained passes of each render
     out_dir = os.path.join(HERE, "output", "flagship")
     shutil.rmtree(out_dir, ignore_errors=True)
-    counted = kernel_counters()
     argv = ["--image", f"natural:{S}x{S}", "--work-max-side", str(S), "--n-splats", str(FLAG_N),
             "--pop-size", str(FLAG_P), "--eval-chunk", str(FLAG_CHUNK), "--no-video",
             "--generations", str(FLAG_GENS), "--log-every", "1", "--device", "cuda"]
@@ -3241,7 +3229,7 @@ def flagship_checks_and_times(card) -> dict:
 
         ga.make_run_block, checkpoint.save_checkpoint = timed_make, timed_save
         try:
-            reset_kernel_counts(counted)
+            reset_kernel_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = run_ga.main(argv + extra + ["--output-dir", os.path.join(out_dir, tier)])
@@ -3249,7 +3237,7 @@ def flagship_checks_and_times(card) -> dict:
             wall = time.perf_counter() - t0
         finally:
             ga.make_run_block, checkpoint.save_checkpoint = plain_make, plain_save
-        c = launches[f"run_ga_{tier}"] = read_kernel_counts(counted)
+        c = launches[f"run_ga_{tier}"] = read_kernel_counts()
         best = res["curves"]["best"]
         # a copy: a graphed run's last state would lie in its output buffers
         st = last.pop("state")
@@ -3280,14 +3268,14 @@ def flagship_checks_and_times(card) -> dict:
             check(c["K3"] == c["K3-init"] == evals and c["K3-canvas"] == evals and c["K4"] == 0
                   and c["K1"] == c["K1-init"] == 1 and c["K2"] == tail_k2
                   and c["K2-init"] == n_passes - 1
-                  and c["K5"] == c["k5_small_calls"] == 2 * n_passes
-                  and c["dense_calls"] == 2 * evals,
+                  and c["K5"] == c["bin.k5"] == 2 * n_passes
+                  and c["bin.dense"] == 2 * evals,
                   f"flagship fast: K3 not once a chunk from K3's canvas: {c}")
         else:
             check(c["K1"] == c["K1-init"] == evals + 1 and c["K2"] == evals + tail_k2
                   and c["K2-init"] == n_passes - 1
-                  and c["K5"] == c["k5_small_calls"] == c["K1"] + c["K2"]
-                  and c["dense_calls"] == 0,
+                  and c["K5"] == c["bin.k5"] == c["K1"] + c["K2"]
+                  and c["bin.dense"] == 0,
                   f"flagship exact-tight: K1 not once a chunk from K2's canvas: {c}")
             check(len(saves) == 1, f"flagship: {len(saves)} checkpoints saved, not one")
     ref_state = runs["exact-tight"].pop("state")
@@ -3322,9 +3310,9 @@ def flagship_checks_and_times(card) -> dict:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end), torch.cuda.max_memory_allocated(), base
 
-    reset_kernel_counts(counted)
+    reset_kernel_counts()
     fits, eval_ms, peak_1024, base_1024 = peak_of(lambda: objective.evaluate(obj, pop, tgt, wm))
-    c = read_kernel_counts(counted)
+    c = read_kernel_counts()
     check(c["K1"] == c["K1-init"] == n_chunks and c["K2"] == n_chunks,
           f"the chunked evaluate: K1 and K2 not once a chunk: {c}")
     same_saved = torch.equal(fits, loaded.fits)
@@ -3334,21 +3322,21 @@ def flagship_checks_and_times(card) -> dict:
         obj._replace(chunk=FLAG_SMALL_CHUNK), pop[:FLAG_SMALL_B], tgt, wm))
     same_512 = torch.equal(small, fits[:FLAG_SMALL_B])
     fast_obj = obj._replace(precision="fast", cull_eps=FLAG_FAST_EPS)
-    reset_kernel_counts(counted)
+    reset_kernel_counts()
     fits_fast, fast_ms, peak_fast, base_fast = peak_of(lambda: objective.evaluate(
         fast_obj, pop, tgt, wm))
-    c = read_kernel_counts(counted)
+    c = read_kernel_counts()
     check(c["K3"] == c["K3-init"] == c["K3-canvas"] == n_chunks and c["K4"] == 0
           and tuple(fits_fast.shape) == (FLAG_P,) and bool(torch.isfinite(fits_fast).all()),
           f"the chunked fast evaluate: K3 not once a chunk from K3's canvas: {c}")
     same_b8_fast = torch.equal(objective.evaluate(fast_obj, pop[idx], tgt, wm), fits_fast[idx])
-    reset_kernel_counts(counted)
+    reset_kernel_counts()
     with plain_walks():
         plain_rel = rel_err(objective.evaluate(obj, pop[:FLAG_PLAIN_B], tgt, wm),
                             fits[:FLAG_PLAIN_B])
         plain_fast_rel = rel_err(objective.evaluate(fast_obj, pop[:FLAG_PLAIN_B], tgt, wm),
                                  fits_fast[:FLAG_PLAIN_B])
-    c = read_kernel_counts(counted)
+    c = read_kernel_counts()
     print(f"CHECK flagship evaluate B={FLAG_P} chunk {FLAG_CHUNK}: the saved fits in bits "
           f"{same_saved}; {len(FLAG_SAMPLE)} candidates at B=8 in bits {same_b8}, fast "
           f"{same_b8_fast}; {FLAG_SMALL_B} in chunks of {FLAG_SMALL_CHUNK} in bits {same_512}; "
@@ -3366,10 +3354,10 @@ def flagship_checks_and_times(card) -> dict:
     g9 = codec.genome_to_renderer(pop[:FLAG_SLAB_B])
     w_eff, denom = fitness.weff_denom(wm, False, 1.0, S, S)
     hs = S // 2
-    reset_kernel_counts(counted)
+    reset_kernel_counts()
     parts = sum(rc.fitness_partial(g9, tgt[y:y + hs], w_eff[y:y + hs], S, S, y,
                                    precision="exact-tight") for y in (0, hs))
-    launches["slabs_B1024"] = read_kernel_counts(counted)
+    launches["slabs_B1024"] = read_kernel_counts()
     slab_excess = allclose_excess(parts, fits[:FLAG_SLAB_B] * denom, SLAB_SUM_RTOL,
                                   SLAB_SUM_ATOL)
     print(f"CHECK flagship slabs B={FLAG_SLAB_B}, rows 0-{hs - 1} and {hs}-{S - 1}: excess over "
@@ -3378,13 +3366,13 @@ def flagship_checks_and_times(card) -> dict:
           f"{launches['slabs_B1024']}", flush=True)
     check(slab_excess <= 0, "the flagship's slab partials are off the whole fitness")
     check(launches["slabs_B1024"]["K1-init"] == 2
-          and launches["slabs_B1024"]["K5"] == launches["slabs_B1024"]["k5_small_calls"]
+          and launches["slabs_B1024"]["K5"] == launches["slabs_B1024"]["bin.k5"]
           == 2 * n_passes, f"flagship slabs: {launches['slabs_B1024']}")
     del g9, parts
 
-    reset_kernel_counts(counted)
+    reset_kernel_counts()
     resumed, _ = ga.run_block(loaded, obj, tgt, wm, cfg, gnm, 1)
-    launches["resumed_generation"] = read_kernel_counts(counted)
+    launches["resumed_generation"] = read_kernel_counts()
     same_resume = _same_state(resumed, ref_state)
     print(f"CHECK flagship resume: generation {FLAG_GENS - 1} saved ({save['bytes']} bytes, "
           f"{save['ms']:.1f} ms), loaded ({load_ms:.1f} ms), one generation run: equal in bits "
@@ -3695,7 +3683,7 @@ def main() -> int:
     for k, sc in small_k5.items():
         a, n = sc["args"], sc["p"].x0.shape
         check(rc.bin_route(n[0], a["n_tx"], a["n_ty"], a["cap"], n[1], sc["pad_slots"], None,
-                           "cuda") == "k5_small_calls", f"{k}: bin_splats does not take K5 here")
+                           "cuda") == "k5", f"{k}: bin_splats does not take K5 here")
     dead = int((small_k5["ga512_fast_no_cull"]["p"].x1 < 0).sum())
     print(f"CHECK K5 ga512_fast_no_cull: {dead} dead boxes (x1 = -1)", flush=True)
     check(dead > 0, "the fast tier's boxes without the corner cull hold no dead box")
@@ -3707,24 +3695,17 @@ def main() -> int:
     check(scatter_errs["c4k_overflow"]["overflow"], "the coincident splats did not overflow cap_s")
     check(not scatter_errs["c4k_fast"]["overflow"], "canvas-4k's band lists overflowed")
 
-    counted = kernel_counters()
-
-    def reset_counts():
-        reset_kernel_counts(counted)
-
-    def read_counts():
-        return read_kernel_counts(counted)
 
     # 4. the main paths, each driven with every launch count set to 0 just
     # before and read just after
     def drive(label, runner, out, argv):
         phase(f"main path: {label}")
-        reset_counts()
+        reset_kernel_counts()
         t0 = time.perf_counter()
         res = runner.main(["--image", "synthetic", *argv, "--output-dir",
                            os.path.join(HERE, "output", out), "--device", "cuda"])
         torch.cuda.synchronize()
-        return res, read_counts(), time.perf_counter() - t0
+        return res, read_kernel_counts(), time.perf_counter() - t0
 
     def ga_path(label, tag, out, gens, argv, monotone=False):
         res, counts, wall = drive(label, run_ga, out, [
@@ -3780,7 +3761,7 @@ def main() -> int:
     g_un = genome.new_population(torch.Generator(device="cuda").manual_seed(12), 1, 2000, H, W,
                                  device="cuda")
     opt = gradient.make_adam(g_un, GradConfig())
-    reset_counts()
+    reset_kernel_counts()
     losses = []
     for _ in range(UNFUSED_STEPS):
         gq = g_un.detach().requires_grad_(True)
@@ -3790,7 +3771,7 @@ def main() -> int:
         with torch.no_grad():
             g_un.copy_(codec.clamp_genome(g_un, H, W, gnm_grad.min_scale, gnm_grad.max_scale))
         losses.append(loss.item())
-    unfused_launches = read_counts()
+    unfused_launches = read_kernel_counts()
     (fused_loss, _), _ = rg.fused_value_and_grad(g_un, tgt, wm, H, W, box="tight")
     loss_last, _ = loss_fn(g_un, tgt, wm)
     fused_rel = abs(float(fused_loss) - float(loss_last)) / float(loss_last)
@@ -3803,7 +3784,7 @@ def main() -> int:
     check(unfused_launches["K6"] == UNFUSED_STEPS and unfused_launches["K2"] >= UNFUSED_STEPS,
           f"unfused launches {unfused_launches}")
 
-    corner_grad = check_corner_grad_entry_points(tgt, wm, reset_counts, read_counts)
+    corner_grad = check_corner_grad_entry_points(tgt, wm)
 
     memetic = ["--memetic-every", str(MEMETIC_EVERY), "--memetic-steps", str(MEMETIC_STEPS)]
     _, memetic_launches = ga_path("memetic run_ga", "memetic", "chip_smoke_memetic",
@@ -3861,11 +3842,11 @@ def main() -> int:
     g9_faint[..., 8] *= 1.0 / 32  # the renderer genome's alpha, 0..255
     for pop, g9c in (("random", g9_big), ("faint", g9_faint)):
         for precision in ("highest", "exact-tight"):
-            reset_counts()
+            reset_kernel_counts()
             img_c = rc.render(g9c[:1], BIG_SIDE, BIG_SIDE, precision=precision)
             fit_c = rc.fitness(g9c, tgt_big, None, BIG_SIDE, BIG_SIDE, precision=precision)
             torch.cuda.synchronize()
-            chained_counts = read_counts()
+            chained_counts = read_kernel_counts()
             pass_size, rc.MAX_SPLATS = rc.MAX_SPLATS, BIG_N  # one pass
             img_1 = rc.render(g9c[:1], BIG_SIDE, BIG_SIDE, precision=precision)
             fit_1 = rc.fitness(g9c, tgt_big, None, BIG_SIDE, BIG_SIDE, precision=precision)
@@ -3935,12 +3916,12 @@ def main() -> int:
     c4k_imgs, c4k_launches = {}, {}
     n_pass = -(-C4K_N // rc.MAX_SPLATS)
     for tier, kw in c4k_tiers.items():
-        reset_counts()
+        reset_kernel_counts()
         # no per-band host loop: the plain route's band helpers never run here
         with count_calls(rc, "_corner_band_xranges") as xr, count_calls(rc, "_band_lists") as bl:
             img = rc.render(g9_4k, C4K_SIDE, C4K_SIDE, **kw)
             torch.cuda.synchronize()
-        c4k_launches[tier] = counts = read_counts()
+        c4k_launches[tier] = counts = read_kernel_counts()
         counts["band_helper_calls"] = sum(xr.values()) + sum(bl.values())
         walk = "K3-canvas" if tier != "exact" else "K2"
         check(tuple(img.shape) == (1, C4K_SIDE, C4K_SIDE, 3) and bool(torch.isfinite(img).all())
@@ -3964,10 +3945,10 @@ def main() -> int:
     del c4k_imgs
 
     phase(f"main path: bf16 fitness, B={BIG_B} N={BIG_N} {BIG_SIDE}x{BIG_SIDE} (big-10k-1024)")
-    reset_counts()
+    reset_kernel_counts()
     f_bf16 = rc.fitness(g9_big, tgt_big, None, BIG_SIDE, BIG_SIDE, precision="bf16")
     torch.cuda.synchronize()
-    bf16_big_launches = read_counts()
+    bf16_big_launches = read_kernel_counts()
     f_high = rc.fitness(g9_big, tgt_big, None, BIG_SIDE, BIG_SIDE, precision="highest")
     bf16_gap = rel_err(f_bf16, f_high)
     print("MAIN PATH bf16 10k " + json.dumps({
@@ -4320,7 +4301,7 @@ def main() -> int:
             },
             "K2p_grad_10k_1024": {
                 "launches": big_grad_launches["K2"],
-                "init_launches": big_grad_launches["K2-init"],
+                "from_init": big_grad_launches["K2-init"],
                 "ms": t["K2p_grad_10k_1024_init"],
                 "bound_ms": bounds["K2p_grad_10k_1024_init"][0],
                 "bound_by": bounds["K2p_grad_10k_1024_init"][1],
@@ -4409,7 +4390,7 @@ def main() -> int:
                             ("c4k_exact", c4k_launches["exact"]["K5"]),
                             ("c4k_fast", c4k_launches["fast+corner"]["K5"]),
                             ("grad_1024", big_grad_launches["K5"]))},
-            "ga_fast_fallback_launches": ga_big_fast_launches["K5-fallback"],
+            "ga_fast_fallbacks": ga_big_fast_launches["K5-fallback"],
         },
         {
             "name": "K6 bwd_tiles (backward walk, 9 gradients per splat)",
@@ -4430,7 +4411,7 @@ def main() -> int:
                     f"{max(big_grad_init_err['rows'])} against plain)",
             "grad_10k_1024": {
                 "launches": big_grad_launches["K6"],
-                "init_launches": big_grad_launches["K6-init"],
+                "from_init": big_grad_launches["K6-init"],
                 "ms": t["K6_grad_10k_1024_init"],
                 "bound_ms": bounds["K6_grad_10k_1024_init"][0],
                 "bound_by": bounds["K6_grad_10k_1024_init"][1],

@@ -11,9 +11,10 @@ renderer's exact backward (ops/render_grad.py), which gives:
   `make_refine` is the same built once, which the memetic block of
   models/ga.py holds and a CUDA graph replays.
 
-Under precision "fast" the gradient paths walk the eps-culled lists
-(`_grad_cull_eps`, `_grad_corner`): exact gradients of the culled render the
-fast GA selects on. Metrics "ssim" and "mix" differentiate the canvases
+Under precision "fast" the gradient paths walk the eps-culled lists (the
+objective's `screen.tier`, handed to render_grad as its box, cull_eps and
+corner_cull): exact gradients of the culled render the fast GA selects on
+(gradient.py:32-57). Metrics "ssim" and "mix" differentiate the canvases
 through autograd (ops/ssim.py), so they take render_diff (K2' forward, K6
 backward) and never the fused K7 path (gradient.py:242-246). `optax.adam`
 becomes `torch.optim.Adam` with the same lr, betas and eps (the same update
@@ -45,7 +46,7 @@ import torch
 from .. import resolve_device
 from ..config import GenomeConfig, GradConfig
 from ..ops import anneal as anneal_mod
-from ..ops import codec, oracle, render_cuda, render_grad
+from ..ops import codec, oracle, render_cuda, render_grad, screen
 from ..ops import objective as objective_mod
 from ..ops.objective import Objective
 from ..parallel import comm, shard
@@ -53,30 +54,16 @@ from ..utils import profiling
 from . import genome as genome_mod
 
 
-def _grad_cull_eps(obj: Objective) -> Optional[float]:
-    """The eps cull of the differentiable tiled paths: obj.cull_eps (or the
-    default) under precision "fast", else None (gradient.py:32-47)."""
-    if obj.precision != "fast":
-        return None
-    return render_cuda._eps(obj.cull_eps)
-
-
-def _grad_corner(obj: Objective) -> bool:
-    """The corner cull of the differentiable tiled paths: on exactly when
-    the fast evaluator's is (gradient.py:50-57)."""
-    return bool(obj.corner_cull) and obj.precision == "fast"
-
-
-def _grad_box(obj: Objective) -> str:
-    """"tight" trains on the exact-tight tier's boxes, else the reference's
-    (under "fast" the eps-tight boxes of _grad_cull_eps take their place)."""
-    return "tight" if obj.precision == "exact-tight" else "reference"
+def _tier(obj: Objective) -> screen.Tier:
+    """The objective's tier, which the differentiable paths walk with the
+    exact walks: its boxes, its eps cull and its corner cull (on exactly when
+    the fast evaluator's is)."""
+    return screen.tier(obj.precision, obj.cull_eps, obj.corner_cull)
 
 
 def _check_objective(obj: Objective) -> None:
     objective_mod.check_metric(obj.metric)
-    render_cuda._check_precision(obj.precision)
-    if obj.precision == "bf16":
+    if _tier(obj).mode == "bf16":
         raise NotImplementedError("precision 'bf16' is a fitness-only tier: no gradients")
     if obj.impl not in ("cuda", "oracle"):
         raise ValueError(f"unknown renderer impl: {obj.impl!r}")
@@ -96,18 +83,18 @@ def make_loss_fn(obj: Objective, gnm: GenomeConfig):
         if sharded is not None:
             return sharded
     bg = tuple(float(c) for c in obj.background)
+    t = _tier(obj)
 
     def loss_fn(g_axes, target, weight_mask):
         g9 = codec.genome_to_renderer(g_axes)
         if obj.impl == "cuda":
             imgs = render_grad.render_diff(
                 g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=bg,
-                bin_capacity=obj.bin_capacity, cull_eps=_grad_cull_eps(obj),
-                corner_cull=_grad_corner(obj), box=_grad_box(obj),
+                bin_capacity=obj.bin_capacity, **t.diff_args(),
             )
         else:
             imgs = oracle.render_dense(
-                g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=bg, box=_grad_box(obj)
+                g9, obj.H, obj.W, k_sigma=obj.k_sigma, background=bg, box=t.exact_box
             )
         fits = objective_mod.image_energy(obj, imgs, target, weight_mask)
         return torch.mean(fits), fits
@@ -128,6 +115,7 @@ def _make_sharded_local(obj: Objective):
     mesh = obj.mesh
     rows = shard.tile_rows(obj.H, mesh)
     bg = tuple(float(c) for c in obj.background)
+    diff = _tier(obj).diff_args()
 
     def local(g_axes, target, weight_mask):
         B = g_axes.shape[0]
@@ -136,8 +124,7 @@ def _make_sharded_local(obj: Objective):
         imgs = render_grad.render_diff(
             codec.genome_to_renderer(g_axes[sel]), obj.H, obj.W, k_sigma=obj.k_sigma,
             background=bg, bin_capacity=obj.bin_capacity, y_origin=rows.start,
-            out_rows=rows.stop - rows.start, cull_eps=_grad_cull_eps(obj),
-            corner_cull=_grad_corner(obj), box=_grad_box(obj),
+            out_rows=rows.stop - rows.start, **diff,
         )
         fits = objective_mod.sharded_energy_rows(
             obj, imgs, shard.place_target(target, mesh), shard.place_mask(weight_mask, mesh),
@@ -215,6 +202,7 @@ def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
 
     if obj.impl != "cuda" or obj.metric != "mse":
         return autograd_vg
+    diff = _tier(obj).diff_args()
 
     def fused_vg(g_axes, target, weight_mask):
         if g_axes.shape[1] > render_cuda.MAX_SPLATS:
@@ -222,8 +210,7 @@ def make_value_and_grad(obj: Objective, gnm: GenomeConfig):
         return render_grad.fused_value_and_grad(
             g_axes, target, weight_mask, obj.H, obj.W,
             boost_only=obj.boost_only, boost_beta=obj.boost_beta, k_sigma=obj.k_sigma,
-            background=tuple(obj.background), bin_capacity=obj.bin_capacity,
-            cull_eps=_grad_cull_eps(obj), corner_cull=_grad_corner(obj), box=_grad_box(obj),
+            background=tuple(obj.background), bin_capacity=obj.bin_capacity, **diff,
         )
 
     return fused_vg

@@ -246,8 +246,8 @@ def _evaluate_fused_sharded(obj: Objective, g, target, weight_mask):
 
 def _evaluate_metric_sharded(obj: Objective, g, target, weight_mask):
     """SSIM / mix energy over the mesh (objective.py:259-326): each rank
-    renders its pop rows' canvases on its row slab (render_cuda.render_rows;
-    "bf16" renders as "highest", :301-305) and scores them with
+    renders its pop rows' canvases on its row slab (render_cuda.render_rows,
+    whose "bf16" renders as "highest", :301-305) and scores them with
     sharded_energy_rows; the fits are gathered over the pop group. None
     where the shapes do not divide the mesh or a slab is shorter than the
     SSIM halo."""
@@ -260,8 +260,7 @@ def _evaluate_metric_sharded(obj: Objective, g, target, weight_mask):
     imgs = render_cuda.render_rows(
         codec.genome_to_renderer(g_loc), obj.H, obj.W, y0, tgt_rows.shape[0],
         k_sigma=obj.k_sigma, background=tuple(obj.background), bin_capacity=obj.bin_capacity,
-        precision=obj.precision if obj.precision in ("fast", "exact-tight") else "highest",
-        cull_eps=obj.cull_eps, corner_cull=obj.corner_cull,
+        precision=obj.precision, cull_eps=obj.cull_eps, corner_cull=obj.corner_cull,
     )
     out = sharded_energy_rows(obj, imgs, tgt_rows, w_rows, y0, obj.mesh)
     return comm.pop_gather(out, obj.mesh)

@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from . import oracle, render_cuda
+from . import oracle, render_cuda, screen
 
 
 def render_splats(
@@ -37,11 +37,10 @@ def render_splats(
     corner_cull: bool = False,
 ) -> torch.Tensor:
     """Renderer genomes [B, N, 9] (or [N, 9]) -> images [B, H, W, 3] in [0, 1]."""
-    render_cuda._check_precision(precision)
+    t = screen.tier(precision, cull_eps, corner_cull)
     if impl == "oracle":
         return oracle.render_dense(
-            g9, H, W, k_sigma=k_sigma, background=tuple(background),
-            box="tight" if precision == "exact-tight" else "reference",
+            g9, H, W, k_sigma=k_sigma, background=tuple(background), box=t.exact_box,
         )
     if impl == "cuda":
         return render_cuda.render(

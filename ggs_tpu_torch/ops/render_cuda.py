@@ -10,33 +10,36 @@ PyTorch/CUDA counterpart of `ggs_tpu/ops/render_pallas.py`:
   log2(alpha) and open-interval thresholds.
 * Boxes and culls of the fast tier (plain PyTorch: XLA code in the JAX
   package): `_tighten_boxes` (:377), the eps-tight boxes;
-  `_corner_eps`/`_corner_params`/`_corner_keep` (:411-486), the rect-min
-  corner cull, and `_corner_band_xranges` (:489), its band-level form.
-* Binning: `bin_splats` (`_bin_splats_xy`, :613) takes the route
-  `bin_route` picks. `bin_splats_dense` (:659): per-tile ascending splat
-  lists padded with N, counts capped at `bin_capacity`, with the corner
-  cull ANDed in. `scatter_binning` (`_bin_splats_scatter`, :892): its
-  static rules, then K5 from the boxes (the band lists and band ranges on
-  the card); its plain route keeps `_band_lists` (`_band_lists_xla`, :698)
-  and the band ranges in PyTorch. Under the corner cull the route is JAX's
-  (K5 from 256 tiles, dense below), since it decides the lists; without
-  it both give the same integers, and the card bins with K5 at every tile
-  count its rules plan, the CPU densely below 256 tiles.
-* Kernel wrappers, each with a launch count and a plain version beside it
-  (a CPU tensor takes the plain version; a CUDA tensor launches the kernel
-  or raises): `fitness_tiles` (K1), `render_tiles` (K2),
-  `fitness_tiles_fast` / `render_tiles_fast` (K3), `fitness_tiles_bf16`
-  (K1-bf16) and `prep_fast` (K4) in `csrc/walk.cu`; `bin_splats_scatter`
-  (K5) in `csrc/scatter.cu`. Every walk takes an optional init canvas.
+  `_corner_params`/`_corner_keep` (:411-486), the rect-min corner cull,
+  and `_corner_band_xranges` (:489), its band-level form. Which of them a
+  call takes is its tier's (ops/screen.py).
+* Binning: `bin_splats` (`_bin_splats_xy`, :613) takes the route it
+  plans once (`bin_route`). `bin_splats_dense` (:659): per-tile ascending
+  splat lists padded with N, counts capped at `bin_capacity`, with the
+  corner cull ANDed in. `bin_splats_scatter` (`_bin_splats_scatter`,
+  :892): its static rules, then K5 from the boxes (the band lists and band
+  ranges on the card); its plain route keeps `_band_lists`
+  (`_band_lists_xla`, :698) and the band ranges in PyTorch. Under the
+  corner cull the route is JAX's (K5 from 256 tiles, dense below), since
+  it decides the lists; without it both give the same integers, and the
+  card bins with K5 at every tile count its rules plan, the CPU densely
+  below 256 tiles.
+* Kernel wrappers, each counting its launches in `profiling.COUNTS` and
+  with a plain version beside it (a CPU tensor takes the plain version; a
+  CUDA tensor launches the kernel or raises): `fitness_tiles` (K1),
+  `render_tiles` (K2), `fitness_tiles_fast` / `render_tiles_fast` (K3),
+  `fitness_tiles_bf16` (K1-bf16) and `prep_fast` (K4) in `csrc/walk.cu`;
+  `bin_splats_scatter` (K5) in `csrc/scatter.cu`. Every walk takes an optional init canvas.
   `walk_path_counts` counts how the walks take a pass's lists, by path
   (for measurement; no walk calls it).
 * `render` / `fitness`: the entry points, mirroring `render_pallas` and
-  `fitness_pallas` for the four precision tiers. Above MAX_SPLATS splats
-  they chain passes through the init canvas (`_chunked_passes`, :141),
-  each pass binned on its own with its own capacity. Fast fitness at most
-  MAX_SPLATS splats takes `fitness_pallas`'s single-chunk route (K4 ->
-  binning with the corner parameters sliced from K4's table -> K3); every
-  other case takes `preprocess` -> the tier's boxes -> `_corner_params`.
+  `fitness_pallas` for the four precision tiers (`screen.tier`). Above
+  MAX_SPLATS splats they chain passes through the init canvas
+  (`_chunked_passes`, :141), each pass binned on its own with its own
+  capacity. Fast fitness at most MAX_SPLATS splats takes `fitness_pallas`'s
+  single-chunk route (K4 -> binning with the corner parameters sliced from
+  K4's table -> K3); every other case takes `screen.screen` (preprocess ->
+  the tier's boxes) -> `_corner_params`.
   The two routes build their boxes by different rules, as in the JAX
   package, and may bin a splat differently. "bf16" fitness walks its
   earlier passes in f32 (K2) and its last in K1-bf16 over the reference
@@ -62,7 +65,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..utils import profiling
-from . import codec, fitness as fitness_mod
+from . import codec, fitness as fitness_mod, screen
 
 # feats table rows (the kernel's parameter layout)
 _F_CX, _F_CY, _F_SXX, _F_SXY, _F_SYY, _F_R, _F_G, _F_B, _F_A = range(9)
@@ -322,13 +325,6 @@ def _tighten_boxes(
     return p._replace(x0=x0, x1=x1, y0=y0, y1=y1)
 
 
-def _corner_eps(precision: str, corner_cull: bool, cull_eps: Optional[float]) -> Optional[float]:
-    """The corner cull's eps: only in the fast tier, at the box cull's eps."""
-    if precision != "fast" or not corner_cull:
-        return None
-    return _eps(cull_eps)
-
-
 @torch.no_grad()
 def _corner_params(p: codec.SplatScreen, cull_eps: Optional[float]) -> tuple:
     """SplatScreen -> the corner cull's (cx, cy, nsxx, nsxy, nsyy, log2a,
@@ -546,10 +542,17 @@ def scatter_args(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=SCAT
     band column ranges, the overflow fallback's boxes and corner
     parameters), or None where the rules bin densely. K5 on the card
     computes all of it from the boxes itself."""
-    B, N = x0.shape
-    plan = _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner)
+    plan = _scatter_plan(n_tx, n_ty, cap, x0.shape[1], pad_slots, corner)
     if plan is None:
         return None
+    return _scatter_args(plan, x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner)
+
+
+@torch.no_grad()
+def _scatter_args(plan: _ScatterPlan, x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap,
+                  corner) -> dict:
+    """scatter_args under a plan already made."""
+    N = x0.shape[1]
     div = functools.partial(torch.div, rounding_mode="floor")
     rng = torch.stack([div(x0, tile_w), div(x1, tile_w), div(y0, tile_h), div(y1, tile_h)], 1)
     rng = rng.to(torch.int32).contiguous()
@@ -679,7 +682,7 @@ def _band_launch(k, box, cpar, log2eps, B, N, n_tx, n_ty, tile_h, tile_w, rpg, d
                                      ent_cnt.data_ptr(), tmax.data_ptr(), B, N, n_tx, n_ty,
                                      tile_h, tile_w, rpg, stream)
     k.check(rc, "bin_splats_scatter (band stage)")
-    bin_splats_scatter.band_launches += 1
+    profiling.count("K5-band")
     return ent, ent_cnt, tmax
 
 
@@ -722,19 +725,22 @@ def bin_splats_scatter(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slot
     exceeds cap_s, else rebuilds the lists from the row lists by the box
     and the per-tile corner test. Without bands (one row group, or above
     8192 splats) the tile stage walks every splat's box, after a zeroing of
-    tmax. `launches` counts calls (one tile stage each), `band_launches`
-    band stages, `fallback_launches` calls that also launched the fallback
-    (whether it rebuilt the lists is known only on the card). Bound by
-    bytes: the padded lists written."""
-    if x0.device.type == "cpu":
-        args = scatter_args(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots, corner)
-        if args is None:
-            raise ValueError("the scatter rules bin this shape densely (bin_splats_dense)")
-        return bin_splats_scatter_plain(**args)
-    B, N = x0.shape
-    plan = _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner)
+    tmax. Counts its calls (one tile stage each) as "K5", its band stages
+    as "K5-band" and its calls that also launched the fallback as
+    "K5-fallback" (whether it rebuilt the lists is known only on the card)
+    in profiling.COUNTS. Bound by bytes: the padded lists written."""
+    plan = _scatter_plan(n_tx, n_ty, cap, x0.shape[1], pad_slots, corner)
     if plan is None:
         raise ValueError("the scatter rules bin this shape densely (bin_splats_dense)")
+    return _scatter(plan, x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner)
+
+
+def _scatter(plan: _ScatterPlan, x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner):
+    """bin_splats_scatter under a plan already made."""
+    if x0.device.type == "cpu":
+        return bin_splats_scatter_plain(
+            **_scatter_args(plan, x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner))
+    B, N = x0.shape
     dev = x0.device
     box = _k5_rows((x0, x1, y0, y1), torch.int32, B, N, dev, "box")
     cpar = _k5_rows(corner[:6], torch.float32, B, N, dev, "corner") if plan.corner_x else None
@@ -759,75 +765,55 @@ def bin_splats_scatter(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slot
             int(fallback), stream,
         )
         k.check(rc, "bin_splats_scatter")
-    bin_splats_scatter.launches += 1
-    bin_splats_scatter.fallback_launches += fallback
+    profiling.count("K5")
+    profiling.count("K5-fallback", fallback)
     return idx, cnt, tmax
 
 
-bin_splats_scatter.launches = bin_splats_scatter.band_launches = 0
-bin_splats_scatter.fallback_launches = 0
-
-
-def scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots=SCATTER_PAD,
-                    corner=None):
-    """Pair-scatter binning (`_bin_splats_scatter`): -> (idx [B, T, cap],
-    cnt [B, T]). Without the corner cull the lists equal bin_splats_dense's;
-    with it, while two-level, each band culls by its column ranges (weaker
-    than the per-tile test, so the lists are supersets of the dense corner
-    lists), and where a budget cap_s < cap overflows, by the per-tile test.
-    Where the rules bin densely, bin_splats_dense."""
-    if _scatter_plan(n_tx, n_ty, cap, x0.shape[1], pad_slots, corner) is None:
-        return bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=corner)
-    idx, cnt, _ = bin_splats_scatter(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots,
-                                     corner)
-    return idx, cnt
-
-
-# bin_splats' counts of calls by route: the dense binning, K5 below
-# SCATTER_TILES tiles (exact lists on the card), K5 from SCATTER_TILES (its
-# plain version on the CPU)
-BIN_ROUTES = ("dense_calls", "k5_small_calls", "k5_calls")
+def _bin_plan(B, n_tx, n_ty, cap, N, pad_slots, corner, device) -> Optional[_ScatterPlan]:
+    """bin_splats' route: K5's plan, or None for the dense binning. Under
+    the corner cull the route decides the lists, so it is JAX's
+    (`_bin_splats_xy`): the scatter binning from SCATTER_TILES tiles where
+    its rules give a plan, else dense. Without the cull both routes give the
+    same integers, and on the card K5 takes every tile count with a plan,
+    for batches its launch takes (csrc/scatter.cu geometry: B <= 65535;
+    below SCATTER_TILES tiles its B*T < 2**31 then holds too): on an H100 it
+    beats the dense sort at every shape of the benchmark, from B=1 on 96
+    tiles (0.025 against 0.066 device ms) to B=1024 on 128 tiles (1.65
+    against 65.4, a 5,000-splat pass). The CPU keeps bin_splats_dense, the
+    plain version."""
+    plan = _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner)
+    if plan is None or n_tx * n_ty >= SCATTER_TILES:
+        return plan
+    if corner is None and B <= 65535 and torch.device(device).type != "cpu":
+        return plan
+    return None
 
 
 def bin_route(B, n_tx, n_ty, cap, N, pad_slots, corner, device) -> str:
-    """The route bin_splats takes, one of BIN_ROUTES. Under the corner cull
-    the route decides the lists, so it is JAX's (`_bin_splats_xy`): the
-    scatter binning from SCATTER_TILES tiles where its rules give a plan,
-    else dense. Without the cull both routes give the same integers, and on
-    the card K5 takes every tile count with a plan, for batches its launch
-    takes (csrc/scatter.cu geometry: B <= 65535; below SCATTER_TILES tiles
-    its B*T < 2**31 then holds too): on an H100 it beats the dense sort at every shape of the benchmark, from
-    B=1 on 96 tiles (0.025 against 0.066 device ms) to B=1024 on 128 tiles
-    (1.65 against 65.4, a 5,000-splat pass). The CPU keeps bin_splats_dense,
-    the plain version."""
-    plan = _scatter_plan(n_tx, n_ty, cap, N, pad_slots, corner)
-    if plan is None:
-        return "dense_calls"
-    if n_tx * n_ty >= SCATTER_TILES:
-        return "k5_calls"
-    if corner is None and B <= 65535 and torch.device(device).type != "cpu":
-        return "k5_small_calls"
-    return "dense_calls"
+    """The route bin_splats takes (_bin_plan): "k5" or "dense"."""
+    return "dense" if _bin_plan(B, n_tx, n_ty, cap, N, pad_slots, corner, device) is None else "k5"
 
 
 def bin_splats(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner=None,
                pad_slots=SCATTER_PAD):
     """Boxes [B, N] -> (idx [B, T, cap], cnt [B, T]) (`_bin_splats_xy`,
-    render_pallas.py:613) by `bin_route`: scatter_binning (K5, its plain
-    version on the CPU) or bin_splats_dense. Counts its calls by route in
-    the attributes named by BIN_ROUTES."""
+    render_pallas.py:613) by the route it plans once (`bin_route`): K5 (its
+    plain version on the CPU) or bin_splats_dense. Counts its calls by
+    route as "bin.k5" and "bin.dense" in profiling.COUNTS. Under the corner
+    cull K5's lists, while two-level, keep each band's column ranges (weaker
+    than the per-tile test, so supersets of the dense corner lists), and
+    where a budget cap_s < cap overflows, the per-tile test's."""
     with profiling.span("render.bin"):
         B, N = x0.shape
-        route = bin_route(B, n_tx, n_ty, cap, N, pad_slots, corner, x0.device)
-        setattr(bin_splats, route, getattr(bin_splats, route) + 1)
-        if route == "dense_calls":
+        plan = _bin_plan(B, n_tx, n_ty, cap, N, pad_slots, corner, x0.device)
+        if plan is None:
+            profiling.count("bin.dense")
             return bin_splats_dense(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap,
                                     corner=corner)
-        return scatter_binning(x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, pad_slots,
-                               corner=corner)
-
-
-bin_splats.dense_calls = bin_splats.k5_small_calls = bin_splats.k5_calls = 0
+        profiling.count("bin.k5")
+        idx, cnt, _ = _scatter(plan, x0, x1, y0, y1, n_tx, n_ty, tile_h, tile_w, cap, corner)
+        return idx, cnt
 
 
 @torch.no_grad()
@@ -1071,12 +1057,6 @@ def _check_init(init, B, Hp, Wp, dev):
         _require(init, "init", torch.float32, (B, 3, Hp, Wp), dev)
 
 
-def _counted(fn, init) -> None:
-    """One launch of fn's kernel: its count, and its count with an init canvas."""
-    fn.launches += 1
-    fn.init_launches += init is not None
-
-
 def _render_launch(mode, what, cnt, idx, feats, n_tx, tile_h, tile_w, background, init):
     """One launch of walk.cu's canvas epilogue in blend mode `mode`."""
     B, T, L, dev = _check_lists(cnt, idx, feats, n_tx, tile_h, tile_w)
@@ -1152,11 +1132,9 @@ def render_tiles(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=None):
         return render_tiles_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=init)
     out = _render_launch("exact", "render_tiles", cnt, idx, feats, n_tx, tile_h, tile_w, background,
                          init)
-    _counted(render_tiles, init)
+    profiling.count("K2")
+    profiling.count("K2-init", init is not None)
     return out
-
-
-render_tiles.launches = render_tiles.init_launches = 0
 
 
 def render_tiles_fast(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=None):
@@ -1171,11 +1149,9 @@ def render_tiles_fast(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=No
                                   init=init)
     out = _render_launch("fast", "render_tiles_fast", cnt, idx, feats, n_tx, tile_h, tile_w,
                          background, init)
-    _counted(render_tiles_fast, init)
+    profiling.count("K3-canvas")
+    profiling.count("K3-canvas-init", init is not None)
     return out
-
-
-render_tiles_fast.launches = render_tiles_fast.init_launches = 0
 
 
 def fitness_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background, init=None):
@@ -1194,11 +1170,9 @@ def fitness_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, backgrou
                                    init=init)
     out = _fitness_launch("exact", "fitness_tiles", cnt, idx, feats, target_p, w_p, n_tx, tile_h,
                           tile_w, background, init)
-    _counted(fitness_tiles, init)
+    profiling.count("K1")
+    profiling.count("K1-init", init is not None)
     return out
-
-
-fitness_tiles.launches = fitness_tiles.init_launches = 0
 
 
 def fitness_tiles_fast(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background,
@@ -1211,11 +1185,9 @@ def fitness_tiles_fast(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bac
                                    background, mode="fast", init=init)
     out = _fitness_launch("fast", "fitness_tiles_fast", cnt, idx, feats, target_p, w_p, n_tx,
                           tile_h, tile_w, background, init)
-    _counted(fitness_tiles_fast, init)
+    profiling.count("K3")
+    profiling.count("K3-init", init is not None)
     return out
-
-
-fitness_tiles_fast.launches = fitness_tiles_fast.init_launches = 0
 
 
 def fitness_tiles_bf16(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background,
@@ -1231,11 +1203,9 @@ def fitness_tiles_bf16(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bac
                                    background, mode="bf16", init=init)
     out = _fitness_launch("bf16", "fitness_tiles_bf16", cnt, idx, feats, target_p, w_p, n_tx,
                           tile_h, tile_w, background, init)
-    _counted(fitness_tiles_bf16, init)
+    profiling.count("K1-bf16")
+    profiling.count("K1-bf16-init", init is not None)
     return out
-
-
-fitness_tiles_bf16.launches = fitness_tiles_bf16.init_launches = 0
 
 
 def prep_fast(g9: torch.Tensor, H: int, W: int, k_sigma: float, cull_eps=None):
@@ -1262,11 +1232,8 @@ def prep_fast(g9: torch.Tensor, H: int, W: int, k_sigma: float, cull_eps=None):
                 torch.cuda.current_stream(g9.device).cuda_stream,
             )
         k.check(rc, "prep_fast")
-        prep_fast.launches += 1
+        profiling.count("K4")
         return ff, fi
-
-
-prep_fast.launches = 0
 
 
 # -------------------------------------------------------- entry points
@@ -1279,22 +1246,6 @@ def _genomes(g9: torch.Tensor) -> torch.Tensor:
     if g9.shape[2] < codec.GENE_DIM:
         raise ValueError(f"expected >= 9 genome cols, got {g9.shape[2]}")
     return g9[..., : codec.GENE_DIM].to(torch.float32)
-
-
-def _screen(g9, H, W, k_sigma, precision, cull_eps, y_origin: int = 0) -> codec.SplatScreen:
-    """Screen-space splats with the tier's boxes: the eps-tight ones under
-    "fast", the tight k-sigma box under "exact-tight", else preprocess'.
-    A row slab (y_origin > 0) preprocesses against the whole (H, W) canvas,
-    shifts cy, y0 and y1 up by y_origin and only then takes the tier's boxes
-    (render_pallas.py:1527-1539)."""
-    with profiling.span("render.screen"):
-        _check_precision(precision)
-        p = shift_rows(codec.preprocess(g9, H, W, k_sigma), y_origin)
-        if precision == "fast":
-            return _tighten_boxes(p, k_sigma, cull_eps)
-        if precision == "exact-tight":
-            return codec.tighten_boxes_exact(p, k_sigma)
-        return p
 
 
 def shift_rows(p: codec.SplatScreen, y_origin: int) -> codec.SplatScreen:
@@ -1325,52 +1276,55 @@ def _chunk_bounds(N: int) -> list:
     return [i * N // n for i in range(n + 1)]
 
 
-def _pass_lists(p, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision, corner_eps):
+def _pass_lists(p, n_tx, n_ty, tile_h, tile_w, bin_capacity, t: screen.Tier):
     """One pass's (cnt, idx, feats): its own lists with cap = min(bin_capacity,
-    its N), and the table its walk reads (`_render_padded`, :84-100)."""
+    its N), corner-culled under the tier's corner eps, and the table its
+    walk reads (`_render_padded`, :84-100)."""
     N = p.cx.shape[1]
     cap = N if bin_capacity is None else min(bin_capacity, N)
-    corner = None if corner_eps is None else _corner_params(p, corner_eps)
+    corner = None if t.corner_eps is None else _corner_params(p, t.corner_eps)
     idx, cnt = bin_splats(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, tile_h, tile_w, cap, corner)
-    feats = _splat_feats_turbo(p) if precision == "fast" else _splat_feats_fast(p)
+    feats = _splat_feats_turbo(p) if t.mode == "fast" else _splat_feats_fast(p)
     return cnt, idx, feats
 
 
-def _chunked_passes(p, H, W, tile_h, tile_w, background, bin_capacity, keep_last, precision,
-                    corner_eps):
-    """Splats in passes of at most MAX_SPLATS, each walked from the previous
-    pass's clamped canvas (`_chunked_passes`, render_pallas.py:141): "over"
-    composites in painter order, so the chain equals one pass while no list
-    is cut. Returns (the canvas before the last pass, the last pass's
-    splats) when keep_last (a fitness epilogue walks those), else (the
-    canvas, None). The passes walk K3's canvas under "fast", else K2's (f32
-    also under "bf16")."""
+def _chunked_passes(p, H, W, tile_h, tile_w, background, bin_capacity, keep_last,
+                    t: screen.Tier):
+    """Splats in passes of at most MAX_SPLATS (screen.passes), each walked
+    from the previous pass's clamped canvas (`_chunked_passes`,
+    render_pallas.py:141): "over" composites in painter order, so the chain
+    equals one pass while no list is cut. Returns (the canvas before the
+    last pass, the last pass's (cnt, idx, feats)) when keep_last (a fitness
+    epilogue walks those), else (the canvas, None). The passes walk K3's
+    canvas in the fast mode, else K2's (f32 also under "bf16")."""
     n_tx, n_ty = _cdiv(W, tile_w), _cdiv(H, tile_h)
-    bounds = _chunk_bounds(p.cx.shape[1])
-    walk = render_tiles_fast if precision == "fast" else render_tiles
+    walk = render_tiles_fast if t.mode == "fast" else render_tiles
+    pcs = screen.passes(p)
     canvas = None
-    for i in range(len(bounds) - 1):
-        pc = _split_screen(p, bounds[i], bounds[i + 1]) if len(bounds) > 2 else p
-        if keep_last and i == len(bounds) - 2:
-            return canvas, pc
-        cnt, idx, feats = _pass_lists(pc, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
-                                      corner_eps)
+    for i, pc in enumerate(pcs):
+        lists = _pass_lists(pc, n_tx, n_ty, tile_h, tile_w, bin_capacity, t)
+        if keep_last and i == len(pcs) - 1:
+            return canvas, lists
         with profiling.span("render.walk"):
-            canvas = walk(cnt, idx, feats, n_tx, tile_h, tile_w, background, init=canvas)
+            canvas = walk(*lists, n_tx, tile_h, tile_w, background, init=canvas)
     return canvas, None
 
 
-def _k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, cull_eps, corner_cull):
+def _fitness_walk(t: screen.Tier):
+    """The fitness epilogue of the tier's mode: K1, K3 or K1-bf16."""
+    return {"fast": fitness_tiles_fast, "bf16": fitness_tiles_bf16}.get(t.mode, fitness_tiles)
+
+
+def _k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, t: screen.Tier):
     """Fast fitness's single-pass route (fitness_pallas, render_pallas.py:
     1345-1355, 1411-1421): renderer genomes [B, N <= MAX_SPLATS, 9] ->
     (cnt, idx, ff), K4's table and eps-tight boxes, binned with the corner
     parameters sliced from K4's rows 0-4 and 8."""
     N = g9.shape[1]
-    ff, fi = prep_fast(g9.contiguous(), H, W, k_sigma, cull_eps)
-    corner_eps = _corner_eps("fast", corner_cull, cull_eps)
+    ff, fi = prep_fast(g9.contiguous(), H, W, k_sigma, t.eps)
     corner = None
-    if corner_eps is not None:
-        corner = tuple(ff[:, r, :N] for r in (0, 1, 2, 3, 4, _F_A)) + (math.log2(corner_eps),)
+    if t.corner_eps is not None:
+        corner = tuple(ff[:, r, :N] for r in (0, 1, 2, 3, 4, _F_A)) + (math.log2(t.corner_eps),)
     cap = N if bin_capacity is None else min(bin_capacity, N)
     idx, cnt = bin_splats(fi[:, 0], fi[:, 1], fi[:, 2], fi[:, 3], _cdiv(W, tile_w),
                           _cdiv(H, tile_h), tile_h, tile_w, cap, corner=corner)
@@ -1408,11 +1362,10 @@ def render(
     corner_cull); "bf16" renders the exact walk over the reference box.
     Above MAX_SPLATS splats the passes chain through the init canvas."""
     squeeze = g9.dim() == 2
-    p = _screen(_genomes(g9), H, W, k_sigma, precision, cull_eps)
-    out, _ = _chunked_passes(
-        p, H, W, tile_h, tile_w, tuple(float(c) for c in background), bin_capacity, False,
-        precision, _corner_eps(precision, corner_cull, cull_eps),
-    )
+    t = screen.tier(precision, cull_eps, corner_cull)
+    p = screen.screen(_genomes(g9), H, W, k_sigma, t)
+    out, _ = _chunked_passes(p, H, W, tile_h, tile_w, tuple(float(c) for c in background),
+                             bin_capacity, False, t)
     img = out[:, :, :H, :W].permute(0, 2, 3, 1).contiguous()
     return img[0] if squeeze else img
 
@@ -1438,27 +1391,21 @@ def fitness(
     (fitness_pallas). Candidate canvases never reach device memory in one
     pass. The last (or only) pass walks K1 for the exact tiers, K3 for
     "fast", K1-bf16 for "bf16", from the canvas of the passes before it."""
-    _check_precision(precision)
+    t = screen.tier(precision, cull_eps, corner_cull)
     g9 = _genomes(g9)
     N = g9.shape[1]
     n_tx, n_ty = _cdiv(W, tile_w), _cdiv(H, tile_h)
     bg = tuple(float(c) for c in background)
     w_eff, denom = fitness_mod.weff_denom(weight_mask, boost_only, boost_beta, H, W)
     target_p, w_p = pad_planes(target, w_eff, n_ty * tile_h, n_tx * tile_w)
-    if precision == "fast" and N <= MAX_SPLATS:
-        cnt, idx, feats = _k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, cull_eps,
-                                   corner_cull)
+    if t.mode == "fast" and N <= MAX_SPLATS:
+        lists = _k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, t)
         init = None
     else:
-        corner_eps = _corner_eps(precision, corner_cull, cull_eps)
-        p = _screen(g9, H, W, k_sigma, precision, cull_eps)
-        init, p_last = _chunked_passes(p, H, W, tile_h, tile_w, bg, bin_capacity, True, precision,
-                                       corner_eps)
-        cnt, idx, feats = _pass_lists(p_last, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
-                                      corner_eps)
-    walk = {"fast": fitness_tiles_fast, "bf16": fitness_tiles_bf16}.get(precision, fitness_tiles)
+        p = screen.screen(g9, H, W, k_sigma, t)
+        init, lists = _chunked_passes(p, H, W, tile_h, tile_w, bg, bin_capacity, True, t)
     with profiling.span("render.walk"):
-        partials = walk(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg, init=init)
+        partials = _fitness_walk(t)(*lists, target_p, w_p, n_tx, tile_h, tile_w, bg, init=init)
         return torch.sum(partials, dim=1) / denom  # a 0-d CPU denom is a scalar: no sync
 
 
@@ -1491,22 +1438,17 @@ def fitness_partial(
     and K5 from it; without it K5 on the card). The fast tier takes no K4
     here: its table comes from the shifted screen, as in JAX's partial.
     Summed over the slabs of a canvas, the partials give fitness() * denom."""
-    _check_precision(precision)
+    t = screen.tier(precision, cull_eps, corner_cull)
     g9 = _genomes(g9)
     Hs = target_slab.shape[0]
     n_tx, n_ty = _cdiv(W, tile_w), _cdiv(Hs, tile_h)
     bg = tuple(float(c) for c in background)
-    corner_eps = _corner_eps(precision, corner_cull, cull_eps)
-    p = _screen(g9, H, W, k_sigma, precision, cull_eps, y_origin)
-    init, p_last = _chunked_passes(p, Hs, W, tile_h, tile_w, bg, bin_capacity, True, precision,
-                                   corner_eps)
-    cnt, idx, feats = _pass_lists(p_last, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
-                                  corner_eps)
+    p = screen.screen(g9, H, W, k_sigma, t, y_origin)
+    init, lists = _chunked_passes(p, Hs, W, tile_h, tile_w, bg, bin_capacity, True, t)
     target_p, w_p = pad_planes(target_slab, w_slab, n_ty * tile_h, n_tx * tile_w)
-    walk = {"fast": fitness_tiles_fast, "bf16": fitness_tiles_bf16}.get(precision, fitness_tiles)
     with profiling.span("render.walk"):
-        return torch.sum(walk(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, bg,
-                              init=init), dim=1)
+        return torch.sum(_fitness_walk(t)(*lists, target_p, w_p, n_tx, tile_h, tile_w, bg,
+                                          init=init), dim=1)
 
 
 def render_rows(
@@ -1530,11 +1472,10 @@ def render_rows(
     64, 32, 16, 8 rows that divides out_rows, else tile_h. Rows past H render
     as background (no box reaches them)."""
     squeeze = g9.dim() == 2
-    p = _screen(_genomes(g9), H, W, k_sigma, precision, cull_eps, y_origin)
+    t = screen.tier(precision, cull_eps, corner_cull)
+    p = screen.screen(_genomes(g9), H, W, k_sigma, t, y_origin)
     tile_h = slab_tile_h(out_rows) or tile_h
-    out, _ = _chunked_passes(
-        p, out_rows, W, tile_h, tile_w, tuple(float(c) for c in background), bin_capacity, False,
-        precision, _corner_eps(precision, corner_cull, cull_eps),
-    )
+    out, _ = _chunked_passes(p, out_rows, W, tile_h, tile_w, tuple(float(c) for c in background),
+                             bin_capacity, False, t)
     img = out[:, :, :out_rows, :W].permute(0, 2, 3, 1).contiguous()
     return img[0] if squeeze else img

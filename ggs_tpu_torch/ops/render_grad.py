@@ -5,9 +5,9 @@ PyTorch/CUDA counterpart of `ggs_tpu/ops/render_grad.py` (exact tiers):
 * `_splat_feats` (render_pallas.py:175): the raw table [B, 13, N+1] that the
   backward differentiates (unscaled sxx, sxy, syy), sentinel column N zero.
 * `bwd_tiles` (K6) and `lossgrad_tiles` (K7): wrappers of the CUDA kernels in
-  `csrc/walk_grad.cu`, each with a launch count and a plain version beside
-  it. A CPU tensor takes the plain version; a CUDA tensor launches the
-  kernel or raises.
+  `csrc/walk_grad.cu`, each counting its launches in `profiling.COUNTS`
+  and with a plain version beside it. A CPU tensor takes the plain
+  version; a CUDA tensor launches the kernel or raises.
 * `RenderDiff`: the autograd Function of one pass, whose forward is K2
   (`render_cuda.render_tiles` on the folded table, as `fwd_only` reuses
   `_render_tile_kernel`) and whose backward is K6. A chained pass takes the
@@ -31,15 +31,15 @@ high. Tiling changes nothing but the order of the sums, except under the
 fast tier's corner cull, whose lists depend on the tile: there `_geometry`
 takes JAX's tile height (`list_tile_h`, render_grad.py:670-678 and
 :766-780), and elsewhere the port's GRAD_TILE_H. The fast tier's culls need
-no kernel of their own: with `cull_eps` the boxes are the eps-tight ones
-(`render_cuda._tighten_boxes`) and with `corner_cull` the lists drop the
-corner-culled pairs, and the exact walks (K2', K6, K7) run over them,
-giving the exact gradients of the culled render (render_grad.py:687-701,
-791-814); from 256 tiles the cull is band-level
-(render_cuda.scatter_binning). A row slab (`y_origin`, `out_rows`; the
-tile-sharded loss's building block) preprocesses against the whole canvas,
-shifts into the slab before the culls (render_cuda.shift_rows) and walks
-list tiles that divide its rows (render_grad.py:725-790).
+no kernel of their own: the entry points' (box, cull_eps, corner_cull) are
+a `screen.box_tier`; with `cull_eps` the boxes are the eps-tight ones and
+with `corner_cull` the lists drop the corner-culled pairs, and the exact
+walks (K2', K6, K7) run over them, giving the exact gradients of the
+culled render (render_grad.py:687-701, 791-814); from 256 tiles the cull
+is band-level (render_cuda.bin_splats). A row slab (`y_origin`,
+`out_rows`; the tile-sharded loss's building block) preprocesses against
+the whole canvas, shifts into the slab before the culls (`screen.screen`)
+and walks list tiles that divide its rows (render_grad.py:725-790).
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..utils import profiling
-from . import codec, fitness as fitness_mod, render_cuda
+from . import codec, fitness as fitness_mod, render_cuda, screen
 from .render_cuda import _NFEAT, _cdiv, _require, pad_planes
 
 NGRAD = 9  # dcx, dcy, dsxx, dsxy, dsyy, drc, dgc, dbc, da
@@ -285,11 +285,9 @@ def bwd_tiles(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background, init=Non
         return bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background, init)
     _, grads, dinit = _launch_grad(False, cnt, idx, feats, n_tx, tile_h, tile_w, background,
                                    gimg=g_img, init=init)
-    render_cuda._counted(bwd_tiles, init)
+    profiling.count("K6")
+    profiling.count("K6-init", init is not None)
     return grads, dinit
-
-
-bwd_tiles.launches = bwd_tiles.init_launches = 0
 
 
 def lossgrad_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, background, scale):
@@ -309,11 +307,8 @@ def lossgrad_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, tile_w, backgro
         True, cnt, idx, feats, n_tx, tile_h, tile_w, background,
         target_p=target_p, w_p=w_p, scale=scale,
     )
-    lossgrad_tiles.launches += 1
+    profiling.count("K7")
     return num, grads
-
-
-lossgrad_tiles.launches = 0
 
 
 # -------------------------------------------------------- autograd
@@ -388,24 +383,22 @@ def list_tile_h(cap: int, out_rows: Optional[int] = None) -> int:
     return 8
 
 
-def _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull, n_total=None,
-              out_rows=None):
+def _geometry(H, W, N, bin_capacity, background, t: screen.Tier, n_total=None, out_rows=None):
     """The walks' geometry (n_tx, n_ty, tile_h, tile_w, cap, background,
     corner_eps) of a pass of N splats out of n_total (default N) over H
-    canvas rows, or a slab of out_rows: the corner cull runs at cull_eps,
-    and only with it. Under the corner cull the lists depend on the tile, so
-    its height is JAX's (list_tile_h of the whole cap); otherwise the port's
-    GRAD_TILE_H, or 8 rows on a slab that 16 does not divide."""
+    canvas rows, or a slab of out_rows, under tier t. Under the corner cull
+    the lists depend on the tile, so its height is JAX's (list_tile_h of the
+    whole cap); otherwise the port's GRAD_TILE_H, or 8 rows on a slab that
+    16 does not divide."""
     n_total = N if n_total is None else n_total
     cap, whole = (n if bin_capacity is None else min(bin_capacity, n) for n in (N, n_total))
-    corner_eps = float(cull_eps) if (corner_cull and cull_eps is not None) else None
     rows = H if out_rows is None else out_rows
-    if corner_eps is not None:
+    if t.corner_eps is not None:
         tile_h = list_tile_h(whole, out_rows)
     else:
         tile_h = GRAD_TILE_H if rows % GRAD_TILE_H == 0 or out_rows is None else 8
     return (_cdiv(W, GRAD_TILE_W), _cdiv(rows, tile_h), tile_h, GRAD_TILE_W, cap,
-            tuple(float(c) for c in background), corner_eps)
+            tuple(float(c) for c in background), t.corner_eps)
 
 
 def _bin(p: codec.SplatScreen, geom):
@@ -414,20 +407,6 @@ def _bin(p: codec.SplatScreen, geom):
     corner = None if corner_eps is None else render_cuda._corner_params(p, corner_eps)
     return render_cuda.bin_splats(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, tile_h, tile_w, cap, corner,
                                   pad_slots=GRAD_SCATTER_PAD)
-
-
-def _screen_params(g9, H, W, k_sigma, box, cull_eps=None, y_origin: int = 0):
-    """Screen-space parameters with the boxes the walks use: eps-tight when
-    cull_eps is set (it subsumes the tight box), else the box tier's; on a
-    row slab, taken after the shift into it (render_grad.py:781-800)."""
-    with profiling.span("render.screen"):
-        if box not in ("reference", "tight"):
-            raise ValueError(f"unknown box {box!r}")
-        p = codec.preprocess(g9[..., : codec.GENE_DIM].to(torch.float32), H, W, k_sigma)
-        p = render_cuda.shift_rows(p, y_origin)
-        if cull_eps is not None:
-            return render_cuda._tighten_boxes(p, k_sigma, cull_eps)
-        return codec.tighten_boxes_exact(p, k_sigma) if box == "tight" else p
 
 
 def render_diff(
@@ -460,12 +439,11 @@ def render_diff(
         g9 = g9[None]
     y_origin = 0 if y_origin is None else int(y_origin)
     rows = H if out_rows is None else int(out_rows)
-    p = _screen_params(g9, H, W, k_sigma, box, cull_eps, y_origin)
-    bounds = render_cuda._chunk_bounds(g9.shape[1])
+    t = screen.box_tier(box, cull_eps, corner_cull)
+    p = screen.screen(g9, H, W, k_sigma, t, y_origin)
     canvas = None
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
-        pc = render_cuda._split_screen(p, lo, hi) if len(bounds) > 2 else p
-        geom = _geometry(H, W, hi - lo, bin_capacity, background, cull_eps, corner_cull,
+    for pc in screen.passes(p):
+        geom = _geometry(H, W, pc.cx.shape[1], bin_capacity, background, t,
                          n_total=g9.shape[1], out_rows=out_rows)
         canvas = RenderDiff.apply(canvas, *pc, geom)
     img = canvas[:, :, :rows, :W].permute(0, 2, 3, 1)
@@ -503,13 +481,14 @@ def fused_value_and_grad(
             f"fused_value_and_grad takes N <= {render_cuda.MAX_SPLATS} (got {N}); "
             "render_diff chains passes"
         )
-    geom = _geometry(H, W, N, bin_capacity, background, cull_eps, corner_cull)
+    t = screen.box_tier(box, cull_eps, corner_cull)
+    geom = _geometry(H, W, N, bin_capacity, background, t)
     n_tx, n_ty, tile_h, tile_w = geom[:4]
     w_eff, denom = fitness_mod.weff_denom(weight_mask, boost_only, boost_beta, H, W)
     target_p, w_p = pad_planes(target, w_eff, n_ty * tile_h, n_tx * tile_w)
     g = g_axes.detach().to(torch.float32).requires_grad_(True)
     with torch.enable_grad():
-        p = _screen_params(codec.genome_to_renderer(g), H, W, k_sigma, box, cull_eps)
+        p = screen.screen(codec.genome_to_renderer(g), H, W, k_sigma, t)
         num = _FusedNum.apply(*p, target_p, w_p, geom)
         fits = num / denom  # a 0-d CPU denom is a scalar: no copy, no sync
         loss = torch.mean(fits)

@@ -33,10 +33,11 @@ kernel of every step.
 * A capture that fails raises, naming the op from its traceback, and so
   does a captured graph that copies from host memory (a copy whose source
   a replay would read stale). Nothing falls back to the eager body.
-* Launch counts: the kernel wrappers count in Python, which a replay does
-  not pass through. A capture records what it advanced (the wrappers'
-  counters and every Counter in TALLIES), sets them back, and each replay
-  adds it, so the counts stay the kernels run.
+* Counts: the kernel wrappers count their launches in Python
+  (profiling.count), which a replay does not pass through. A capture
+  records what it advanced in profiling.COUNTS, sets it back, and each
+  replay adds it, so the counts stay the kernels run (and a caller's own
+  counted events stay those the block made).
 * On the CPU (no capture) the helper runs the eager body: the plain version
   the tests use, and on a card the one chip_smoke compares replays with.
 * Spans: a capture records where the capture stands at each program span's
@@ -70,15 +71,6 @@ import torch
 
 from . import profiling
 
-# Counters of per-call events that a caller adds while it measures (e.g.
-# chip_smoke's calls of objective.evaluate by batch size): a replay adds to
-# each one that is still listed what its capture added
-TALLIES: list = []
-
-# the wrappers' launch counters, and bin_splats' calls by route (render_cuda.BIN_ROUTES)
-_ATTRS = ("launches", "init_launches", "band_launches", "fallback_launches", "dense_calls",
-          "k5_small_calls", "k5_calls")
-
 
 def stays_eager(obj) -> bool:
     """True where an objective's run blocks stay eager: under a mesh, or
@@ -104,47 +96,13 @@ class RunBlock:
         return (self.graphed if self.use_graphs else self.eager)(*args, **kw)
 
 
-def _wrappers() -> tuple:
-    """The kernel wrappers whose counters a launch advances, and bin_splats."""
-    from ..ops import render_cuda as rc
-    from ..ops import render_grad as rg
-
-    return (rc.fitness_tiles, rc.render_tiles, rc.fitness_tiles_fast, rc.render_tiles_fast,
-            rc.prep_fast, rc.fitness_tiles_bf16, rc.bin_splats_scatter, rc.bin_splats,
-            rg.bwd_tiles, rg.lossgrad_tiles)
-
-
-def _snapshot() -> tuple:
-    counts = {(fn, a): getattr(fn, a) for fn in _wrappers() for a in _ATTRS if hasattr(fn, a)}
-    return counts, [(t, collections.Counter(t)) for t in TALLIES]
-
-
-def _take_delta(before: tuple) -> tuple:
-    """What the counts advanced since `before`; sets them back to it."""
-    counts, tallies = before
-    delta = {}
-    for (fn, a), v in counts.items():
-        d = getattr(fn, a) - v
-        if d:
-            delta[(fn, a)] = d
-        setattr(fn, a, v)
-    t_delta = []
-    for t, was in tallies:
-        d = collections.Counter(t)
-        d.subtract(was)
-        t_delta.append((t, +d))
-        t.clear()
-        t.update(was)
-    return delta, t_delta
-
-
-def _add_delta(delta: tuple) -> None:
-    counts, tallies = delta
-    for (fn, a), d in counts.items():
-        setattr(fn, a, getattr(fn, a) + d)
-    for t, d in tallies:
-        if any(t is u for u in TALLIES):
-            t.update(d)
+def _take_delta(before: collections.Counter) -> collections.Counter:
+    """What profiling.COUNTS advanced since `before` (a copy of it); sets it
+    back to `before`."""
+    delta = profiling.COUNTS - before
+    profiling.COUNTS.clear()
+    profiling.COUNTS.update(before)
+    return delta
 
 
 # CUgraphNodeType 0-13 and CUmemorytype
@@ -316,7 +274,7 @@ class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     static: Dict[str, Optional[torch.Tensor]]
     out: object
-    delta: tuple
+    delta: collections.Counter  # what the capture counted in profiling.COUNTS
     nodes: collections.Counter
     rng: Optional[torch.Generator]
     # the span path of each KERNEL, MEMCPY and MEMSET node in chain order
@@ -364,7 +322,7 @@ class BlockGraphs:
                     if v is not None and v is not e.static[k]:
                         e.static[k].copy_(v)
                 e.graph.replay()
-                _add_delta(e.delta)
+                profiling.COUNTS.update(e.delta)
             self.last = e
             self.replays += 1
             return e.out
@@ -388,7 +346,7 @@ class BlockGraphs:
         g = torch.cuda.CUDAGraph(keep_graph=True)
         if rng is not None:
             g.register_generator_state(rng)
-        before = _snapshot()
+        before = collections.Counter(profiling.COUNTS)
         marks = []
         stream = self.stream.cuda_stream
 

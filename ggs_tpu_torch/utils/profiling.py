@@ -14,12 +14,22 @@ run block (`capturing`), each span's entry and exit also go to the
 capture's `mark`, which records the capture's position there, so the
 graph's nodes can be named by span although a replay runs no Python.
 Otherwise a span costs one check and opens nothing.
+
+`COUNTS` is the program's one registry of counts, and `count(name, n)` the
+way to add to it: the kernel wrappers count their device launches there
+("K1", "K2", "K3", "K3-canvas", "K4", "K1-bf16", "K5", "K6", "K7"; "<K>-init"
+those that walk from an init canvas; "K5-band" and "K5-fallback" K5's band
+stages and overflow fallbacks), render_cuda.bin_splats its calls by route
+("bin.dense", "bin.k5"), and a measuring caller its own events. A replayed
+run block runs no Python, so utils/block_graph.py adds its capture's counts
+at each replay.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
-from typing import Callable, Iterator, Optional
+from typing import Callable, Hashable, Iterator, Optional
 
 import torch
 
@@ -44,6 +54,15 @@ SPANS = (
     "adam.value_and_grad",  # the step's value and gradient
     "adam.update",  # the optimizer's update and the projection
 )
+
+COUNTS: collections.Counter = collections.Counter()
+
+
+def count(name: Hashable, n: int = 1) -> None:
+    """Adds n (none when 0) to COUNTS[name]."""
+    if n:
+        COUNTS[name] += n
+
 
 _NULL = contextlib.nullcontext()
 _profiling = torch._C._autograd._profiler_enabled

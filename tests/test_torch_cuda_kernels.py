@@ -39,6 +39,13 @@ def dev():
     return torch.device("cuda")
 
 
+def _counts(*keys) -> tuple:
+    """profiling.COUNTS at these keys."""
+    from ggs_tpu_torch.utils import profiling
+
+    return tuple(profiling.COUNTS[k] for k in keys)
+
+
 def _row_err(got, want):
     """[9]: max |got - want| of each row of [B, 9, N] over its largest |want|."""
     return (got - want).abs().amax(dim=(0, 2)) / want.abs().amax(dim=(0, 2)).clamp_min(1e-30)
@@ -110,7 +117,7 @@ def test_fast_kernels_match_plain(dev, B, N, H, W, eps):
     cnt, idx, ff, tgt_p, w_p, n_tx, g9 = _case(dev, B, N, H, W, "fast", seed=3, cull_eps=eps,
                                                genomes=True)
     bg = (1.0, 1.0, 1.0)
-    counts = (rc.fitness_tiles_fast.launches, rc.render_tiles_fast.launches, rc.prep_fast.launches)
+    counts = _counts("K3", "K3-canvas", "K4")
     k3c = rc.render_tiles_fast(cnt, idx, ff, n_tx, 64, 128, bg)
     p3c = rc.render_tiles_plain(cnt, idx, ff, n_tx, 64, 128, bg, mode="fast")
     torch.testing.assert_close(k3c, p3c, atol=2e-6, rtol=0)
@@ -124,8 +131,7 @@ def test_fast_kernels_match_plain(dev, B, N, H, W, eps):
     fin = ff_p.isfinite()
     ulps = (ff.view(torch.int32).long() - ff_p.view(torch.int32).long()).abs()[fin]
     assert int(ulps.max()) <= 2
-    assert (rc.fitness_tiles_fast.launches, rc.render_tiles_fast.launches,
-            rc.prep_fast.launches) == (counts[0] + 2, counts[1] + 1, counts[2] + 1)
+    assert _counts("K3", "K3-canvas", "K4") == (counts[0] + 2, counts[1] + 1, counts[2] + 1)
 
 
 def test_bf16_kernel_matches_plain(dev):
@@ -134,14 +140,14 @@ def test_bf16_kernel_matches_plain(dev):
 
     cnt, idx, feats, tgt_p, w_p, n_tx = _case(dev, 32, 512, 512, 512, "bf16", seed=4)
     bg = (1.0, 1.0, 1.0)
-    n = rc.fitness_tiles_bf16.launches
+    (n,) = _counts("K1-bf16")
     k = rc.fitness_tiles_bf16(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg)
     p = rc.fitness_tiles_plain(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg, mode="bf16")
     torch.testing.assert_close(k.sum(1), p.sum(1), rtol=1e-5, atol=0)
     f32 = rc.fitness_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg).sum(1)
     assert float((k.sum(1) / f32 - 1.0).abs().max()) > 1e-4
     assert torch.equal(k, rc.fitness_tiles_bf16(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg))
-    assert rc.fitness_tiles_bf16.launches == n + 2
+    assert _counts("K1-bf16") == (n + 2,)
     with pytest.raises(ValueError):  # a CPU tensor among CUDA ones: no quiet fallback
         rc.fitness_tiles_bf16(cnt.cpu(), idx, feats, tgt_p, w_p, n_tx, 64, 128, bg)
 
@@ -151,10 +157,10 @@ def test_launch_counts_and_small_tiles(dev):
 
     cnt, idx, feats, tgt_p, w_p, n_tx = _case(dev, 3, 32, 40, 200, "exact-tight", tile_h=16)
     bg = (0.2, 0.4, 0.6)
-    n1, n2 = rc.fitness_tiles.launches, rc.render_tiles.launches
+    n1, n2 = _counts("K1", "K2")
     k2 = rc.render_tiles(cnt, idx, feats, n_tx, 16, 128, bg)
     k1 = rc.fitness_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, 16, 128, bg)
-    assert (rc.fitness_tiles.launches, rc.render_tiles.launches) == (n1 + 1, n2 + 1)
+    assert _counts("K1", "K2") == (n1 + 1, n2 + 1)
     torch.testing.assert_close(
         k2, rc.render_tiles_plain(cnt, idx, feats, n_tx, 16, 128, bg),
         atol=2e-6, rtol=0,
@@ -207,7 +213,7 @@ def test_grad_kernels_match_plain(dev, B, N, H, W):
     wm = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
     tgt_p, w_p = rc.pad_planes(tgt, wm, n_ty * th, n_tx * tw)
     bg = (1.0, 1.0, 1.0)
-    n6, n7 = rg.bwd_tiles.launches, rg.lossgrad_tiles.launches
+    n6, n7 = _counts("K6", "K7")
     num, g7 = rg.lossgrad_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 2.0)
     num_p, g7_p = rg.lossgrad_tiles_plain(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 2.0)
     torch.testing.assert_close(num.sum(1), num_p.sum(1), rtol=5e-5, atol=0)
@@ -226,7 +232,7 @@ def test_grad_kernels_match_plain(dev, B, N, H, W):
     assert torch.equal(g6, rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg)[0])
     num2, g7b = rg.lossgrad_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 2.0)
     assert torch.equal(num, num2) and torch.equal(g7, g7b)
-    assert (rg.bwd_tiles.launches, rg.lossgrad_tiles.launches) == (n6 + 2, n7 + 2)
+    assert _counts("K6", "K7") == (n6 + 2, n7 + 2)
 
 
 def test_grad_entry_points_match_oracle_autograd(dev):
@@ -326,15 +332,15 @@ def test_walks_with_init_match_plain(dev, precision):
     bg = (1.0, 1.0, 1.0)
     init = _init(dev, 8, *w_p.shape)
     mode = {"exact-tight": "exact"}.get(precision, precision)
-    fit = {"exact": rc.fitness_tiles, "fast": rc.fitness_tiles_fast,
-           "bf16": rc.fitness_tiles_bf16}[mode]
-    n = fit.init_launches
+    fit, key = {"exact": (rc.fitness_tiles, "K1-init"), "fast": (rc.fitness_tiles_fast, "K3-init"),
+                "bf16": (rc.fitness_tiles_bf16, "K1-bf16-init")}[mode]
+    (n,) = _counts(key)
     k = fit(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg, init=init)
     p = rc.fitness_tiles_plain(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg, mode=mode,
                                init=init)
     torch.testing.assert_close(k.sum(1), p.sum(1), rtol=1e-5 if mode == "bf16" else 5e-5, atol=0)
     assert torch.equal(k, fit(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg, init=init))
-    assert fit.init_launches == n + 2
+    assert _counts(key) == (n + 2,)
     # the init is read: without it the fitness changes
     assert not torch.equal(k, fit(cnt, idx, feats, tgt_p, w_p, n_tx, 64, 128, bg))
     if mode == "bf16":
@@ -375,7 +381,7 @@ def _scatter_case(dev, B, N, H, W, tile_h, precision, eps=None, coincident=0, se
     (sigma 4 px at the canvas centre). At 4096 wide the splats are the
     canvas-4k configuration's (min_scale 1, max_scale 0.02)."""
     from ggs_tpu_torch.models import genome
-    from ggs_tpu_torch.ops import codec, render_cuda as rc
+    from ggs_tpu_torch.ops import codec, render_cuda as rc, screen
 
     scales = (1.0, 0.02) if W >= 4096 else (3.0, 0.1)
     g = genome.new_population(torch.Generator(device=dev).manual_seed(seed), B, N, H, W, *scales,
@@ -383,7 +389,7 @@ def _scatter_case(dev, B, N, H, W, tile_h, precision, eps=None, coincident=0, se
     if coincident:
         g[0, :coincident] = torch.tensor([0.5, 0.5, 1.4, 1.4, 0.0, 128.0, 128.0, 128.0, 200.0],
                                          device=dev)
-    p = rc._screen(codec.genome_to_renderer(g), H, W, 3.0, precision, eps)
+    p = screen.screen(codec.genome_to_renderer(g), H, W, 3.0, screen.tier(precision, eps))
     corner = rc._corner_params(p, eps) if eps is not None else None
     n_tx, n_ty = -(-W // 128), -(-H // tile_h)
     return dict(x0=p.x0, x1=p.x1, y0=p.y0, y1=p.y1, n_tx=n_tx, n_ty=n_ty, tile_h=tile_h,
@@ -408,13 +414,12 @@ def test_scatter_kernel_matches_plain(dev, B, N, H, W, tile_h, precision, eps, c
     from ggs_tpu_torch.ops import render_cuda as rc
 
     args, p = _scatter_case(dev, B, N, H, W, tile_h, precision, eps, coincident)
-    n, nb = rc.bin_splats_scatter.launches, rc.bin_splats_scatter.band_launches
+    n, nb = _counts("K5", "K5-band")
     idx, cnt, tmax = rc.bin_splats_scatter(**args)
     plain = rc.scatter_args(**args)
     idx_p, cnt_p, tmax_p = rc.bin_splats_scatter_plain(**plain)
     assert torch.equal(idx, idx_p) and torch.equal(cnt, cnt_p) and int(tmax) == int(tmax_p)
-    assert rc.bin_splats_scatter.launches == n + 1
-    assert rc.bin_splats_scatter.band_launches == nb + 1
+    assert _counts("K5", "K5-band") == (n + 1, nb + 1)
     again = rc.bin_splats_scatter(**args)
     assert torch.equal(again[0], idx) and torch.equal(again[1], cnt)
     overflow = plain["fallback"] is not None and int(tmax) > plain["cap_s"]
@@ -426,31 +431,29 @@ def test_scatter_kernel_matches_plain(dev, B, N, H, W, tile_h, precision, eps, c
 
 
 @pytest.mark.parametrize(
-    "B,N,n,H,W,tile_h,pad,route",
+    "B,N,n,H,W,tile_h,pad",
     [
-        (32, 512, 512, 384, 512, 64, 8, "k5_small_calls"),  # ga512-p32
-        (512, 512, 512, 384, 512, 64, 8, "k5_small_calls"),  # ga512-p512
-        (1024, 10_000, 5_000, 1024, 1024, 64, 8, "k5_small_calls"),  # ga1024-p4096's passes
-        (1, 2000, 2000, 384, 512, 16, 40, "k5_small_calls"),  # adam512-n2000
-        (1, 10_000, 5_000, 1024, 1024, 16, 40, "k5_calls"),  # adam1024-n10k's passes
+        (32, 512, 512, 384, 512, 64, 8),  # ga512-p32
+        (512, 512, 512, 384, 512, 64, 8),  # ga512-p512
+        (1024, 10_000, 5_000, 1024, 1024, 64, 8),  # ga1024-p4096's passes
+        (1, 2000, 2000, 384, 512, 16, 40),  # adam512-n2000
+        (1, 10_000, 5_000, 1024, 1024, 16, 40),  # adam1024-n10k's passes
     ],
 )
-def test_exact_bin_splats_takes_k5_and_equals_dense(dev, B, N, n, H, W, tile_h, pad, route):
+def test_exact_bin_splats_takes_k5_and_equals_dense(dev, B, N, n, H, W, tile_h, pad):
     """bin_splats on the card at the benchmark cells' shapes (exact-tight,
     the first pass of n splats): the lists equal bin_splats_dense's as
     integers (idx over its whole width, cnt), and the call counts one K5
-    launch under its route and no dense one."""
+    launch and its route "bin.k5", and no dense one."""
     from ggs_tpu_torch.ops import render_cuda as rc
 
     args, _ = _scatter_case(dev, B, N, H, W, tile_h, "exact-tight")
     box = tuple(args[k][:, :n] for k in ("x0", "x1", "y0", "y1"))
     geo = (args["n_tx"], args["n_ty"], tile_h, 128, n)
-    before = {k: getattr(rc.bin_splats, k) for k in rc.BIN_ROUTES}
-    launches = rc.bin_splats_scatter.launches
+    keys = ("bin.dense", "bin.k5", "K5")
+    before = _counts(*keys)
     idx, cnt = rc.bin_splats(*box, *geo, None, pad_slots=pad)
-    moved = {k: getattr(rc.bin_splats, k) - before[k] for k in rc.BIN_ROUTES}
-    assert moved == {k: int(k == route) for k in rc.BIN_ROUTES}
-    assert rc.bin_splats_scatter.launches == launches + 1
+    assert tuple(a - b for a, b in zip(_counts(*keys), before)) == (0, 1, 1)
     di, dc = rc.bin_splats_dense(*box, *geo)
     assert idx.shape == di.shape == (B, geo[0] * geo[1], n)
     assert torch.equal(idx, di) and torch.equal(cnt, dc)

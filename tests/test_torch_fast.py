@@ -40,6 +40,7 @@ from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render as trender
 from ggs_tpu_torch.ops import render_cuda as rc
+from ggs_tpu_torch.utils import profiling
 from torch_inputs import axes_genomes, image, pass_lists, weights
 from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -314,8 +315,8 @@ def test_fast_epilogues_agree_and_cpu_takes_plain():
     tile, K1-bf16's partials that of the bf16 walk's canvas; on CPU tensors
     no K3/K4/K1-bf16 wrapper counts a launch."""
     g9 = torch.from_numpy(_g9(4, B=2, N=20))
-    counters = (rc.fitness_tiles_fast, rc.render_tiles_fast, rc.fitness_tiles_bf16, rc.prep_fast)
-    before = [fn.launches for fn in counters]
+    keys = ("K3", "K3-canvas", "K1-bf16", "K4")
+    before = [profiling.COUNTS[k] for k in keys]
     cnt, idx, ff, n_tx, n_ty = pass_lists(g9, H, W, 3.0, "fast", None, TH, TW, None, True,
                                            fitness_route=True)
     Hp, Wp = n_ty * TH, n_tx * TW
@@ -335,7 +336,7 @@ def test_fast_epilogues_agree_and_cpu_takes_plain():
     canvas = canvas.reshape(2, 3, n_ty, n_tx, TH, TW).transpose(3, 4).reshape(2, 3, Hp, Wp)
     partials = rc.fitness_tiles_bf16(cnt, idx, feats, tgt_p, w_p, n_tx, TH, TW, bg)
     np.testing.assert_allclose(partials.numpy(), per_tile(canvas).numpy(), rtol=1e-5)
-    assert [fn.launches for fn in counters] == before
+    assert [profiling.COUNTS[k] for k in keys] == before
 
 
 def test_render_splats_fast_and_bf16():

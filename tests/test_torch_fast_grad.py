@@ -36,6 +36,7 @@ from ggs_tpu_torch.ops import fitness as tfitness
 from ggs_tpu_torch.ops import objective as tobjective
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
+from ggs_tpu_torch.ops import screen as tscreen
 from torch_inputs import axes_genomes, image, weights
 from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -91,7 +92,7 @@ def test_culled_kernel_grads_match_jax():
     64x128 here: the corner cull is decided per tile)."""
     g = _genomes(41)
     B, N = g.shape[:2]
-    geom = trg._geometry(H, W, N, None, (1.0, 1.0, 1.0), EPS, True)
+    geom = trg._geometry(H, W, N, None, (1.0, 1.0, 1.0), tscreen.box_tier("reference", EPS, True))
     th, tw = geom[2:4]
     assert (th, tw) == (64, 128)
     pj = _screen(g)
@@ -198,14 +199,20 @@ def test_corner_cull_list_tile_is_jax(monkeypatch, entry, N):
 
 
 def test_fast_objective_in_the_gradient_paths():
-    """_grad_cull_eps/_grad_corner resolve as the JAX package's; "bf16"
-    gradients are refused; Adam on the culled energy descends, and
-    refine_elites scores with the fast evaluator and never worsens."""
-    assert tgradient._grad_cull_eps(OBJ) == EPS and tgradient._grad_corner(OBJ)
-    assert tgradient._grad_cull_eps(OBJ._replace(cull_eps=None)) == rc.DEFAULT_CULL_EPS
-    for obj in (OBJ._replace(precision="exact-tight"), OBJ._replace(precision="highest")):
-        assert tgradient._grad_cull_eps(obj) is None and not tgradient._grad_corner(obj)
-    assert not tgradient._grad_corner(OBJ._replace(corner_cull=False))
+    """The objective's tier hands render_grad the eps and corner culls as the
+    JAX package resolves them; "bf16" gradients are refused; Adam on the
+    culled energy descends, and refine_elites scores with the fast
+    evaluator and never worsens."""
+    def diff(obj):
+        return tgradient._tier(obj).diff_args()
+
+    assert diff(OBJ) == dict(box="reference", cull_eps=EPS, corner_cull=True)
+    assert diff(OBJ._replace(cull_eps=None))["cull_eps"] == rc.DEFAULT_CULL_EPS
+    for obj, box in ((OBJ._replace(precision="exact-tight"), "tight"),
+                     (OBJ._replace(precision="highest"), "reference")):
+        assert diff(obj) == dict(box=box, cull_eps=None, corner_cull=False)
+    assert diff(OBJ._replace(corner_cull=False)) == dict(box="reference", cull_eps=EPS,
+                                                         corner_cull=False)
     with pytest.raises(NotImplementedError):
         tgradient.make_fit_step(OBJ._replace(precision="bf16"), GenomeConfig(), GradConfig())
     gnm = GenomeConfig(n_splats=24)

@@ -35,6 +35,7 @@ from ggs_tpu_torch.ops import objective as tobjective
 from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render_grad as trg
 from ggs_tpu_torch.parallel import mesh as tmesh
+from ggs_tpu_torch.utils import profiling
 from torch_inputs import axes_genomes, image, weights
 from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -149,7 +150,7 @@ def test_memetic_block_keeps_best_monotone():
     cfg = GAConfig(pop_size=8, generations=20, elite_k=2, cxpb=0.2, mutpb=0.2)
     st = tga.init(torch.Generator().manual_seed(5), OBJ, target, None, cfg, GNM)
     b0 = float(st.best_fit)
-    before = trg.lossgrad_tiles.launches
+    before = profiling.COUNTS["K7"]
     st, metrics = tga.run_memetic_block(
         st, OBJ, target, None, cfg, GNM, GradConfig(lr=1e-2), refine_every=5,
         refine_steps=5, num_gens=15,
@@ -160,7 +161,7 @@ def test_memetic_block_keeps_best_monotone():
     assert float(st.best_fit) <= b0
     want = tobjective.evaluate(OBJ, st.best[None], target, None, device="cpu")[0]
     np.testing.assert_allclose(float(st.best_fit), float(want), rtol=1e-5, atol=1e-6)
-    assert trg.lossgrad_tiles.launches == before  # CPU tensors: the plain version
+    assert profiling.COUNTS["K7"] == before  # CPU tensors: the plain version
 
 
 def test_loss_fns_agree_and_unported_raise():

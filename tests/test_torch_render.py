@@ -24,6 +24,7 @@ from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render as trender
 from ggs_tpu_torch.ops import render_cuda as rc
+from ggs_tpu_torch.utils import profiling
 from torch_inputs import axes_genomes, image, pass_lists, weights
 from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -137,11 +138,11 @@ def test_epilogues_agree_and_cpu_takes_plain():
     tgt[:, :H, :W] = torch.from_numpy(image(4, H, W)).permute(2, 0, 1)
     w = torch.zeros((Hp, Wp))
     w[:H, :W] = torch.from_numpy(weights(4, H, W))
-    before = (rc.fitness_tiles.launches, rc.render_tiles.launches)
+    before = (profiling.COUNTS["K1"], profiling.COUNTS["K2"])
     bg = (1.0, 1.0, 1.0)
     canvas = rc.render_tiles(cnt, idx, feats, n_tx, TH, TW, bg)
     partials = rc.fitness_tiles(cnt, idx, feats, tgt, w, n_tx, TH, TW, bg)
-    assert (rc.fitness_tiles.launches, rc.render_tiles.launches) == before
+    assert (profiling.COUNTS["K1"], profiling.COUNTS["K2"]) == before
     assert canvas.shape == (2, 3, Hp, Wp) and partials.shape == (2, n_tx * n_ty)
     sse = (((canvas - tgt[None]) ** 2).sum(1) * w[None])  # [B, Hp, Wp]
     per_tile = sse.reshape(2, n_ty, TH, n_tx, TW).sum((2, 4)).reshape(2, -1)

@@ -38,6 +38,7 @@ from ggs_tpu_torch.ops import fitness as tfitness
 from ggs_tpu_torch.ops import oracle as toracle
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
+from ggs_tpu_torch.utils import profiling
 from torch_inputs import axes_genomes, image, pass_lists, weights
 from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -248,7 +249,7 @@ def test_plain_walks_agree_and_cpu_takes_plain():
     Hp, Wp = n_ty * th, n_tx * tw
     tgt_p, w_p = rc.pad_planes(torch.from_numpy(TGT), torch.from_numpy(WM), Hp, Wp)
     bg = (1.0, 1.0, 1.0)
-    before = (trg.bwd_tiles.launches, trg.lossgrad_tiles.launches)
+    before = (profiling.COUNTS["K6"], profiling.COUNTS["K7"])
     num, g7 = trg.lossgrad_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 0.5)
     k1 = rc.fitness_tiles(cnt, idx, feats_fast, tgt_p, w_p, n_tx, th, tw, bg)
     np.testing.assert_array_equal(num.numpy(), k1.numpy())
@@ -259,7 +260,7 @@ def test_plain_walks_agree_and_cpu_takes_plain():
     assert g6.shape == g7.shape == (2, 9, 40)
     row_scale = g7.abs().amax(dim=(0, 2), keepdim=True).numpy()  # each of the 9 fields
     np.testing.assert_allclose(g6.numpy() / row_scale, g7.numpy() / row_scale, atol=2e-6)
-    assert (trg.bwd_tiles.launches, trg.lossgrad_tiles.launches) == before
+    assert (profiling.COUNTS["K6"], profiling.COUNTS["K7"]) == before
 
 
 def test_unported_options_raise(monkeypatch):

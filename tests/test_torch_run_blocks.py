@@ -24,8 +24,8 @@ eager body.
   stays within tests/test_torch_gradient.py's tolerance of optax's Adam;
   on the CPU its fused update runs, on a card (marked `cuda`, skipped
   here) its capturable one is held to the CPU's.
-* A replay's launch counts: what a capture advanced is set back and added
-  once a replay (block_graph's counters and TALLIES)."""
+* A replay's counts: what a capture advanced in profiling.COUNTS is set
+  back and added once a replay, keys the capture made first included."""
 import collections
 
 import jax
@@ -43,8 +43,7 @@ from ggs_tpu_torch import convert
 from ggs_tpu_torch.config import GAConfig, GenomeConfig, GradConfig, MutSigma, SAConfig
 from ggs_tpu_torch.models import ga, genome, gradient, pt, sa
 from ggs_tpu_torch.ops import objective
-from ggs_tpu_torch.ops import render_cuda as rc
-from ggs_tpu_torch.utils import block_graph
+from ggs_tpu_torch.utils import block_graph, profiling
 from torch_inputs import axes_genomes, image, weights
 from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -352,30 +351,46 @@ def test_capturable_adam_on_card_matches_cpu_adam():
                                rtol=0)
 
 
-def test_capture_counts_are_replayed():
-    """block_graph's launch accounting: a capture's advance of the wrapper
-    counters and of a listed tally is set back, and a replay adds it once
-    (a tally no longer listed is left alone)."""
-    tally = collections.Counter({8: 2})
-    block_graph.TALLIES.append(tally)
-    k1 = rc.fitness_tiles.launches
-    try:
-        before = block_graph._snapshot()
-        rc.fitness_tiles.launches += 3  # what a captured block's wrappers count
-        tally[8] += 3
-        tally[1] += 1
-        delta = block_graph._take_delta(before)
-        assert rc.fitness_tiles.launches == k1 and tally == {8: 2}
-        for _ in range(2):
-            block_graph._add_delta(delta)
-        assert rc.fitness_tiles.launches == k1 + 6 and tally == {8: 8, 1: 2}
-        block_graph.TALLIES.remove(tally)
-        block_graph._add_delta(delta)
-        assert tally == {8: 8, 1: 2}
-    finally:
-        rc.fitness_tiles.launches = k1
-        if tally in block_graph.TALLIES:
-            block_graph.TALLIES.remove(tally)
+@pytest.fixture
+def saved_counts():
+    """profiling.COUNTS as it was before the test, restored after it."""
+    saved = collections.Counter(profiling.COUNTS)
+    yield
+    profiling.COUNTS.clear()
+    profiling.COUNTS.update(saved)
+
+
+def test_capture_counts_are_replayed(saved_counts):
+    """block_graph's accounting of profiling.COUNTS: what a capture counted,
+    a wrapper's launches and a caller's own events alike (chip_smoke's
+    evaluate calls by batch size), is set back, and each replay adds it
+    once."""
+    profiling.count(("evaluate", 8), 2)
+    k1 = profiling.COUNTS["K1"]
+    before = collections.Counter(profiling.COUNTS)
+    profiling.count("K1", 3)  # what a captured block's wrappers count
+    profiling.count(("evaluate", 8), 3)
+    delta = block_graph._take_delta(before)
+    assert profiling.COUNTS == before and delta == {"K1": 3, ("evaluate", 8): 3}
+    for _ in range(2):
+        profiling.COUNTS.update(delta)  # a replay
+    assert profiling.COUNTS["K1"] == k1 + 6 and profiling.COUNTS[("evaluate", 8)] == 8
+
+
+def test_replay_adds_keys_its_capture_made(saved_counts):
+    """A key first counted inside a capture (a kernel or an event the run
+    had not met before) is taken out with the capture's delta and comes
+    back with each replay; a count of 0 makes no key."""
+    before = collections.Counter(profiling.COUNTS)
+    profiling.count("K-new")
+    profiling.count(("calls", "new"), 2)
+    profiling.count("K-none", 0)
+    delta = block_graph._take_delta(before)
+    assert delta == {"K-new": 1, ("calls", "new"): 2}
+    assert "K-new" not in profiling.COUNTS and "K-none" not in profiling.COUNTS
+    for _ in range(3):
+        profiling.COUNTS.update(delta)  # a replay
+    assert profiling.COUNTS["K-new"] == 3 and profiling.COUNTS[("calls", "new")] == 6
 
 
 def test_block_graphs_run_the_eager_body_on_the_cpu():

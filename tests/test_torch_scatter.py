@@ -1,7 +1,7 @@
 """The port's scatter binning (ggs_tpu_torch/ops/render_cuda.py:
-scatter_binning, its rules, _band_lists, _corner_band_xranges, and K5's
-plain version bin_splats_scatter_plain, which K5's wrapper takes on CPU
-tensors) against ggs_tpu/ops/render_pallas.py's _bin_splats_scatter in
+bin_splats_scatter, bin_splats' route, the rules, _band_lists,
+_corner_band_xranges, and K5's plain version bin_splats_scatter_plain,
+which K5's wrapper takes on CPU tensors) against ggs_tpu/ops/render_pallas.py's _bin_splats_scatter in
 interpret mode, on the inputs of the JAX suite's own scatter tests
 (tests/test_render_pallas.py:494-679). Both packages bin the same integer
 boxes (JAX's codec) with the same corner parameters.
@@ -20,6 +20,7 @@ from ggs_tpu.ops import codec as jcodec
 from ggs_tpu.ops import render_pallas as rp
 from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import render_cuda as rc
+from ggs_tpu_torch.utils import profiling
 from torch_inputs import axes_genomes, pass_lists
 from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -86,9 +87,13 @@ def test_scatter_matches_jax(name, monkeypatch):
     want = rp._bin_splats_scatter(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, 16, 128, cap,
                                   interpret=True, smem_budget=budget)
     monkeypatch.setattr(rc, "SCATTER_BUDGET", budget)
-    before = rc.bin_splats_scatter.launches
-    got = rc.scatter_binning(*_xy(p), n_tx, n_ty, 16, 128, cap)
-    assert rc.bin_splats_scatter.launches == before  # CPU tensors take the plain version
+    before = profiling.COUNTS["K5"]
+    # the card's route (K5 wherever the rules plan it), in its plain version
+    if rc.bin_route(B, n_tx, n_ty, cap, N, rc.SCATTER_PAD, None, "cuda") == "k5":
+        got = rc.bin_splats_scatter(*_xy(p), n_tx, n_ty, 16, 128, cap)[:2]
+    else:
+        got = rc.bin_splats_dense(*_xy(p), n_tx, n_ty, 16, 128, cap)
+    assert profiling.COUNTS["K5"] == before  # CPU tensors take the plain version
     _assert_lists(got, want, N)
     dense = rc.bin_splats_dense(*_xy(p), n_tx, n_ty, 16, 128, cap)
     np.testing.assert_array_equal(got[0].numpy(), dense[0].numpy())
@@ -294,9 +299,9 @@ def test_max_bin_count_matches_jax():
 
 # name: (n_tx, n_ty, pad_slots, budget, exact on the card, under the cull, exact on the CPU)
 ROUTES = {
-    "photo_24_tiles": (4, 6, rc.SCATTER_PAD, BUDGET, "k5_small", "dense", "dense"),
-    "flagship_128_tiles": (8, 16, rc.SCATTER_PAD, BUDGET, "k5_small", "dense", "dense"),
-    "grad_96_tiles": (4, 24, 40, BUDGET, "k5_small", "dense", "dense"),
+    "photo_24_tiles": (4, 6, rc.SCATTER_PAD, BUDGET, "k5", "dense", "dense"),
+    "flagship_128_tiles": (8, 16, rc.SCATTER_PAD, BUDGET, "k5", "dense", "dense"),
+    "grad_96_tiles": (4, 24, 40, BUDGET, "k5", "dense", "dense"),
     "tiles_256": (16, 16, rc.SCATTER_PAD, BUDGET, "k5", "k5", "k5"),
     "tiles_512": (16, 32, 40, BUDGET, "k5", "k5", "k5"),
     "no_plan_24_tiles": (4, 6, rc.SCATTER_PAD, 256, "dense", "dense", "dense"),
@@ -318,18 +323,19 @@ def test_bin_route_choice(name, monkeypatch):
     B, N = 2, 40
     corner = (None,) * 7  # the rules read only whether a cull is given
     cuda = torch.device("cuda")  # a device object needs no card
-    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, None, cuda) == card + "_calls"
-    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, corner, cuda) == culled + "_calls"
-    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, corner, "cpu") == culled + "_calls"
-    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, None, "cpu") == cpu + "_calls"
+    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, None, cuda) == card
+    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, corner, cuda) == culled
+    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, corner, "cpu") == culled
+    assert rc.bin_route(B, n_tx, n_ty, N, N, pad, None, "cpu") == cpu
 
     H, W = 16 * n_ty, 128 * n_tx
     boxes = _xy(_boxes(axes_genomes(9, B, N, H, W, 0.4), H, W))
     geo = (n_tx, n_ty, 16, 128, N)
-    before = {k: getattr(rc.bin_splats, k) for k in rc.BIN_ROUTES}
+    routes = ("bin.dense", "bin.k5")
+    before = {k: profiling.COUNTS[k] for k in routes}
     got = rc.bin_splats(*boxes, *geo, pad_slots=pad)
-    after = {k: getattr(rc.bin_splats, k) - before[k] for k in rc.BIN_ROUTES}
-    assert after == {k: int(k == cpu + "_calls") for k in rc.BIN_ROUTES}
+    after = {k: profiling.COUNTS[k] - before[k] for k in routes}
+    assert after == {k: int(k == "bin." + cpu) for k in routes}
     args = rc.scatter_args(*boxes, *geo, pad)
     assert (args is None) == (card == "dense")
     wants = [rc.bin_splats_dense(*boxes, *geo)]
@@ -339,7 +345,7 @@ def test_bin_route_choice(name, monkeypatch):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("B,route", [(65535, "k5_small_calls"), (65536, "dense_calls")])
+@pytest.mark.parametrize("B,route", [(65535, "k5"), (65536, "dense")])
 def test_bin_route_keeps_to_k5_launch_limits(B, route):
     """Exact lists below 256 tiles take K5 on the card only for batches its
     launch takes (csrc/scatter.cu geometry: B <= 65535), else the dense

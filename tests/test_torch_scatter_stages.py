@@ -235,8 +235,8 @@ def test_exact_k5_routes_equal_dense_below_256_tiles(name):
     n_tx, n_ty = -(-w // TILE_W), -(-h // th)
     cap = n if cap is None else cap
     assert n_tx * n_ty < rc.SCATTER_TILES
-    assert rc.bin_route(B, n_tx, n_ty, cap, n, pad, None, "cuda") == "k5_small_calls"
-    assert rc.bin_route(B, n_tx, n_ty, cap, n, pad, None, "cpu") == "dense_calls"
+    assert rc.bin_route(B, n_tx, n_ty, cap, n, pad, None, "cuda") == "k5"
+    assert rc.bin_route(B, n_tx, n_ty, cap, n, pad, None, "cpu") == "dense"
 
     di, dc = rc.bin_splats_dense(*boxes, n_tx, n_ty, th, TILE_W, cap)
     args = rc.scatter_args(*boxes, n_tx, n_ty, th, TILE_W, cap, pad)

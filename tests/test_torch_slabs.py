@@ -42,6 +42,7 @@ from ggs_tpu_torch.ops import codec as tcodec
 from ggs_tpu_torch.ops import fitness as tfitness
 from ggs_tpu_torch.ops import render_cuda as rc
 from ggs_tpu_torch.ops import render_grad as trg
+from ggs_tpu_torch.ops import screen as tscreen
 from ggs_tpu_torch.ops import ssim as tssim
 from torch_inputs import axes_genomes, image, weights
 from torch_inputs import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -219,8 +220,9 @@ def test_slab_lists_match_jax(route, precision):
     n_tx, n_ty = ww // 128, rows // th
     assert (n_tx * n_ty >= rc.SCATTER_TILES) == (route == "scatter")
     eps = 8e-2 if precision == "fast" else None
-    corner_eps = rc._corner_eps(precision, True, eps)
-    p = rc._screen(torch.from_numpy(g9), hh, ww, 3.0, precision, eps, y0)
+    t = tscreen.tier(precision, eps, True)
+    corner_eps = t.corner_eps
+    p = tscreen.screen(torch.from_numpy(g9), hh, ww, 3.0, t, y0)
     corner = None if corner_eps is None else rc._corner_params(p, corner_eps)
     got = rc.bin_splats(p.x0, p.x1, p.y0, p.y1, n_tx, n_ty, th, 128, 40, corner)
 

@@ -75,16 +75,15 @@ def pass_lists(g9, H, W, k_sigma, precision, bin_capacity, tile_h, tile_w, cull_
     """Renderer genomes (torch) -> (cnt, idx, feats, n_tx, n_ty) of one pass
     over all of them, as render_cuda's entry points build it: with
     fitness_route under "fast", fast fitness's K4 route (`_k4_pass`); else
-    the tier's boxes (`_screen`) binned by `_pass_lists`."""
-    from ggs_tpu_torch.ops import render_cuda as rc
+    the tier's screen (`screen.screen`) binned by `_pass_lists`."""
+    from ggs_tpu_torch.ops import render_cuda as rc, screen
 
     g9 = rc._genomes(g9)
+    t = screen.tier(precision, cull_eps, corner_cull)
     n_tx, n_ty = -(-W // tile_w), -(-H // tile_h)
-    if fitness_route and precision == "fast":
-        cnt, idx, feats = rc._k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, cull_eps,
-                                      corner_cull)
+    if fitness_route and t.mode == "fast":
+        cnt, idx, feats = rc._k4_pass(g9, H, W, k_sigma, bin_capacity, tile_h, tile_w, t)
     else:
-        p = rc._screen(g9, H, W, k_sigma, precision, cull_eps)
-        cnt, idx, feats = rc._pass_lists(p, n_tx, n_ty, tile_h, tile_w, bin_capacity, precision,
-                                         rc._corner_eps(precision, corner_cull, cull_eps))
+        p = screen.screen(g9, H, W, k_sigma, t)
+        cnt, idx, feats = rc._pass_lists(p, n_tx, n_ty, tile_h, tile_w, bin_capacity, t)
     return cnt, idx, feats, n_tx, n_ty

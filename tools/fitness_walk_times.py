@@ -10,7 +10,8 @@ lists.
 
 DIR (default: this checkout) is the root of a checkout whose
 ggs_tpu_torch package and chip_smoke.py are timed; its kernels are built
-from its own sources. The cases are chip_smoke.py's, made from its seeds:
+from its own sources (a checkout whose render path has ops/screen.py;
+time an older one with its own copy of this script). The cases are chip_smoke.py's, made from its seeds:
 K1 at B=32 and B=512 and K3 (eps 2e-3, the corner cull) at B=32, at
 run_ga's shape (512x512, N=512, 64x128 tiles); K1-bf16 on the bf16 GA's
 lists (the reference box) and K1 on the same lists; K2 and K3's canvas at
@@ -91,20 +92,22 @@ def _k2p_case(cs, render_cuda, rg, codec, genome, torch):
     """The last pass of render_diff at grad-10k-1024, built as RenderDiff
     builds it: its lists on the gradient tiles (K5 from 256 tiles), its
     folded table, and as init the first pass's K2 canvas."""
+    from ggs_tpu_torch.ops import screen
+
     side, n = cs.BIG_SIDE, cs.BIG_N
     gen = torch.Generator(device="cuda").manual_seed(32)
     g9 = codec.genome_to_renderer(genome.new_population(gen, 1, n, side, side, device="cuda"))
+    t = screen.box_tier("tight")
     with torch.no_grad():
-        p = rg._screen_params(g9, side, side, 3.0, "tight")
-    bounds = render_cuda._chunk_bounds(n)
+        p = screen.screen(g9, side, side, 3.0, t)
+    pcs = screen.passes(p)
     init = None
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
-        pc = render_cuda._split_screen(p, lo, hi)
-        geom = rg._geometry(side, side, hi - lo, None, cs.BG, None, False)
+    for i, pc in enumerate(pcs):
+        geom = rg._geometry(side, side, pc.cx.shape[1], None, cs.BG, t)
         n_tx, _, th, tw = geom[:4]
         idx, cnt = rg._bin(pc, geom)
         feats = render_cuda._splat_feats_fast(pc)
-        if hi < bounds[-1]:
+        if i < len(pcs) - 1:
             init = render_cuda.render_tiles(cnt, idx, feats, n_tx, th, tw, cs.BG, init=init)
     return dict(cnt=cnt, idx=idx, feats=feats, n_tx=n_tx, tile_h=th, tile_w=tw, init=init)
 
@@ -276,7 +279,7 @@ def path_shares(torch) -> dict:
     """The walk's paths at the cells' shapes (see the module's --paths)."""
     from ggs_tpu_torch.config import GenomeConfig
     from ggs_tpu_torch.models import genome
-    from ggs_tpu_torch.ops import codec, render_cuda
+    from ggs_tpu_torch.ops import codec, render_cuda, screen
 
     count = getattr(render_cuda, "walk_path_counts", None)
     if count is None:
@@ -290,14 +293,12 @@ def path_shares(torch) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         g9 = codec.genome_to_renderer(genome.new_population(
             gen, B, N, H, W, gnm.min_scale, gnm.max_scale, device="cuda"))
-        p = render_cuda._screen(g9, H, W, 3.0, "exact-tight", None)
+        t = screen.tier("exact-tight")
+        p = screen.screen(g9, H, W, 3.0, t)
         n_tx, n_ty = -(-W // 128), -(-H // 64)
-        bounds = render_cuda._chunk_bounds(N)
         tot = {}
-        for lo, hi in zip(bounds[:-1], bounds[1:]):  # each pass's own lists
-            pc = render_cuda._split_screen(p, lo, hi) if len(bounds) > 2 else p
-            cnt, idx, feats = render_cuda._pass_lists(pc, n_tx, n_ty, 64, 128, None,
-                                                      "exact-tight", None)
+        for pc in screen.passes(p):  # each pass's own lists
+            cnt, idx, feats = render_cuda._pass_lists(pc, n_tx, n_ty, 64, 128, None, t)
             for k, v in count(cnt, idx, feats, n_tx, 64, "exact").items():
                 tot[k] = tot.get(k, 0) + v
         walked = tot["covered"] + tot["rows_only"] + tot["partial"]

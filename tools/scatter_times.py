@@ -10,8 +10,9 @@ checkouts' outputs.
 
 DIR (default: this checkout) is the root of a checkout whose
 ggs_tpu_torch package and chip_smoke.py are timed; its kernels are built
-from its own sources. The binning route is `render_cuda.scatter_binning`
-from the pixel boxes (and the corner parameters) to the lists, on
+from its own sources (a checkout whose render path has ops/screen.py and
+profiling.COUNTS; time an older one with its own copy of this script). The
+binning route is `render_cuda.bin_splats` from the pixel boxes (and the corner parameters) to the lists, on
 chip_smoke.py's cases, made from its seeds: the first 5,000-splat pass of
 the 2048x2048 GA (B=32, 512 tiles; exact-tight, and fast at eps 2e-3 with
 the corner cull, where the batch overflows cap_s and the fallback rebuilds
@@ -106,21 +107,23 @@ CELLS = {
 }
 
 
-def _route_counts(rc) -> dict:
-    """bin_splats' calls by route, where the tree counts them."""
-    return {k: getattr(rc.bin_splats, k) for k in getattr(rc, "BIN_ROUTES", ())}
+def _route_counts() -> dict:
+    """bin_splats' calls by route."""
+    from ggs_tpu_torch.utils import profiling
+
+    return {k: profiling.COUNTS[k] for k in ("bin.dense", "bin.k5")}
 
 
 def cell_times(torch, cs, rc, rg, hashes: dict) -> dict:
     """The dense route, K5 and the tree's bin_splats at each of CELLS."""
     from ggs_tpu_torch.models import genome
-    from ggs_tpu_torch.ops import codec
+    from ggs_tpu_torch.ops import codec, screen
 
     out = {}
     for name, (B, N, H, W, th, n) in CELLS.items():
         gen = torch.Generator(device="cuda").manual_seed(40)
         g9 = codec.genome_to_renderer(genome.new_population(gen, B, N, H, W, device="cuda"))
-        p = rc._split_screen(rc._screen(g9, H, W, 3.0, "exact-tight", None), 0, n)
+        p = rc._split_screen(screen.screen(g9, H, W, 3.0, screen.tier("exact-tight")), 0, n)
         del g9
         pad = rg.GRAD_SCATTER_PAD if th == rg.GRAD_TILE_H else rc.SCATTER_PAD
         geo = (-(-W // 128), -(-H // th), th, 128, n)
@@ -135,10 +138,10 @@ def cell_times(torch, cs, rc, rg, hashes: dict) -> dict:
         hashes[f"cell_dense_{name}"] = _hash(*dense)
         k5 = fns["k5"]()
         equal = torch.equal(k5[0], dense[0]) and torch.equal(k5[1], dense[1])
-        before = _route_counts(rc)
+        before = _route_counts()
         routed = fns["bin_splats"]()
         hashes[f"cell_lists_{name}"] = _hash(*routed)
-        took = {k: v - before[k] for k, v in _route_counts(rc).items()}
+        took = {k: v - before[k] for k, v in _route_counts().items()}
         row = {"B": B, "tiles": geo[0] * geo[1], "n": n, "rpg": plan.rpg if plan else None,
                "pairs": int(dense[1].sum()), "max_count": int(dense[1].max()),
                "k5_equals_dense": equal, "bin_splats_route": took}
@@ -203,7 +206,7 @@ def times(tree: str, save: str | None) -> dict:
         geo = (-(-side // 128), -(-side // th), th, 128, p.cx.shape[1])
 
         def route(p=p, geo=geo, corner=corner, pad=pad):
-            return rc.scatter_binning(p.x0, p.x1, p.y0, p.y1, *geo, pad, corner=corner)
+            return rc.bin_splats(p.x0, p.x1, p.y0, p.y1, *geo, corner, pad_slots=pad)
 
         idx, cnt = route()
         hashes[f"lists_{name}"] = _hash(idx, cnt)
