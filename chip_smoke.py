@@ -2519,10 +2519,11 @@ SLAB_SUM_RTOL, SLAB_SUM_ATOL = 1e-6, 1e-7
 
 # what read_kernel_counts reads from profiling.COUNTS, in its order: launches
 # per kernel, as "<kernel>-init" those from an init canvas, K5's band stages
-# and calls that also launched its fallback, and bin_splats' calls by route
+# and calls that also launched its fallback, bin_splats' calls by route, and
+# K6's and K7's launches whose blocks took items from the queue
 KERNEL_COUNTS = ("K1", "K2", "K3", "K3-canvas", "K4", "K1-bf16", "K5", "K6", "K7", "K1-init",
                  "K2-init", "K3-init", "K3-canvas-init", "K1-bf16-init", "K6-init", "K5-band",
-                 "K5-fallback", "bin.dense", "bin.k5")
+                 "K5-fallback", "bin.dense", "bin.k5", "K6-queue", "K7-queue")
 
 
 def reset_kernel_counts() -> None:
@@ -3884,7 +3885,8 @@ def main() -> int:
           and bool(torch.isfinite(res["final"]).all()), "run_grad big: export render")
     check(big_grad_launches["K5"] >= want and big_grad_launches["K2"] >= want
           and big_grad_launches["K6"] == want and big_grad_launches["K2-init"] >= want // 2
-          and big_grad_launches["K6-init"] == want // 2 and big_grad_launches["K7"] == 0,
+          and big_grad_launches["K6-init"] == want // 2 and big_grad_launches["K7"] == 0
+          and big_grad_launches["K6-queue"] == want,  # 2,048 items a pass, past the blocks
           f"run_grad big launches {big_grad_launches}")
 
     ga_big = ["--image", f"synthetic:{GA_SIDE}x{GA_SIDE}", "--work-max-side", str(GA_SIDE),

@@ -63,10 +63,27 @@
 // they go to spart [B, T, S, L, 9]. A second kernel sums the S sub-tiles in
 // order and scatters each slot to its splat in the per-tile partials gpart
 // [B, T, 9, N] (zeroed by the wrapper), and a third sums the tiles in order.
-// No atomics: the same bits on every launch. The T checkpoints do not fit
-// shared memory for long lists (L up to 8,000 is 1,000 boundaries of 2 KB),
-// so they live in device memory, one slot per resident block (the grid
-// strides over the items), each loaded a chunk ahead of its use.
+// No atomics on values: the same bits on every launch. The T checkpoints do
+// not fit shared memory for long lists (L up to 8,000 is 1,000 boundaries of
+// 2 KB), so they live in device memory, each loaded a chunk ahead of its use,
+// one slot per resident block: a block per item would need a slot per item.
+// So the launch has at most as many blocks as the card holds at once, and a
+// block may walk several items. Block i walks item i first; where the items
+// outnumber the blocks, each block then takes its next item from a counter in
+// device memory (one atomicAdd by thread 0, broadcast through shared memory)
+// until the counter passes the items, so a block that drew short lists walks
+// more of them. Every sub-tile walks its tile's whole list, and list lengths
+// vary ~3x across tiles (adam1024-n10k: 236-784), so a fixed stride left
+// blocks idle while the longest finished (2,048 items on 660 blocks). Each
+// item writes only its own slots, so the outputs keep their bits whichever
+// block walks it. The counter starts at 0, and the block that takes the
+// launch's last ticket sets it back to 0, so a launch or a graph replay needs
+// no zeroing node. Where the items fit the blocks, one item a block: no
+// counter. On an H100 80GB HBM3 at 700 W (CUDA events, mean of 20 launches,
+// fixed stride -> queue): K6 with d(init) on a 5,000-splat pass at 1024x1024
+// (2,048 items) 3.394 -> 3.174 ms; K6 and K7 at B=8, N=512, 512x512 (4,096
+// items) 0.896 -> 0.823 and 1.073 -> 1.005 ms; at B=1, N=2000 (512 items)
+// unchanged.
 //
 // What bounds it: operations. Per pair-pixel the function needs one forward
 // step (23) and one backward step (45); this kernel runs 2 (K6) or 3 (K7)
@@ -121,6 +138,7 @@ struct GradParams {
   float* nsub;          // K7: [B, T, S] weighted-SSE partials of each sub-tile
   float* spart;         // [B, T, S, L, 9] gradients of each (sub-tile, list slot)
   float* bound;         // per grid block: max_chunks x kRows x kThreads T checkpoints
+  int* queue;           // the next item less gridDim.x, 0 between launches; null: one item a block
   int max_chunks;
   int B, T, S, L, N1, n_tx, tile_h, Hp, Wp;
   float bg0, bg1, bg2;
@@ -188,6 +206,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
   __shared__ float ek[kChunk][kRows][kThreads];  // and their e (0 outside the box)
   __shared__ float red[kWarps][kChunk][kNGrad];
   __shared__ float nred[kWarps];
+  __shared__ int next_item;  // the block's next item, from the queue
 
   const int col = threadIdx.x;
   const int lane = col & 31;
@@ -196,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
   float* bnd = p.bound + (size_t)blockIdx.x * p.max_chunks * kRows * kThreads;
   const int items = p.B * p.T * p.S;
 
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+  for (int it = blockIdx.x; it < items; it = next_item) {
     const int bt = it / p.S;
     const int sub = it - bt * p.S;
     const int b = bt / p.T;
@@ -443,6 +462,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
         sp[(size_t)(c * kChunk) * kNGrad + e] = s;
       }
     });
+
+    if (!p.queue) break;
+    // The launch takes tickets 0 .. items - 1, one each: items - gridDim.x
+    // that name an item and one a block that ends it. The block that takes
+    // the last leaves the counter 0. Every thread read the last next_item
+    // before this item's first __syncthreads.
+    if (col == 0) {
+      const int ticket = atomicAdd(p.queue, 1);
+      if (ticket == items - 1) *p.queue = 0;
+      next_item = ticket + gridDim.x;
+    }
+    __syncthreads();
   }
 }
 
@@ -518,11 +549,14 @@ int ggs_grad_resident_blocks(int fused) {
 // (fused = 1: target, w, scale -> num; no init) on list tiles of tile_h x 128
 // (tile_h a multiple of 4), then the in-order sums over sub-tiles and tiles:
 // grads [B, 9, N] = sum_t gpart[:, t]. gpart [B, T, 9, N] must be zero.
+// bound holds `slots` checkpoint slots. queue is one int, 0 on entry and
+// left 0, where the B * T * tile_h / 4 items outnumber the slots; else it may
+// be null: one item a block.
 int ggs_grad_walk(int fused, const int* cnt, const int* idx, const float* feats, const float* gimg,
                   const float* init, float* dinit, const float* target, const float* w,
                   float scale, float* num, float* nsub, float* spart, float* gpart, float* grads,
-                  float* bound, int slots, int max_chunks, int B, int T, int L, int N1, int N,
-                  int n_tx, int tile_h, int Hp, int Wp, float bg0, float bg1, float bg2,
+                  float* bound, int* queue, int slots, int max_chunks, int B, int T, int L, int N1,
+                  int N, int n_tx, int tile_h, int Hp, int Wp, float bg0, float bg1, float bg2,
                   void* stream) {
   if (B * T == 0) return 0;
   if (slots <= 0 || N <= 0 || tile_h <= 0 || tile_h % ggs_grad::kRows ||
@@ -532,11 +566,12 @@ int ggs_grad_walk(int fused, const int* cnt, const int* idx, const float* feats,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int S = tile_h / ggs_grad::kRows;
-  ggs_grad::GradParams p{cnt,   idx,   feats, gimg,       init, dinit, target, w,
-                         scale, nsub,  spart, bound,      max_chunks, B, T, S,
-                         L,     N1,    n_tx,  tile_h,     Hp,   Wp,   bg0,    bg1, bg2};
+  ggs_grad::GradParams p{cnt,   idx,   feats, gimg,  init,       dinit, target, w,
+                         scale, nsub,  spart, bound, queue,      max_chunks, B,  T,
+                         S,     L,     N1,    n_tx,  tile_h,     Hp,   Wp,   bg0, bg1, bg2};
   const int items = B * T * S;
   const int grid = items < slots ? items : slots;
+  if (items > grid && !queue) return (int)cudaErrorInvalidValue;
   if (fused)
     ggs_grad::grad_kernel<true><<<grid, ggs_grad::kThreads, 0, st>>>(p);
   else

@@ -155,7 +155,7 @@ class _Kernels:
         lib.ggs_error_string.argtypes = [i]
         lib.ggs_error_string.restype = ctypes.c_char_p
         grad.ggs_grad_walk.argtypes = (
-            [i, p, p, p, p, p, p, p, p, f, p, p, p, p, p, p] + [i] * 11 + [f, f, f, p]
+            [i, p, p, p, p, p, p, p, p, f, p, p, p, p, p, p, p] + [i] * 11 + [f, f, f, p]
         )
         grad.ggs_grad_walk.restype = i
         for fn in ("ggs_grad_resident_blocks", "ggs_grad_blocks_per_sm"):
@@ -1076,9 +1076,11 @@ def _render_launch(mode, what, cnt, idx, feats, n_tx, tile_h, tile_w, background
 
 
 # Per (device, stream): walk.cu's per-tile ticket counters for the fitness
-# epilogue's sum over sub-tiles, zeroed once where allocated; every launch
-# leaves them 0 again, so a launch on the GA path adds no zeroing launch.
-# A buffer outgrown is kept: a captured CUDA graph may still launch on it.
+# epilogue's sum over sub-tiles, and in slot 0 walk_grad.cu's item queue,
+# zeroed once where allocated; every launch leaves them 0 again, so a launch
+# adds no zeroing launch. Launches on one stream run in turn, so the two
+# kernels share the slot. A buffer outgrown is kept: a captured CUDA graph
+# may still launch on it.
 _TICKETS: dict = {}
 _RETIRED: list = []
 

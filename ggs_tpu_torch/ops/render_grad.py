@@ -242,9 +242,12 @@ def _launch_grad(fused, cnt, idx, feats, n_tx, tile_h, tile_w, background,
         _require(init, "init", torch.float32, (B, 3, Hp, Wp), dev)
         dinit = torch.empty((B, 3, Hp, Wp), dtype=torch.float32, device=dev)
     rows = k.grad.ggs_grad_sub_rows()
-    S = tile_h // rows  # sub-tiles a list tile, a block each
+    S = tile_h // rows  # sub-tiles a list tile: the kernel's items
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         slots = min(_resident_blocks(bool(fused), dev.index), B * T * S)
+        # more items than resident blocks: the blocks take them from a queue
+        queued = B * T * S > slots
         # transmittance checkpoints per resident block, for a list as long as
         # L (>= every cnt; reading cnt.max() would sync the host every launch)
         max_chunks = max(1, _cdiv(L, k.grad.ggs_grad_chunk()))
@@ -263,11 +266,13 @@ def _launch_grad(fused, cnt, idx, feats, n_tx, tile_h, tile_w, background,
         rc = k.grad.ggs_grad_walk(
             int(fused), cnt.data_ptr(), idx.data_ptr(), feats.data_ptr(), ptr(gimg), ptr(init),
             ptr(dinit), ptr(target_p), ptr(w_p), float(scale), ptr(num), ptr(nsub),
-            spart.data_ptr(), gpart.data_ptr(), grads.data_ptr(), bound.data_ptr(), slots,
+            spart.data_ptr(), gpart.data_ptr(), grads.data_ptr(), bound.data_ptr(),
+            render_cuda._tickets(dev, stream, 1).data_ptr() if queued else None, slots,
             max_chunks, B, T, L, N1, N, n_tx, tile_h, Hp, Wp, *(float(c) for c in background),
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream,
         )
     k.check(rc, "lossgrad_tiles" if fused else "bwd_tiles")
+    profiling.count("K7-queue" if fused else "K6-queue", queued)
     return num, grads, dinit
 
 

@@ -18,7 +18,8 @@ Otherwise a span costs one check and opens nothing.
 `COUNTS` is the program's one registry of counts, and `count(name, n)` the
 way to add to it: the kernel wrappers count their device launches there
 ("K1", "K2", "K3", "K3-canvas", "K4", "K1-bf16", "K5", "K6", "K7"; "<K>-init"
-those that walk from an init canvas; "K5-band" and "K5-fallback" K5's band
+those that walk from an init canvas; "K6-queue" and "K7-queue" those whose
+blocks take their items from a queue; "K5-band" and "K5-fallback" K5's band
 stages and overflow fallbacks), render_cuda.bin_splats its calls by route
 ("bin.dense", "bin.k5"), and a measuring caller its own events. A replayed
 run block runs no Python, so utils/block_graph.py adds its capture's counts

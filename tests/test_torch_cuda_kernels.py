@@ -6,8 +6,10 @@ on the card, at the GA main path's shapes (512x512, N=512, B=32, 64x128
 tiles), on an odd canvas, with bin_capacity truncating the lists, at the
 gradient paths' shapes (16x128 tiles) and at every list tile height the
 gradient kernels walk (8, 16, 32 and 64 rows), with an init canvas (a
-chained pass), and K5 at 256 tiles and more with and without the corner cull and
-with its overflow fallback, and bin_splats' exact lists (K5 at every tile
+chained pass), with more sub-tile items than resident blocks (the blocks
+take them from a queue; eagerly and replayed in a CUDA graph), and K5 at
+256 tiles and more with and without the corner cull and with its overflow
+fallback, and bin_splats' exact lists (K5 at every tile
 count) at the benchmark cells' shapes; plus the wrappers' argument checks.
 
 Needs an NVIDIA card and nvcc: marked `cuda`, skipped elsewhere. Run on
@@ -351,21 +353,29 @@ def test_walks_with_init_match_plain(dev, precision):
     torch.testing.assert_close(kc, pc, atol=2e-6, rtol=0)
 
 
+def _grad_init_case(dev, B, N, H, W, seed=7):
+    """K6's arguments from an init canvas on the port's gradient tiles:
+    (cnt, idx, feats, n_tx, tile_h, tile_w), the init canvas and a cotangent
+    in [-0.45, 0.45]."""
+    from ggs_tpu_torch.models import genome
+    from ggs_tpu_torch.ops import codec, render_grad as rg
+
+    th, tw = rg.GRAD_TILE_H, rg.GRAD_TILE_W
+    g9 = codec.genome_to_renderer(genome.new_population(
+        torch.Generator(device=dev).manual_seed(seed), B, N, H, W, device=dev))
+    cnt, idx, _, n_tx, n_ty = pass_lists(g9, H, W, 3.0, "exact-tight", None, th, tw)
+    feats = rg._splat_feats(codec.tighten_boxes_exact(codec.preprocess(g9, H, W, 3.0), 3.0))
+    init = _init(dev, B, n_ty * th, n_tx * tw)
+    g_img = (_init(dev, B, n_ty * th, n_tx * tw, seed=8) - 0.5).contiguous()
+    return (cnt, idx, feats, n_tx, th, tw), init, g_img
+
+
 def test_grad_kernel_with_init_matches_plain(dev):
     """K6 from an init canvas: grads per row within 1e-5 of the plain
     version's, d(init) = g * T_total within 1e-5 of its largest value."""
-    from ggs_tpu_torch.models import genome
-    from ggs_tpu_torch.ops import codec, render_cuda as rc, render_grad as rg
+    from ggs_tpu_torch.ops import render_grad as rg
 
-    B, N, H, W = 2, 600, 256, 256
-    th, tw = rg.GRAD_TILE_H, rg.GRAD_TILE_W
-    g9 = codec.genome_to_renderer(
-        genome.new_population(torch.Generator(device=dev).manual_seed(7), B, N, H, W, device=dev))
-    cnt, idx, _, n_tx, n_ty = pass_lists(g9, H, W, 3.0, "exact-tight", None, th, tw)
-    p = codec.tighten_boxes_exact(codec.preprocess(g9, H, W, 3.0), 3.0)
-    feats = rg._splat_feats(p)
-    init = _init(dev, B, n_ty * th, n_tx * tw)
-    g_img = (_init(dev, B, n_ty * th, n_tx * tw, seed=8) - 0.5).contiguous()
+    (cnt, idx, feats, n_tx, th, tw), init, g_img = _grad_init_case(dev, 2, 600, 256, 256)
     bg = (1.0, 1.0, 1.0)
     g6, d6 = rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg, init=init)
     g6_p, d6_p = rg.bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, th, tw, bg, init=init)
@@ -373,6 +383,103 @@ def test_grad_kernel_with_init_matches_plain(dev):
     assert float((d6 - d6_p).abs().max() / d6_p.abs().max()) <= 1e-5
     g6b, d6b = rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, th, tw, bg, init=init)
     assert torch.equal(g6, g6b) and torch.equal(d6, d6b)
+
+
+# the memetic elite batch at run_ga's defaults: 8 x 128 tiles x 4 sub-tiles =
+# 4,096 items, past the card's resident blocks (660 on an H100 SXM)
+QUEUE_CASE = (8, 512, 512, 512)
+
+
+def _items(dev, case, fused):
+    """(items, resident blocks) of a gradient walk over case's lists."""
+    from ggs_tpu_torch.ops import render_grad as rg
+
+    cnt = case[0]
+    return cnt.numel() * (case[4] // 4), rg._resident_blocks(fused, dev.index or 0)
+
+
+def test_grad_kernel_queue_with_init_matches_plain(dev):
+    """K6 with d(init) at more items than resident blocks, so the blocks
+    take them from the queue: grads per row and d(init) within 1e-5 of the
+    plain version's; one K6-queue count a launch; two launches equal in
+    bits with a launch on another cotangent between them (a queue left
+    unreset would leave that one's items past the first blocks unwalked)."""
+    from ggs_tpu_torch.ops import render_grad as rg
+
+    case, init, g_img = _grad_init_case(dev, *QUEUE_CASE)
+    items, resident = _items(dev, case, False)
+    assert items > resident
+    bg = (1.0, 1.0, 1.0)
+    g_other = (0.5 - _init(dev, QUEUE_CASE[0], *g_img.shape[2:], seed=9)).contiguous()
+    n6, nq = _counts("K6", "K6-queue")
+    g6, d6 = rg.bwd_tiles(*case[:3], g_img, *case[3:], bg, init=init)
+    g6_p, d6_p = rg.bwd_tiles_plain(*case[:3], g_img, *case[3:], bg, init=init)
+    assert float(_row_err(g6, g6_p).max()) <= 1e-5
+    assert float((d6 - d6_p).abs().max() / d6_p.abs().max()) <= 1e-5
+    go, do = rg.bwd_tiles(*case[:3], g_other, *case[3:], bg, init=init)
+    go_p, do_p = rg.bwd_tiles_plain(*case[:3], g_other, *case[3:], bg, init=init)
+    assert float(_row_err(go, go_p).max()) <= 1e-5
+    assert float((do - do_p).abs().max() / do_p.abs().max()) <= 1e-5
+    g6b, d6b = rg.bwd_tiles(*case[:3], g_img, *case[3:], bg, init=init)
+    assert torch.equal(g6, g6b) and torch.equal(d6, d6b)
+    assert _counts("K6", "K6-queue") == (n6 + 3, nq + 3)
+
+
+def test_grad_kernel_queue_replays_in_a_graph(dev):
+    """K6 with d(init) on the queue, captured once in a CUDA graph and
+    replayed three times on alternating cotangents: each replay equal in
+    bits to the eager launch on its cotangent, and the queue's counter 0
+    after each, with no buffer made in the capture (so no fill node zeroes
+    it: the kernel leaves it 0)."""
+    from ggs_tpu_torch.ops import render_cuda as rc, render_grad as rg
+
+    case, init, g_a = _grad_init_case(dev, *QUEUE_CASE)
+    g_b = (0.5 - _init(dev, QUEUE_CASE[0], *g_a.shape[2:], seed=9)).contiguous()
+    bg = (1.0, 1.0, 1.0)
+    want = {k: rg.bwd_tiles(*case[:3], g, *case[3:], bg, init=init)
+            for k, g in (("a", g_a), ("b", g_b))}
+    g_in = g_a.clone()
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):  # the stream's counter is made here, outside the capture
+        rg.bwd_tiles(*case[:3], g_in, *case[3:], bg, init=init)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    queues = [v for (_, st), v in rc._TICKETS.items() if st == stream.cuda_stream]
+    assert len(queues) == 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = rg.bwd_tiles(*case[:3], g_in, *case[3:], bg, init=init)
+    assert [v for (_, st), v in rc._TICKETS.items() if st == stream.cuda_stream] == queues
+    for k in ("a", "b", "a"):
+        g_in.copy_(g_a if k == "a" else g_b)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[k][0]) and torch.equal(out[1], want[k][1])
+        assert int(queues[0][0]) == 0
+
+
+def test_grad_kernel_queue_only_past_the_blocks(dev):
+    """K7 at run_grad's default lists (384 items, within the resident
+    blocks) counts no queue; at the memetic batch (QUEUE_CASE) one a
+    launch; both within 1e-5 a row of the plain version."""
+    from ggs_tpu_torch.ops import mask, render_cuda as rc, render_grad as rg
+    from ggs_tpu_torch.utils import io
+
+    bg = (1.0, 1.0, 1.0)
+    for (B, N, H, W), queued in (((1, 2000, 384, 512), 0), (QUEUE_CASE, 1)):
+        case, _, _ = _grad_init_case(dev, B, N, H, W, seed=3)
+        items, resident = _items(dev, case, True)
+        assert (items > resident) == bool(queued)
+        cnt, idx, feats, n_tx, th, tw = case
+        tgt = io.ensure_hw(io.synthetic_target(H, W), H, W, device=dev)
+        wm = mask.compute_importance_mask(tgt, H, W, smooth=3, strength=0.7)
+        tgt_p, w_p = rc.pad_planes(tgt, wm, (cnt.shape[1] // n_tx) * th, n_tx * tw)
+        n7, nq = _counts("K7", "K7-queue")
+        num, g7 = rg.lossgrad_tiles(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 2.0)
+        assert _counts("K7", "K7-queue") == (n7 + 1, nq + queued)
+        num_p, g7_p = rg.lossgrad_tiles_plain(cnt, idx, feats, tgt_p, w_p, n_tx, th, tw, bg, 2.0)
+        torch.testing.assert_close(num.sum(1), num_p.sum(1), rtol=5e-5, atol=0)
+        assert float(_row_err(g7, g7_p).max()) <= 1e-5
 
 
 def _scatter_case(dev, B, N, H, W, tile_h, precision, eps=None, coincident=0, seed=9):
