@@ -3,8 +3,9 @@ program's float32 fitness replaced by its own bfloat16 walk (GA cells:
 Objective precision "bf16", K1-bf16), or with the reference computed in
 bfloat16 put in the program's place (Adam cells). Each seed prints one
 line of the numbers compared; every line has to come out not correct.
-With `--fault NAME` the sound program runs with that fault of
-portbench/faults.py planted in its timed path instead.
+With `--fault NAME` the sound program runs with that fault planted in its
+timed path instead: one of portbench/faults.py's FAULTS under the cell's
+driver or, for a driver that brings its own, of its module's FAULTS.
 
     python3 -m portbench.control --workload ga512-p32 --seconds 2 --seeds 5 6 7
     python3 -m portbench.control --workload adam1024-n10k --fault half-rows --seeds 5 6 7
@@ -15,7 +16,16 @@ import sys
 
 from . import cell as cell_mod
 from .faults import FAULTS
-from .run import run_cell
+from .run import driver, run_cell
+
+
+def faults_of(name: str) -> dict:
+    """Fault name -> planting function, for the driver `name`: faults.py's
+    FAULTS[name] where it has that entry, else the FAULTS dict of the
+    driver's own module (none where it has no such dict)."""
+    if name in FAULTS:
+        return FAULTS[name]
+    return getattr(driver(name), "FAULTS", {})
 
 
 def main(argv=None) -> int:
@@ -26,12 +36,16 @@ def main(argv=None) -> int:
     p.add_argument("--fault", default="")
     args = p.parse_args(argv)
     cell = cell_mod.load(args.workload)
+    faults = faults_of(cell.traffic["driver"])
+    if args.fault and args.fault not in faults:
+        p.error(f"no fault {args.fault!r} for the driver {cell.traffic['driver']!r}; "
+                f"it knows: {', '.join(sorted(faults)) or 'none'}")
     import pytest
 
     for seed in args.seeds:
         with pytest.MonkeyPatch.context() as mp:
             if args.fault:
-                FAULTS[cell.traffic["driver"]][args.fault](mp)
+                faults[args.fault](mp)
             out = run_cell(cell, seed, args.seconds, False, "cuda", control=not args.fault)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "control": args.fault or "bf16", "correct": out["correct"],

@@ -90,11 +90,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         graph = run_block.graphs.last if run_block.use_graphs else None
         nodes = (sum(graph.nodes[x] for x in ("KERNEL", "MEMCPY", "MEMSET"))
                  if graph is not None else None)
+        span_table = (lambda: run_block.graphs.last.spans) if graph is not None else None
         nb = tr["trace_blocks"]
         reading = trace_mod.profile(
             lambda: [steps(block) for _ in range(nb)], nb * nodes if nodes else None,
             trace_mod.load_table(),
-            lambda: roofline.pair_counts(holder[0].g.detach(), H, W, tr["count_tile_h"]))
+            lambda: roofline.pair_counts(holder[0].g.detach(), H, W, tr["count_tile_h"]),
+            span_table)
         pre, post = reading["measured"]
         reading.update(units=nb * block,
                        nodes_per_unit=nodes / block if nodes else reading["ops"] / (nb * block),

@@ -26,10 +26,12 @@ def timed_window(block: Callable[[], None], units: int, seconds: float,
 
 
 def record(**kw) -> SimpleNamespace:
-    """The record a metric reader reads: kind ("ga" or "adam"), setup_s,
-    window (units, seconds, blocks; None in a traced run), best_mse_end,
-    trace (trace.profile's reading with pairs, units and nodes_per_unit;
-    None in an untimed run), and the cell's shapes."""
+    """The record a metric reader reads: kind (whatever the cell's driver
+    sets: "ga", "adam", ...; a reader tests rec.kind and reads nothing in
+    another driver's cells), setup_s, window (units, seconds, blocks; None
+    in a traced run), best_mse_end, trace (trace.profile's reading, its
+    "spans" among it, with the units, pairs and nodes_per_unit the driver
+    adds; None in a timed run), and the cell's shapes."""
     base = dict(kind=None, setup_s=None, window=None, best_mse_end=None, trace=None)
     base.update(kw)
     return SimpleNamespace(**base)

@@ -12,6 +12,11 @@ compared beside its limit as the last lines of standard error and under
 "checks", the last key of the result, and prints the result as the last
 line of standard output.
 
+A cell's traffic names its driver, `portbench/drivers/<driver>.py`,
+found by that name (`driver`); the contract that a driver keeps is in
+portbench/drivers/__init__.py. A traced result also carries "spans", the
+device time of each of the program's span paths (portbench/spans.py).
+
 Exits 2 without a result when no CUDA card (or fewer than the cell asks
 for) is present, and 3 when a module of JAX or of the JAX package was
 loaded; the program under test is ggs_tpu_torch alone.
@@ -21,6 +26,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 
@@ -33,15 +39,32 @@ def forbidden(module_names) -> list:
     return sorted({n.split(".")[0] for n in module_names} & set(FORBIDDEN))
 
 
+def driver(name: str):
+    """The driver module portbench/drivers/<name>.py, imported by its name."""
+    path = f"portbench/drivers/{name}.py"
+    if not name.isidentifier():
+        raise ValueError(f"driver {name!r} is not a Python identifier, so {path} "
+                         "cannot be imported")
+    module = f"portbench.drivers.{name}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise  # the driver exists and an import inside it failed
+        raise ModuleNotFoundError(f"no driver {name!r}: {path} not found", name=module) from e
+
+
 def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
              control: bool = False, t_start: float = None) -> dict:
-    """One run of `cell` -> the result object (without printing it)."""
+    """One run of `cell` -> the result object (without printing it): the
+    traffic's driver runs the cell and returns its record, checks, device
+    and the units attempted; each of the cell's metrics (end-to-end, or
+    per-layer with `trace`) is read from the record by its reader."""
     from . import cell as cell_mod
-    from .drivers import adam, ga
+    from . import spans
 
-    driver = {"ga": ga, "adam": adam}[cell.traffic["driver"]]
-    rec, checks, dev_info, attempted = driver.run(cell, seed, seconds, trace, device, control,
-                                                  t_start)
+    rec, checks, dev_info, attempted = driver(cell.traffic["driver"]).run(
+        cell, seed, seconds, trace, device, control, t_start)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = cell_mod.reader(m["name"])(rec)
@@ -56,6 +79,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         out["breakdown"] = {"device_ops": rec.trace["device_ops"],
                             "idle_gaps": rec.trace["idle_gaps"]}
         out["trace_sessions"] = {k: rec.trace[k] for k in ("attempts", "settled", "op_counts")}
+        out["spans"] = spans.result(rec.trace)
     out["checks"] = {c["name"]: {"value": c["value"], "limit": c["limit"]} for c in checks}
     return out
 

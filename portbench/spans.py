@@ -1,5 +1,12 @@
 """The traced run's device operations put down to the program's spans.
 
+portbench/trace.py's read_session calls `attribute` on every traced
+session, with the span table that the cell's driver gives profile (that
+of the graph the session replayed; None for an eager block), and keeps
+the reading as the session's "spans"; the span metrics' readers
+(portbench/metrics/) read it through `ms_per_unit` and `has_spans`, and
+portbench/run.py prints `result` of it as a traced result's "spans".
+
 The program opens its spans (ggs_tpu_torch.utils.profiling.span, named in
 its SPANS) as torch.profiler.record_function, so they lie in the Chrome
 trace as host events on the thread that opened them, on the clock of the

@@ -28,6 +28,17 @@ def test_cell_is_found_by_name(workload):
         assert m["moves"] in names  # the cell reports what its per-layer metrics move
 
 
+@pytest.mark.parametrize("metric", BENCH["per_layer"], ids=lambda m: m["name"])
+def test_a_per_layer_metric_names_its_cells_layer_and_reader(metric):
+    cells = {w["name"] for w in BENCH["workloads"]}
+    assert metric["workloads"] and set(metric["workloads"]) <= cells
+    assert callable(cell_mod.reader(metric["name"]))
+    assert metric["layer"] and "\n" not in metric["layer"] and len(metric["layer"]) <= 200
+    assert metric["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+    for w in metric["workloads"]:  # each cell reports the metric it moves
+        assert metric["moves"] in {m["name"] for m in cell_mod.load(w).end_to_end}
+
+
 @pytest.mark.parametrize("P,chunk,strata", [
     (32, None, [(0, 32)]), (512, None, [(0, 512)]),
     (4096, 1024, [(8, 1032), (1032, 2056), (2056, 3080), (3080, 4096)]),

@@ -63,3 +63,87 @@ def test_summary_of_an_excerpt():
 ])
 def test_a_session_that_lost_records_is_made_again(counts, min_ops, ok):
     assert trace.settled(counts, min_ops) is ok
+
+
+# a session of one replay of a three-node graph, in the form torch.profiler
+# exports it; `lose` drops that many of its device records
+SPAN_NAMES = ("block.replay", "ga.step", "render.walk")
+GRAPH_TABLE = ("ga.step", "ga.step/render.walk", "ga.step")
+
+
+def _session(lose=0):
+    def ev(name, cat, ts, dur, corr=None):
+        e = dict(_x(name, cat, ts, dur), pid=1, tid=1)
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    ops = [ev("Memset (Device)", "gpu_memset", 3.0, 1.0, 9),
+           ev(next(n for n, k in NAMES.items() if k == "K1"), "kernel", 5.0, 10.0, 9),
+           ev("Memcpy DtoD (Device -> Device)", "gpu_memcpy", 16.0, 2.0, 9)]
+    return [ev(trace.WINDOW, "user_annotation", 0.0, 20.0),
+            ev("block.replay", "user_annotation", 1.0, 2.0),
+            ev("cudaGraphLaunch", "cuda_runtime", 1.5, 1.0, 9)] + ops[lose:]
+
+
+def test_a_session_reading_carries_the_spans():
+    r = trace.read_session(_session(), trace.load_table(), 2e-5, GRAPH_TABLE, SPAN_NAMES)
+    assert r["ops"] == 3 and r["spans"]["unmapped_groups"] == []
+    assert r["spans"]["self_s"] == {"block.replay/ga.step": pytest.approx(3e-6),
+                                    "block.replay/ga.step/render.walk": pytest.approx(10e-6)}
+    assert r["spans"]["replay_idle_s"] == pytest.approx(2e-6)  # 4-5 and 15-16
+    plain = trace.summarize(_session(), trace.load_table(), 2e-5)
+    assert {k: v for k, v in r.items() if k != "spans"} == plain
+
+
+def test_a_replay_that_does_not_map_counts_its_operations_lost():
+    r = trace.read_session(_session(lose=1), trace.load_table(), 2e-5, GRAPH_TABLE, SPAN_NAMES)
+    assert r["spans"]["unmapped_groups"] == [2]
+    assert r["ops"] == 0  # 2 recorded, both in a replay that maps onto nothing
+    eager = trace.read_session(_session(lose=1), trace.load_table(), 2e-5, None, SPAN_NAMES)
+    assert eager["spans"]["unmapped_groups"] == [2]  # a replay with no table maps onto nothing
+
+
+class _FakeProfiler:
+    """torch.profiler.profile's stand-in: each session exports the next of
+    `sessions`."""
+
+    def __init__(self, sessions):
+        self.sessions = iter(sessions)
+
+    def __call__(self, **kw):
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def export_chrome_trace(self, path):
+        import json
+
+        with open(path, "w") as fh:
+            json.dump({"traceEvents": next(self.sessions)}, fh)
+
+
+@pytest.mark.parametrize("lost,attempts", [([0], 1), ([1, 0], 2), ([1, 1, 1, 1], 4)])
+def test_profile_makes_again_a_session_whose_replay_did_not_map(lost, attempts, monkeypatch,
+                                                                tmp_path):
+    import torch
+
+    from portbench import spans
+
+    monkeypatch.setattr(torch.profiler, "profile",
+                        _FakeProfiler([_session(n) for n in lost]))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(spans, "program_spans", lambda: SPAN_NAMES)
+    monkeypatch.setattr(trace, "OUT_DIR", str(tmp_path))
+    asked = []
+    r = trace.profile(lambda: None, 3, trace.load_table(),
+                      span_table=lambda: asked.append(1) or GRAPH_TABLE)
+    assert r["attempts"] == attempts and len(asked) == attempts
+    assert r["op_counts"] == [0 if n else 3 for n in lost]
+    assert r["settled"] is (lost[-1] == 0)
+    assert r["spans"]["unmapped_groups"] == ([2] if lost[-1] else [])
+    assert list(tmp_path.iterdir()) == []  # each session's trace is deleted once read

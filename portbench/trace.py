@@ -6,12 +6,16 @@ reads it and deletes it. From the device operations (kernels, copies and
 fills) it takes the busy time (the union of their intervals), each
 operation's time by the kernel table in kernels.json, the ten operations
 that took most time, and the ten longest idle gaps, each named by the
-innermost host event under its middle. A session that recorded fewer
-device operations than the block is known to launch (a replayed graph's
-nodes) lost records: it is made again, up to ATTEMPTS times. Where the
-count is not known (an eager block), sessions are made until two in a row
-record the same number of operations, again up to ATTEMPTS. The reading
-kept is that of the session that recorded the most.
+innermost host event under its middle; and, by portbench/spans.py, each
+device operation put down to the program's span that launched it (a
+replayed graph's operations by the graph's span table). A session that
+recorded fewer device operations than the block is known to launch (a
+replayed graph's nodes) lost records: it is made again, up to ATTEMPTS
+times. The operations of a replay that does not map onto its span table
+count as lost too. Where the count is not known (an eager block),
+sessions are made until two in a row record the same number of
+operations, again up to ATTEMPTS. The reading kept is that of the
+session that recorded the most.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import os
 import re
 import time
 from collections import defaultdict
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 from .inputs import ROOT
 
@@ -106,6 +110,23 @@ def summarize(events: list, table: dict, window_s: float) -> dict:
     }
 
 
+def read_session(events: list, table: dict, window_s: float,
+                 span_table: Optional[Sequence[str]] = None,
+                 names: Optional[Sequence[str]] = None) -> dict:
+    """One session's Chrome-trace events -> summarize's reading with
+    "spans", spans.attribute's reading of the same events (span_table: that
+    of the graph the session replayed, None for an eager block; names: the
+    program's span names, by default its own). The operations of replays
+    that do not map onto span_table are taken off "ops": a session that
+    lost a record in a replay counts short, so profile makes it again."""
+    from . import spans  # spans imports this module
+
+    out = summarize(events, table, window_s)
+    out["spans"] = spans.attribute(events, span_table, names)
+    out["ops"] -= sum(out["spans"]["unmapped_groups"])
+    return out
+
+
 def settled(counts: list, min_ops: Optional[int]) -> bool:
     """Whether the sessions' device operation counts so far can be kept: the
     last meets min_ops, or, with min_ops None, repeats the one before."""
@@ -115,14 +136,17 @@ def settled(counts: list, min_ops: Optional[int]) -> bool:
 
 
 def profile(session: Callable[[], None], min_ops: Optional[int], table: dict,
-            measure: Optional[Callable[[], object]] = None) -> dict:
+            measure: Optional[Callable[[], object]] = None,
+            span_table: Optional[Callable[[], Optional[Sequence[str]]]] = None) -> dict:
     """Profile session() (whole blocks that end synchronised) until a session
     records at least min_ops device operations, or, with min_ops None, until
-    two sessions in a row record the same number. -> summarize's reading of
-    the session that recorded the most operations (the last of those), with
-    "measured", measure()'s values before and after that session (taken
-    outside the profiler), "attempts", "settled" (whether the count was met
-    or repeated) and every session's count."""
+    two sessions in a row record the same number. -> read_session's reading
+    of the session that recorded the most operations (the last of those),
+    "spans" among it, with "measured", measure()'s values before and after
+    that session (taken outside the profiler), "attempts", "settled"
+    (whether the count was met or repeated) and every session's count.
+    span_table() gives the span table of the graph the session replayed,
+    read after each session (None, or no span_table, for an eager block)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -143,7 +167,7 @@ def profile(session: Callable[[], None], min_ops: Optional[int], table: dict,
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
         os.remove(path)
-        out = summarize(events, table, window_s)
+        out = read_session(events, table, window_s, span_table() if span_table else None)
         out["measured"] = (before, measure() if measure is not None else None)
         counts.append(out["ops"])
         if best is None or out["ops"] >= best["ops"]:
