@@ -386,7 +386,9 @@ def make_memetic_run_block(
         for _ in range(num_gens):
             state, m = step(state, obj, target, weight_mask, ga, gnm, {}, {}, rows=rows)
             if state.gen % refine_every == 0:
-                state = _refine(state, refine, E, target, weight_mask)
+                with profiling.span("ga.refine"):
+                    state = _refine(state, refine, E, target, weight_mask)
+                profiling.count("ga.refine")
             out.append(torch.stack([state.best_fit, m[1], m[2], state.no_improve.to(m.dtype)]))
         return state, torch.stack(out)
 

@@ -21,7 +21,8 @@ way to add to it: the kernel wrappers count their device launches there
 those that walk from an init canvas; "K6-queue" and "K7-queue" those whose
 blocks take their items from a queue; "K5-band" and "K5-fallback" K5's band
 stages and overflow fallbacks), render_cuda.bin_splats its calls by route
-("bin.dense", "bin.k5"), and a measuring caller its own events. A replayed
+("bin.dense", "bin.k5"), the memetic block its refinements ("ga.refine"),
+and a measuring caller its own events. A replayed
 run block runs no Python, so utils/block_graph.py adds its capture's counts
 at each replay.
 """
@@ -54,6 +55,7 @@ SPANS = (
     "adam.step",  # one projected Adam step
     "adam.value_and_grad",  # the step's value and gradient
     "adam.update",  # the optimizer's update and the projection
+    "ga.refine",  # the elites' Adam refinement and its accept (ga._refine)
 )
 
 COUNTS: collections.Counter = collections.Counter()

@@ -1,8 +1,10 @@
 """The port's program spans (utils/profiling.span) and the span tables of
 captured run blocks (utils/block_graph.py).
 
-On the CPU, at a small size: a GA block and Adam steps under torch.profiler
-open the spans of profiling.SPANS nested as the layers nest; the package
+On the CPU, at a small size: a GA block, Adam steps and a memetic block
+under torch.profiler open the spans of profiling.SPANS nested as the
+layers nest (the memetic refinement's Adam steps and accept under
+ga.refine); the package
 opens no span outside SPANS; with the profiler off and no capture a span
 opens nothing; span_paths maps a captured chain's marks to span paths.
 On a card (marked `cuda`, skipped here): the span table of a captured GA
@@ -95,6 +97,28 @@ def test_an_adam_step_opens_value_and_grad_and_update(tmp_path, monkeypatch, rou
         want.update({vg + "/render.screen": 2, vg + "/render.feats": 4,
                      vg + "/render.walk": 2})
     assert paths == want
+
+
+def test_a_memetic_block_nests_its_refinement_under_ga_refine(tmp_path):
+    """A memetic block of 2 generations that refines after the second: the
+    refinement's Adam steps and its accept's evaluate nest under ga.refine,
+    and the GA's own evaluate does not."""
+    obj = objective.Objective(H=H, W=W, precision="exact-tight")
+    gcfg = GAConfig(pop_size=4, elite_k=2, generations=20)
+    gnm = GenomeConfig(n_splats=N)
+    tgt = torch.from_numpy(image(1, H, W))
+    state = ga.init(torch.Generator().manual_seed(2), obj, tgt, None, gcfg, gnm)
+    run = ga.make_memetic_run_block(obj, gcfg, gnm, GradConfig(lr=1e-2), 2, 3)
+    paths = _paths(tmp_path, lambda: run(state, tgt, None, 2))
+    vg = "ga.refine/adam.step/adam.value_and_grad"
+    assert paths["ga.step"] == 2 and paths["ga.refine"] == 1
+    assert paths["ga.step/objective.evaluate"] == 2
+    assert paths["ga.refine/adam.step"] == 3 and paths[vg] == 3
+    assert paths[vg + "/render.grad"] == 3 and paths["ga.refine/adam.step/adam.update"] == 3
+    assert paths["ga.refine/objective.evaluate"] == 1  # the accept
+    assert paths["ga.refine/objective.evaluate/render.walk"] == 1
+    assert not any(p.startswith("ga.refine") for p in paths if "ga.step" in p)
+    assert sum(n for p, n in paths.items() if p.endswith("objective.evaluate")) == 3
 
 
 def test_the_package_opens_only_published_spans():
