@@ -37,8 +37,8 @@
 //     storing T at every kChunk-splat boundary (4 bytes a pixel); its end
 //     is T_total, so dinit = g * T_total.
 //   G pass: chunk by chunk from the first, replay the chunk backward from its
-//     stored T, keeping each splat's T_k and e in shared memory (8 bytes a
-//     pair-pixel), then walk the chunk forward carrying C_{k-1} in registers
+//     stored T, keeping each splat's T_k and e in shared memory (a float2, 8
+//     bytes a pair-pixel), then walk the chunk forward carrying C_{k-1} in registers
 //     from the init canvas or the background, forming the 9 sums from the
 //     stored T_k and e (no third exp).
 // Each f, T_k and C_{k-1} is the same operation in the same order as in the
@@ -50,14 +50,35 @@
 // The work unit is a sub-tile, not the list tile. A block of 128 threads
 // walks kRows = 4 rows x 128 columns of one list tile (128 wide, tile_h = 8,
 // 16, 32 or 64 rows: tile_h / 4 sub-tiles), each thread one column and four
-// consecutive rows, carrying their canvas, g and T in registers. The four
-// rows run without a branch (row_exp), so their dependent chains interleave.
-// Every sub-tile of a tile walks the tile's whole list: a splat whose rows
-// miss the sub-tile costs a block-uniform test. The list's splat parameters
-// are staged through shared memory kChunk at a time, padded to 16 floats for
-// 16-byte loads, double-buffered and two deep: each thread loads its share
-// of the next chunk's parameters, and the list entries of the one after,
-// while the block walks the current one. Per (splat, warp) the 9 sums reduce
+// consecutive rows, carrying their canvas, g and T in registers. Every
+// sub-tile of a tile walks the tile's whole list: a splat whose rows miss the
+// sub-tile costs a block-uniform test, one whose columns miss a warp's 32 a
+// warp-uniform test (on grad-10k-1024's last pass 3.3% of the list slots and
+// 19% of the kept (slot, warp) visits; PERF.md). The list's splat
+// parameters are staged through shared memory kChunk at a time,
+// double-buffered and two deep: each thread loads its share of the next
+// chunk's parameters, and the list entries of the one after, while the block
+// walks the current one. A splat's record is 7 float4s for 16-byte loads:
+// its box (x0 x1 y0 y1), (cx sxx sxy a), its row terms over the sub-tile's
+// four rows qy = (yb + r) - cy and the quadratic's syy*(qy*qy), (rc gc bc -),
+// and the G walk's row terms sxy*qy and syy*qy. The row terms depend only on
+// the splat and the sub-tile, so they are computed once a chunk while it is
+// staged, by warp 0 (whose staging slots are cy, sxy, syy and cx: a lane a
+// (splat, row), the three taken by shuffles), with the walk's own operations
+// in its order, before the barrier that stages the rest; the pixels read
+// them. The walks then run the four rows without a branch in one of two
+// forms chosen per splat and warp (by_cover): where the box holds the
+// sub-tile's rows (block-uniform) and the warp's 32 columns (warp-uniform),
+// e with no test; elsewhere a select per pixel, e = 0 outside the box. The
+// arithmetic and its rounding are the same in both, so every value keeps its
+// bits whichever runs, and the four rows' dependent chains interleave in
+// each (on that pass 83% of the visits take the first form). A third form,
+// for boxes that hold the rows only (a select on the column alone; 16% of
+// the visits there, 43% on run_grad's default lists), made K7 4-6% slower
+// than two forms on those lists, slower than with no forms at all, and
+// gained nothing elsewhere (PERF.md §6 PR 27). The G replay writes e = 0 for
+// the warp's pixels outside the box, so the G forward walk needs no test of
+// its own. Per (splat, warp) the 9 sums reduce
 // by a halving butterfly (16 shuffles instead of 9 x 5: lane l ends with the
 // sum of value l >> 1), then the 4 warps in order; per (sub-tile, list slot)
 // they go to spart [B, T, S, L, 9]. A second kernel sums the S sub-tiles in
@@ -83,7 +104,16 @@
 // fixed stride -> queue): K6 with d(init) on a 5,000-splat pass at 1024x1024
 // (2,048 items) 3.394 -> 3.174 ms; K6 and K7 at B=8, N=512, 512x512 (4,096
 // items) 0.896 -> 0.823 and 1.073 -> 1.005 ms; at B=1, N=2000 (512 items)
-// unchanged.
+// unchanged. The row terms and cover forms (same card, CUDA events, mean of
+// two runs a side; PERF.md §6 PR 27): K6 with d(init) on that pass 3.191 ->
+// 2.837 ms, K6 and K7 at B=8 0.821 -> 0.735 and 1.003 -> 0.899 ms, at B=1
+// 0.468 -> 0.428 and 0.567 -> 0.522 ms, K7 on run_grad's default lists
+// (adam512-n2000's window) 0.321 -> 0.310 ms, every output the same bits.
+// SASS instructions a covered (splat, pixel) pair, the loop's shared tests
+// counted in (cuobjdump -sass, tools/grad_walk_times.py --sass): the T pass
+// 29.25 -> 22.5 (27.75 in the form with the select), the G replay 34.25 ->
+// 25.5 (30.25), the G forward walk 89.75 -> 77.5 (its reduction counted in),
+// K7's forward walk 36.5 -> 30.75 (36.0): K6 153.25 -> 125.5.
 //
 // What bounds it: operations. Per pair-pixel the function needs one forward
 // step (23) and one backward step (45); this kernel runs 2 (K6) or 3 (K7)
@@ -104,9 +134,10 @@
 // sub-tiles summed per list slot first.
 //
 // ptxas (sm_90a, -O3 -fmad=false) on the H100 run recorded in PERF.md:
-// grad_kernel<false> (K6) and <true> (K7) 96 registers each (the launch
-// bound caps them for 5 blocks a SM), ~35 KB of static shared memory, no
-// spills; sub_sum_kernel and tile_sum_kernel 32 registers.
+// grad_kernel<false> (K6) 93 registers and <true> (K7) 91 (the launch bound
+// caps them at 96 for 5 blocks a SM), 36,612 and 36,628 bytes of static
+// shared memory (the records 1,792, T_k and e 32,768, the sums 2,048), no
+// spills: 5 blocks a SM; sub_sum_kernel and tile_sum_kernel 32 registers.
 
 #include <cuda_runtime.h>
 
@@ -144,32 +175,90 @@ struct GradParams {
   float bg0, bg1, bg2;
 };
 
-struct Splat {
-  float cx, cy, sxx, sxy, syy, rc, gc, bc, a, x0, x1, y0, y1;
+// A splat's shared-memory record, in float4s: its box (x0 x1 y0 y1), then
+// (cx sxx sxy a); its row terms over the sub-tile's four rows, which only the
+// splat and the row decide (a float4 each over rows yb .. yb + 3): qy =
+// (yb + r) - cy and the quadratic's syy*(qy*qy); then (rc gc bc -); then the
+// G walk's row terms sxy*qy and syy*qy. cy and syy enter the row terms only.
+// The T pass and the G replay read the first four, K7's forward walk five.
+enum { R_BOX, R_SPLAT, R_QY, R_YY, R_COLOUR, R_XY, R_RY, kRec };
+
+// The table row a staging slot s (entry e = s * kChunk + splat) loads: warp
+// 0's slots 0-3 hold cy, sxy, syy and cx, so warp 0 holds in registers
+// whatever the row terms need.
+__host__ __device__ constexpr int stage_row(int s) {
+  return s == 0 ? F_CY : s == 1 ? F_SXY : s == 2 ? F_SYY : s == 3 ? F_CX : s == 4 ? F_SXX : s;
+}
+// a table row's float slot in the record, or -1 (cy, syy)
+__host__ __device__ constexpr int rec_slot(int r) {
+  return r >= F_X0 ? r - F_X0 : r == F_CX ? 4 : r == F_SXX ? 5 : r == F_SXY ? 6 : r == F_A ? 7
+       : r >= F_R && r <= F_B ? 4 * R_COLOUR + r - F_R : -1;
+}
+static_assert(stage_row(4) == F_SXX && stage_row(5) == F_R && stage_row(12) == F_Y1 &&
+                  rec_slot(F_R) == 16 && rec_slot(F_B) == 18 && rec_slot(F_A) == 7,
+              "every row but cy and syy has one slot");
+
+// A splat's first n float4s of shared memory at p into r, by 16-byte loads.
+template <int n>
+__device__ __forceinline__ void load_record(float4 (&r)[n], const float4* p) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) r[i] = p[i];
+}
+
+// Whether a splat's box covers all of the sub-tile's rows and a warp's
+// columns (e with no test) or not (a select per pixel).
+enum Cover { kAll, kPartial };
+template <Cover k>
+struct Form {
+  static constexpr Cover value = k;
 };
 
-// A splat's 13 parameters in shared memory, padded to 16: four 16-byte loads.
-__device__ __forceinline__ Splat load_splat(const float4 (&sf)[kChunk][4], int j) {
-  const float4 a = sf[j][0], b = sf[j][1], c = sf[j][2], d = sf[j][3];
-  static_assert(F_CX == 0 && F_SYY == 4 && F_A == 8 && F_Y1 == 12, "table rows");
-  return Splat{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, d.x};
+// block-uniform: the box bx (x0 x1 y0 y1) misses the sub-tile's rows yb ..
+// ye; warp-uniform: it misses the warp's columns wx0 .. wx1
+__device__ __forceinline__ bool misses(float4 bx, float yb, float ye, float wx0, float wx1) {
+  return bx.w < yb || bx.z > ye || bx.y < wx0 || bx.x > wx1;
 }
 
-// e = exp(-0.5 * quad) in the unfolded form of render_grad's masked_exp
-__device__ __forceinline__ float splat_exp(const Splat& s, float qx, float txx, float qy) {
-  float quad = txx + (2.0f * s.sxy) * (qx * qy);
-  quad = quad + s.syy * (qy * qy);
-  return expf(-0.5f * quad);
+// walk(Form<kCover>) for a splat whose box bx meets the sub-tile and the
+// warp: kAll where it holds the sub-tile's rows (block-uniform) and the
+// warp's columns (warp-uniform), else kPartial; nothing where it misses
+// either. So each walk is written once and compiled in two forms; the
+// commoner, kAll, is tested first.
+template <typename F>
+__device__ __forceinline__ void by_cover(float4 bx, float yb, float ye, float wx0, float wx1,
+                                         F&& walk) {
+  if (bx.z <= yb && bx.w >= ye && bx.x <= wx0 && bx.y >= wx1)
+    walk(Form<kAll>{});
+  else if (!misses(bx, yb, ye, wx0, wx1))
+    walk(Form<kPartial>{});
 }
 
-// e at row yf of this column, times 0 outside the splat's rows: e is
-// finite (quad >= 0 up to rounding), so e * 0 = 0 and then f = 0, and every
-// update of the walks leaves its value as it was bit for bit (T * (1 - 0),
-// (1 - 0) * C + 0 * c, acc + 0 * x). The four rows run without a branch, so
-// their dependent chains interleave.
-__device__ __forceinline__ float row_exp(const Splat& s, float qx, float txx, float yf) {
-  const float in = (yf >= s.y0 && yf <= s.y1) ? 1.0f : 0.0f;
-  return splat_exp(s, qx, txx, yf - s.cy) * in;
+// e = exp(-0.5 * quad) (the unfolded form of render_grad's masked_exp) at
+// the thread's four rows yb .. yb + 3 of column xf, from the record's
+// (cx sxx sxy a) sp and row terms qy and yy, and 0 outside the box bx by a
+// select: e is finite (quad >= 0 up to rounding), and with e = 0 f = 0, so
+// every update of the walks leaves its value as it was bit for bit (T * (1 -
+// 0), (1 - 0) * C + 0 * c, acc + 0 * x). kAll drops the tests its cover
+// makes true. The four rows run without a branch, so their dependent chains
+// interleave.
+template <Cover kCover>
+__device__ __forceinline__ void row_e(float (&e)[kRows], float4 bx, float4 sp, float4 qy4,
+                                      float4 yy4, float xf, float yb) {
+  const float* qy = &qy4.x;
+  const float* yy = &yy4.x;
+  const float qx = xf - sp.x;
+  const float txx = sp.y * (qx * qx);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    float quad = txx + (2.0f * sp.z) * (qx * qy[r]);
+    quad = quad + yy[r];
+    const float ex = expf(-0.5f * quad);
+    e[r] = ex;
+    if constexpr (kCover == kPartial) {
+      const float yf = yb + (float)r;
+      e[r] = (xf >= bx.x && xf <= bx.y && yf >= bx.z && yf <= bx.w) ? ex : 0.0f;
+    }
+  }
 }
 
 // One step of warp_sum9: lanes with bit 2H set keep the upper half of
@@ -201,10 +290,10 @@ __device__ __forceinline__ float warp_sum9(const float (&acc)[kNGrad], int lane)
 
 template <bool kFused>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p) {
-  __shared__ float4 sf[2][kChunk][4];
-  __shared__ float tk[kChunk][kRows][kThreads];  // T_k of the chunk's splats
-  __shared__ float ek[kChunk][kRows][kThreads];  // and their e (0 outside the box)
-  __shared__ float red[kWarps][kChunk][kNGrad];
+  __shared__ float4 sf[2][kChunk][kRec];
+  __shared__ float2 tek[kChunk][kRows][kThreads];  // the chunk's T_k and e (0 outside the box)
+  static_assert(kNGrad <= 16 && kThreads == 32 * kWarps, "a (splat, warp)'s sums in 16 slots");
+  __shared__ float red[kChunk][kWarps][16];  // a (splat, warp)'s 9 sums: lane l's at col / 2
   __shared__ float nred[kWarps];
   __shared__ int next_item;  // the block's next item, from the queue
 
@@ -214,6 +303,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
   const size_t plane = (size_t)p.Hp * p.Wp;
   float* bnd = p.bound + (size_t)blockIdx.x * p.max_chunks * kRows * kThreads;
   const int items = p.B * p.T * p.S;
+  // The table row this thread stages and its slot in the record, once: worked
+  // out again each chunk, they cost K7 more than the row terms saved.
+  static_assert(kPer == 1, "one staged entry a thread");
+  const int srow = col < kNFeat * kChunk ? stage_row(col / kChunk) : 0;
+  const int sslot = rec_slot(srow);
 
   for (int it = blockIdx.x; it < items; it = next_item) {
     const int bt = it / p.S;
@@ -225,6 +319,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
     const float xf = (float)(tx0 + col);
     const float yb = (float)ry0;
     const float ye = (float)(ry0 + kRows - 1);
+    const float wx0 = (float)(tx0 + 32 * warp), wx1 = wx0 + 31.0f;  // the warp's columns
     const size_t px = (size_t)ry0 * p.Wp + tx0 + col;  // this thread's pixel in row 0
     const int n = p.cnt[bt];
     const int nch = (n + kChunk - 1) / kChunk;
@@ -249,15 +344,34 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
 #pragma unroll
       for (int q = 0; q < kPer; ++q) {
         ps[q] = pn[q];
-        if (ps[q] >= 0) pv[q] = fb[(size_t)((col + q * kThreads) / kChunk) * p.N1 + ps[q]];
+        if (ps[q] >= 0) pv[q] = fb[(size_t)srow * p.N1 + ps[q]];
       }
       entries(cn);
     };
+    // put(buf) stores the staged parameters into the chunk's records, and
+    // warp 0 (which holds cy, sxy and syy of the chunk's splats in lanes
+    // 0-7, 8-15 and 16-23) their row terms, lane l those of splat l / 4 at
+    // row yb + l % 4, with the walk's own operations in its order.
     auto put = [&](int buf) {
 #pragma unroll
       for (int q = 0; q < kPer; ++q) {
         const int e = col + q * kThreads;
-        if (ps[q] >= 0) reinterpret_cast<float*>(sf[buf][e % kChunk])[e / kChunk] = pv[q];
+        if (ps[q] >= 0 && sslot >= 0) reinterpret_cast<float*>(sf[buf][e % kChunk])[sslot] = pv[q];
+      }
+      static_assert(kPer == 1 && kChunk * kRows == 32 && stage_row(0) == F_CY &&
+                        stage_row(1) == F_SXY && stage_row(2) == F_SYY,
+                    "warp 0 stages cy, sxy and syy, and a lane a (splat, row)");
+      if (warp == 0) {
+        const int j = lane / kRows, r = lane % kRows;
+        const float cy = __shfl_sync(0xffffffffu, pv[0], j);
+        const float sxy = __shfl_sync(0xffffffffu, pv[0], kChunk + j);
+        const float syy = __shfl_sync(0xffffffffu, pv[0], 2 * kChunk + j);
+        const float qy = (yb + (float)r) - cy;
+        float* rec = reinterpret_cast<float*>(sf[buf][j]);
+        rec[4 * R_QY + r] = qy;
+        rec[4 * R_YY + r] = syy * (qy * qy);
+        rec[4 * R_XY + r] = sxy * qy;
+        rec[4 * R_RY + r] = syy * qy;
       }
     };
     // body(c, buf, m) for every chunk, forward (fwd) or from the last; the
@@ -301,18 +415,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
       start_canvas();
       pass(true, [&](int c, int buf, int m) {
         for (int j = 0; j < m; ++j) {
-          const Splat s = load_splat(sf[buf], j);
-          if (s.y1 < yb || s.y0 > ye || !(xf >= s.x0 && xf <= s.x1)) continue;
-          const float qx = xf - s.cx;
-          const float txx = s.sxx * (qx * qx);
+          float4 rec[R_COLOUR + 1];
+          load_record(rec, sf[buf][j]);
+          by_cover(rec[R_BOX], yb, ye, wx0, wx1, [&](auto form) {
+            float e[kRows];
+            row_e<decltype(form)::value>(e, rec[R_BOX], rec[R_SPLAT], rec[R_QY], rec[R_YY], xf,
+                                         yb);
+            const float a = rec[R_SPLAT].w;
+            const float4 c = rec[R_COLOUR];
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float f = s.a * row_exp(s, qx, txx, yb + (float)r);
-            const float omf = 1.0f - f;
-            cr[r] = omf * cr[r] + f * s.rc;
-            cg[r] = omf * cg[r] + f * s.gc;
-            cb[r] = omf * cb[r] + f * s.bc;
-          }
+            for (int r = 0; r < kRows; ++r) {
+              const float f = a * e[r];
+              const float omf = 1.0f - f;
+              cr[r] = omf * cr[r] + f * c.x;
+              cg[r] = omf * cg[r] + f * c.y;
+              cb[r] = omf * cb[r] + f * c.z;
+            }
+          });
         }
       });
       float acc = 0.0f;
@@ -358,13 +477,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
 #pragma unroll
       for (int r = 0; r < kRows; ++r) bc[r * kThreads] = T[r];
       for (int j = m - 1; j >= 0; --j) {
-        const Splat s = load_splat(sf[buf], j);
-        if (s.y1 < yb || s.y0 > ye || !(xf >= s.x0 && xf <= s.x1)) continue;
-        const float qx = xf - s.cx;
-        const float txx = s.sxx * (qx * qx);
+        float4 rec[R_YY + 1];
+        load_record(rec, sf[buf][j]);
+        by_cover(rec[R_BOX], yb, ye, wx0, wx1, [&](auto form) {
+          float e[kRows];
+          row_e<decltype(form)::value>(e, rec[R_BOX], rec[R_SPLAT], rec[R_QY], rec[R_YY], xf, yb);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          T[r] = T[r] * (1.0f - s.a * row_exp(s, qx, txx, yb + (float)r));
+          for (int r = 0; r < kRows; ++r) T[r] = T[r] * (1.0f - rec[R_SPLAT].w * e[r]);
+        });
       }
     });
     if (p.dinit) {  // T is T_total
@@ -394,63 +514,65 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
         for (int r = 0; r < kRows; ++r) tn[r] = bc[r * kThreads];
       }
       for (int j = m - 1; j >= 0; --j) {
-        const Splat s = load_splat(sf[buf], j);
-        if (s.y1 < yb || s.y0 > ye || !(xf >= s.x0 && xf <= s.x1)) continue;
-        const float qx = xf - s.cx;
-        const float txx = s.sxx * (qx * qx);
+        float4 rec[R_YY + 1];
+        load_record(rec, sf[buf][j]);
+        by_cover(rec[R_BOX], yb, ye, wx0, wx1, [&](auto form) {
+          float e[kRows];
+          row_e<decltype(form)::value>(e, rec[R_BOX], rec[R_SPLAT], rec[R_QY], rec[R_YY], xf, yb);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float e = row_exp(s, qx, txx, yb + (float)r);
-          tk[j][r][col] = T[r];
-          ek[j][r][col] = e;
-          T[r] = T[r] * (1.0f - s.a * e);
-        }
+          for (int r = 0; r < kRows; ++r) {
+            tek[j][r][col] = make_float2(T[r], e[r]);
+            T[r] = T[r] * (1.0f - rec[R_SPLAT].w * e[r]);
+          }
+        });
       }
+      // The replay wrote e = 0 for every pixel of the warp outside the box,
+      // so the forward walk needs no test of its own: f = 0 there, and its
+      // sums and canvas keep their bits.
       for (int j = 0; j < m; ++j) {
-        const Splat s = load_splat(sf[buf], j);
-        if (s.y1 < yb || s.y0 > ye) {  // block-uniform: no row of the sub-tile
-          if (lane < kNGrad) red[warp][j][lane] = 0.0f;
+        float4 rec[kRec];
+        load_record(rec, sf[buf][j]);
+        if (misses(rec[R_BOX], yb, ye, wx0, wx1)) {  // block- or warp-uniform: not walked
+          if (lane < kNGrad) red[j][warp][lane] = 0.0f;
           continue;
         }
+        const float4 sp = rec[R_SPLAT], c = rec[R_COLOUR];
+        const float* qyr = &rec[R_QY].x;
+        const float* xyr = &rec[R_XY].x;
+        const float* ryr = &rec[R_RY].x;
         float acc[kNGrad];
 #pragma unroll
         for (int i = 0; i < kNGrad; ++i) acc[i] = 0.0f;
-        const bool any = xf >= s.x0 && xf <= s.x1;
-        if (any) {
-          const float qx = xf - s.cx;
+        const float qx = xf - sp.x;
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float qy = (yb + (float)r) - s.cy;
-            const float e = ek[j][r][col];
-            const float f = s.a * e;
-            const float tkr = tk[j][r][col];
-            const float gT0 = g0[r] * tkr;
-            const float gT1 = g1[r] * tkr;
-            const float gT2 = g2[r] * tkr;
-            const float dLdf = (gT0 * (s.rc - cr[r]) + gT1 * (s.gc - cg[r])) +
-                               gT2 * (s.bc - cb[r]);
-            const float dLdq = (-0.5f * f) * dLdf;
-            acc[0] = acc[0] + (dLdq * -2.0f) * (s.sxx * qx + s.sxy * qy);
-            acc[1] = acc[1] + (dLdq * -2.0f) * (s.syy * qy + s.sxy * qx);
-            acc[2] = acc[2] + (dLdq * qx) * qx;
-            acc[3] = acc[3] + ((dLdq * 2.0f) * qx) * qy;
-            acc[4] = acc[4] + (dLdq * qy) * qy;
-            acc[5] = acc[5] + gT0 * f;
-            acc[6] = acc[6] + gT1 * f;
-            acc[7] = acc[7] + gT2 * f;
-            acc[8] = acc[8] + dLdf * e;
-            const float omf = 1.0f - f;
-            cr[r] = omf * cr[r] + f * s.rc;
-            cg[r] = omf * cg[r] + f * s.gc;
-            cb[r] = omf * cb[r] + f * s.bc;
-          }
+        for (int r = 0; r < kRows; ++r) {
+          const float qy = qyr[r];
+          const float2 te = tek[j][r][col];
+          const float tkr = te.x, e = te.y;
+          const float f = sp.w * e;
+          const float gT0 = g0[r] * tkr;
+          const float gT1 = g1[r] * tkr;
+          const float gT2 = g2[r] * tkr;
+          const float dLdf = (gT0 * (c.x - cr[r]) + gT1 * (c.y - cg[r])) +
+                             gT2 * (c.z - cb[r]);
+          const float dLdq = (-0.5f * f) * dLdf;
+          const float d2 = dLdq * 2.0f;  // dLdq * -2 is -d2 in every bit
+          acc[0] = acc[0] + (-d2) * (sp.y * qx + xyr[r]);
+          acc[1] = acc[1] + (-d2) * (ryr[r] + sp.z * qx);
+          acc[2] = acc[2] + (dLdq * qx) * qx;
+          acc[3] = acc[3] + (d2 * qx) * qy;
+          acc[4] = acc[4] + (dLdq * qy) * qy;
+          acc[5] = acc[5] + gT0 * f;
+          acc[6] = acc[6] + gT1 * f;
+          acc[7] = acc[7] + gT2 * f;
+          acc[8] = acc[8] + dLdf * e;
+          const float omf = 1.0f - f;
+          cr[r] = omf * cr[r] + f * c.x;
+          cg[r] = omf * cg[r] + f * c.y;
+          cb[r] = omf * cb[r] + f * c.z;
         }
-        if (__any_sync(0xffffffffu, any)) {
-          const float v = warp_sum9(acc, lane);
-          if (!(lane & 1) && lane < 2 * kNGrad) red[warp][j][lane >> 1] = v;
-        } else if (lane < kNGrad) {
-          red[warp][j][lane] = 0.0f;
-        }
+        const float v = warp_sum9(acc, lane);
+        if (!(lane & 1) && lane < 2 * kNGrad) (&red[j][0][0])[col >> 1] = v;
       }
       __syncthreads();
       for (int e = col; e < m * kNGrad; e += kThreads) {
@@ -458,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grad_kernel(GradParams p
         const int q = e - j * kNGrad;
         float s = 0.0f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) s = s + red[w][j][q];
+        for (int w = 0; w < kWarps; ++w) s = s + red[j][w][q];
         sp[(size_t)(c * kChunk) * kNGrad + e] = s;
       }
     });

@@ -83,15 +83,19 @@ def _splat_feats(p: codec.SplatScreen) -> torch.Tensor:
 # ------------------------------------------------------ plain versions
 
 
-def _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head, init=None):
+def _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head, init=None,
+                     sums=None):
     """The backward walk in plain PyTorch over the same lists, slot k of
     every (image, tile) at once, with the kernels' two-level replay, from
     the background or the init canvas [B, 3, Hp, Wp].
 
     head(canvas planes) -> (g0, g1, g2, num) gives the image cotangent
-    planes [B, T, th, tw] and K7's partials (None for K6). Returns
-    (grads [B, 9, N], num, dinit [B, 3, Hp, Wp] = g * T_total, or None
-    without init)."""
+    planes [B, T, th, tw] and K7's partials (None for K6). sums, if given,
+    is (pixels, tiles): the sum of a slot's terms over its tile's pixels
+    ([B, T, 9, th, tw] -> [B, T, 9]) and of the partials over the tiles
+    ([B, T, 9, N+1] -> [B, 9, N+1]) in another order (a test's: the
+    kernels'); else torch's sums. Returns (grads [B, 9, N], num, dinit
+    [B, 3, Hp, Wp] = g * T_total, or None without init)."""
     B, T, _ = idx.shape
     N = feats.shape[2] - 1
     dev = feats.device
@@ -102,6 +106,7 @@ def _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head, in
     yf = yf.to(torch.float32)[None]  # [1, T, th, 1]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     kmax = int(cnt.max()) if cnt.numel() else 0
+    sum_px, sum_tiles = sums or (lambda d: d.sum(dim=(-2, -1)), lambda part: part.sum(dim=1))
 
     def splat(k):
         """Slot k: list entry s [B, T], parameters [B, T, 1, 1], qx, qy, e."""
@@ -169,14 +174,15 @@ def _grad_walk_plain(cnt, idx, feats, n_tx, tile_h, tile_w, background, head, in
                     dLdf * e,
                 ],
                 dim=2,
-            ).sum(dim=(-2, -1))  # [B, T, 9]
+            )
+            d = sum_px(d)  # [B, T, 9]
             # a tile lists a splat once, so each (image, tile, splat) is set once
             part.scatter_(3, s[:, :, None, None].expand(B, T, NGRAD, 1), d[..., None])
             Tr = Tr * (1.0 - f)
     dinit = None
     if init is not None:  # Tr is now the transmittance through the whole list
         dinit = render_cuda._untile(torch.stack([g0 * Tr, g1 * Tr, g2 * Tr], 1), n_tx)
-    return part.sum(dim=1)[:, :, :N], num, dinit
+    return sum_tiles(part)[:, :, :N], num, dinit
 
 
 def bwd_tiles_plain(cnt, idx, feats, g_img, n_tx, tile_h, tile_w, background, init=None):

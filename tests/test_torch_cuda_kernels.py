@@ -26,6 +26,7 @@ and largest true count equal to its plain version's."""
 import pytest
 import torch
 
+from ggs_tpu_torch.ops.render_grad import GRAD_TILE_HS
 from torch_inputs import pass_lists
 
 pytestmark = pytest.mark.cuda
@@ -274,7 +275,7 @@ def test_grad_wrappers_reject_bad_arguments(dev):
         rg.lossgrad_tiles(cnt, idx, feats, tgt_p[:, :-1], w_p, n_tx, 16, 128, bg, 2.0)
 
 
-@pytest.mark.parametrize("tile_h", [8, 16, 32, 64])
+@pytest.mark.parametrize("tile_h", GRAD_TILE_HS)
 def test_grad_kernels_at_list_tile_heights(dev, tile_h):
     """K6 (from the background and from an init canvas, with d(init)) and K7
     on list tiles of each height the kernels walk, against their plain
@@ -314,6 +315,172 @@ def test_grad_kernels_at_list_tile_heights(dev, tile_h):
         if init is not None:
             assert float((d6 - d6_p).abs().max() / d6_p.abs().max()) <= 1e-5
             assert torch.equal(d6, d6b)
+
+
+# (x0, x1, y0, y1) in the sub-tile of rows 4-7 of the first tile row, on a
+# canvas 256 wide (two list tiles): a box that holds its rows and a warp's 32
+# columns (the form with no select), its rows with an edge inside a warp and
+# 1-3 of its rows (the form with the select per pixel), the last tile's last
+# column at the canvas edge, and one with an opaque centre (alpha 255: f = 1
+# there, so T = 0 behind it)
+COVER_BOXES = [
+    (32, 63, 4, 7), (0, 127, 0, 11), (40, 100, 3, 12), (10, 70, 5, 5), (60, 140, 6, 9),
+    (90, 200, 0, 6), (230, 255, 4, 7), (224, 255, 4, 63), (0, 5, 2, 20), (129, 129, 0, 9),
+]
+OPAQUE = (40, 60, 0, 10)  # its centre (50, 5), alpha 1
+
+
+def _cover_case(dev, B, tile_h, seed=3):
+    """Hand-placed splats (COVER_BOXES, OPAQUE) among random ones on a 40 x
+    256 canvas, each image's random splats and colours its own: the walks'
+    (cnt, idx, raw table, n_tx), padded lists by brute force, ascending."""
+    H, W = 40, 256
+    n_tx, n_ty = W // 128, -(-H // tile_h)
+    Hp = n_ty * tile_h
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=g)  # noqa: E731
+    n_rand = 36
+    boxes = []
+    for b in range(B):
+        x0 = (rand(n_rand) * W).floor()
+        y0 = (rand(n_rand) * H).floor()
+        x1 = (x0 + (rand(n_rand) * 150).floor()).clamp(max=W - 1)
+        y1 = (y0 + (rand(n_rand) * 30).floor()).clamp(max=Hp - 1)
+        hand = torch.tensor(COVER_BOXES[:5] + [OPAQUE] + COVER_BOXES[5:], dtype=torch.float32)
+        hand[:, 3] = hand[:, 3].clamp(max=Hp - 1)
+        rb = torch.stack([x0, x1, y0, y1], 1)
+        boxes.append(torch.cat([rb[:7], hand, rb[7:]]))
+    boxes = torch.stack(boxes)  # [B, n, 4]
+    n = boxes.shape[1]
+    x0, x1, y0, y1 = boxes.unbind(2)
+    sx, sy = (x1 - x0 + 1.0) / 4.0, (y1 - y0 + 1.0) / 4.0
+    rho = (rand(B, n) - 0.5) * 1.2
+    feats = torch.zeros((B, 13, n + 1))  # column n: the sentinel, zero
+    f = feats[:, :, :n]
+    f[:, 0] = (x0 + x1) / 2.0 + (rand(B, n) - 0.5) * 3.0
+    f[:, 1] = (y0 + y1) / 2.0 + (rand(B, n) - 0.5) * 2.0
+    f[:, 2] = 1.0 / (sx * sx * (1.0 - rho * rho))
+    f[:, 3] = -rho / (sx * sy * (1.0 - rho * rho))
+    f[:, 4] = 1.0 / (sy * sy * (1.0 - rho * rho))
+    f[:, 5:8] = rand(B, 3, n)
+    f[:, 8] = 0.2 + 0.75 * rand(B, n)
+    op = 7 + 5  # the opaque splat's slot
+    f[:, 0, op], f[:, 1, op], f[:, 3, op], f[:, 8, op] = 50.0, 5.0, 0.0, 1.0
+    f[:, 9:13] = boxes.permute(0, 2, 1)
+    T = n_tx * n_ty
+    cnt = torch.zeros((B, T), dtype=torch.int32)
+    idx = torch.full((B, T, n), n, dtype=torch.int32)
+    for b in range(B):
+        for t in range(T):
+            tx0, ty0 = (t % n_tx) * 128, (t // n_tx) * tile_h
+            hit = ((x1[b] >= tx0) & (x0[b] <= tx0 + 127) & (y1[b] >= ty0)
+                   & (y0[b] <= ty0 + tile_h - 1)).nonzero().flatten()
+            cnt[b, t] = hit.numel()
+            idx[b, t, :hit.numel()] = hit.to(torch.int32)
+    return cnt.to(dev), idx.to(dev), feats.to(dev), n_tx
+
+
+def _kernel_order_sum(v, S):
+    """[..., S * 4, 128] per-pixel values -> [...], summed as the gradient
+    kernels sum them (csrc/walk_grad.cu): each thread's 4 rows in order from
+    0, the warp's 32 lanes by the butterfly (partners 16, 8, 4, 2, 1 apart:
+    warp_sum9, and K7's num by shuffles), the 4 warps in order from 0, then
+    the S sub-tiles in order from 0 (sub_sum_kernel)."""
+    lead = v.shape[:-2]
+    v = v.reshape(*lead, S, 4, 4, 32)  # sub-tile, row, warp, lane
+    acc = torch.zeros_like(v[..., 0, :, :])
+    for r in range(4):
+        acc = acc + v[..., r, :, :]
+    x = acc.reshape(*lead, S, 4, 2, 2, 2, 2, 2)  # the lane's bits 4 .. 0
+    for k in range(5):
+        d = x.dim() - 5 + k
+        x = x.select(d, 0) + x.select(d, 1)
+    w = torch.zeros_like(x[..., 0])
+    for i in range(4):
+        w = w + x[..., i]
+    out = torch.zeros_like(w[..., 0])
+    for u in range(S):
+        out = out + w[..., u]
+    return out
+
+
+def _kernel_order_replay(case, tile_h, bg, g_img=None, init=None, target_p=None, w_p=None,
+                         scale=2.0):
+    """render_grad._grad_walk_plain with the kernels' sums (_kernel_order_sum,
+    then the tiles in order from 0, as tile_sum_kernel): K6's (grads, dinit)
+    from g_img, or K7's (num [B, T], grads) from target_p, w_p and scale."""
+    from ggs_tpu_torch.ops import render_cuda as rc, render_grad as rg
+
+    cnt, idx, feats, n_tx = case
+    S = tile_h // 4
+
+    def tiles(part):
+        s = torch.zeros_like(part[:, 0])
+        for t in range(part.shape[1]):
+            s = s + part[:, t]
+        return s
+
+    sums = (lambda d: _kernel_order_sum(d, S), tiles)
+    if g_img is not None:
+        gt = rc._tiles_of(g_img, n_tx, tile_h, 128)
+        grads, _, dinit = rg._grad_walk_plain(
+            cnt, idx, feats, n_tx, tile_h, 128, bg,
+            lambda canvas: (gt[:, 0], gt[:, 1], gt[:, 2], None), init, sums)
+        return grads, dinit
+    tt = rc._tiles_of(target_p, n_tx, tile_h, 128)
+    wt = rc._tiles_of(w_p, n_tx, tile_h, 128)
+
+    def head(canvas):
+        dr, dg, db = (torch.clamp(ch, 0.0, 1.0) - tt[i] for i, ch in enumerate(canvas))
+        num = _kernel_order_sum((dr * dr + dg * dg + db * db) * wt, S)
+        sw = scale * wt
+        return sw * dr, sw * dg, sw * db, num
+
+    grads, num, _ = rg._grad_walk_plain(cnt, idx, feats, n_tx, tile_h, 128, bg, head, None, sums)
+    return num, grads
+
+
+@pytest.mark.parametrize("queued", [False, True])
+@pytest.mark.parametrize("tile_h", GRAD_TILE_HS)
+def test_grad_kernels_take_each_cover_form_in_bits(dev, tile_h, queued):
+    """K6 (from the background, and from an init canvas with d(init)) and K7
+    on hand-placed splats whose boxes take each cover form in one sub-tile
+    (COVER_BOXES, OPAQUE), at each list tile height, with one item a block
+    and with more items than resident blocks (the queue): every output equal
+    in bits to the plain replay (render_grad._grad_walk_plain, the order of
+    tests/test_torch_walk_order.py) summed in the kernels' order."""
+    from ggs_tpu_torch.ops import render_grad as rg
+
+    S = tile_h // 4
+    T = 2 * -(-40 // tile_h)
+    resident = min(rg._resident_blocks(False, dev.index or 0),
+                   rg._resident_blocks(True, dev.index or 0))
+    B = resident // (T * S) + 2 if queued else 2
+    assert (B * T * S > resident) == queued
+    case = _cover_case(dev, B, tile_h)
+    cnt, idx, feats, n_tx = case
+    assert int(cnt.max()) > 8  # lists across checkpoint chunks (walk_grad.cu kChunk = 8)
+    Hp, Wp = (T // n_tx) * tile_h, n_tx * 128
+    bg = (1.0, 1.0, 1.0)
+    g_img = (0.5 - _init(dev, B, Hp, Wp, seed=11)).contiguous()
+    n6, n7, q6, q7 = _counts("K6", "K7", "K6-queue", "K7-queue")
+    for init in (None, _init(dev, B, Hp, Wp, seed=12)):
+        g6, d6 = rg.bwd_tiles(cnt, idx, feats, g_img, n_tx, tile_h, 128, bg, init=init)
+        w6, wd6 = _kernel_order_replay(case, tile_h, bg, g_img=g_img, init=init)
+        assert torch.equal(g6, w6)
+        assert (d6 is None) == (init is None)
+        if init is not None:
+            assert torch.equal(d6, wd6)
+            assert float((d6 == 0).float().mean()) > 0.0  # T = 0 behind the opaque centre
+    gen = torch.Generator(device=dev).manual_seed(13)
+    target_p = torch.rand((3, Hp, Wp), generator=gen, device=dev)
+    w_p = torch.rand((Hp, Wp), generator=gen, device=dev)
+    num, g7 = rg.lossgrad_tiles(cnt, idx, feats, target_p, w_p, n_tx, tile_h, 128, bg, 2.0)
+    w_num, w7 = _kernel_order_replay(case, tile_h, bg, target_p=target_p, w_p=w_p, scale=2.0)
+    assert torch.equal(num, w_num) and torch.equal(g7, w7)
+    assert float(g7.abs().max()) > 0.0
+    assert _counts("K6", "K7", "K6-queue", "K7-queue") == (
+        n6 + 2, n7 + 1, q6 + 2 * queued, q7 + queued)
 
 
 def _init(dev, B, Hp, Wp, seed=5):
